@@ -1,0 +1,123 @@
+"""Build and load the hand-written CUDA kernels (`seismic_tpu_torch/csrc`).
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface, `seismic_tpu_torch/_build/
+lib<name>.so`, at first use (or all at once, in parallel, by `build()`),
+and loaded with ctypes. Every C entry point launches on the stream it is
+given and returns `cudaGetLastError()`; `check()` raises on a non-zero
+code. Nothing here runs at import time: the CPU tests import every module
+of the package on a machine without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+KERNELS = ("qloc", "grouped_scorer", "rescore")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict = {}
+# ptxas resource report (registers, shared memory, spills) of each build
+ptxas_report: dict = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
+
+
+def _src(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _fresh(name: str) -> bool:
+    so = lib_path(name)
+    return os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(
+        _src(name))
+
+
+def build(names=KERNELS, force: bool = False) -> float:
+    """Compile the named kernels, one `nvcc` process per source, all
+    started together. Returns the wall seconds; raises with the compiler
+    output when any build fails."""
+    t0 = time.time()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        if not force and _fresh(name):
+            continue
+        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, _src(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        ptxas_report[name] = out
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed:\n{out}")
+            continue
+        # rename into place: a concurrent loader never opens a partial file
+        os.replace(tmp, lib_path(name))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.time() - t0
+
+
+def load(name: str):
+    """The ctypes handle of kernel library `name`, built if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            if not _fresh(name):
+                build((name,))
+            _libs[name] = ctypes.CDLL(lib_path(name))
+        return _libs[name]
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed: cudaError {rc}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

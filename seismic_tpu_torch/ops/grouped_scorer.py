@@ -1,0 +1,117 @@
+"""Grouped int8 doc-tile scorer (K2).
+
+Counterpart of `seismic_tpu/ops/pallas_grouped.py::_score_grouped_i8`
+with unroll = 1 (`csrc/grouped_scorer.cu`). For each work item w, with
+g = work_g[w], s = work_s[w] and tile rows R0 = work_region[w] * 128:
+
+    out[g, m, s*128 + r] = f32(sum_v q[g, m, v] * u8[R0 + r, v])
+                           * tile_scale[R0 + r]
+
+The int32 dot is exact; the per-pair scale is applied in the regroup.
+Output blocks no work item covers are left uninitialized (the caller
+masks them). `score_grouped_i8` launches the kernel for CUDA tensors and
+uses the plain PyTorch version, `score_grouped_i8_plain`, for CPU ones.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+from .tiles_prep import SUB
+
+M_SLOTS = 8  # query slots per group the kernel serves
+# kernel launches since the count was last set to 0
+launches = 0
+_handle = None
+
+
+def grouped_dots_plain(tiles, q, work_region, work_g, chunk: int = 256):
+    """Exact int dots [W, M, SUB] (int64) of every work item, computed in
+    float64 (exact: |dot| < 2^53) in chunks of `chunk` items."""
+    W = work_region.shape[0]
+    M = q.shape[1]
+    dev = tiles.device
+    offs = torch.arange(SUB, device=dev)
+    out = torch.empty((W, M, SUB), dtype=torch.int64, device=dev)
+    for w0 in range(0, W, chunk):
+        w1 = min(W, w0 + chunk)
+        rows = work_region[w0:w1].long()[:, None] * SUB + offs  # [n, SUB]
+        t = tiles[rows].to(torch.float64)  # [n, SUB, V]
+        qq = q[work_g[w0:w1].long()].to(torch.float64)  # [n, M, V]
+        out[w0:w1] = torch.bmm(qq, t.transpose(1, 2)).round().to(torch.int64)
+    return out
+
+
+def score_grouped_i8_plain(tiles, tile_scale, q, work_region, work_g,
+                           work_s, ll_max: int):
+    """Plain PyTorch version (same products, same f32 multiply order)."""
+    G_cap, M, V = q.shape
+    dev = tiles.device
+    dots = grouped_dots_plain(tiles, q, work_region, work_g)  # [W, M, SUB]
+    rows = work_region.long()[:, None] * SUB + torch.arange(SUB, device=dev)
+    vals = dots.to(torch.float32) * tile_scale[rows][:, None, :]
+    out = torch.empty((G_cap, M, ll_max // SUB, SUB), dtype=torch.float32,
+                      device=dev)
+    out[work_g.long(), :, work_s.long(), :] = vals
+    return out.reshape(G_cap, M, ll_max)
+
+
+def _lib():
+    global _handle
+    if _handle is None:
+        lib = _cuda.load("grouped_scorer")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.seismic_score_grouped_i8.argtypes = [
+            p, p, p, p, p, p, i, i, i, p, p]
+        lib.seismic_score_grouped_i8.restype = ctypes.c_int
+        _handle = lib
+    return _handle
+
+
+def score_grouped_i8(tiles, tile_scale, q, work_region, work_g, work_s,
+                     ll_max: int):
+    """tiles uint8 [rows, V]; tile_scale f32 [rows]; q int8 [G_cap, 8, V];
+    work_region / work_g / work_s int32 [W_cap] (SUB-row tile region,
+    destination group, subtile slot). Returns f32 [G_cap, 8, ll_max]."""
+    global launches
+    req = _cuda.require
+    req(tiles.dim() == 2 and tiles.dtype == torch.uint8,
+        "tiles must be uint8 [rows, V]")
+    req(tile_scale.shape == tiles.shape[:1]
+        and tile_scale.dtype == torch.float32,
+        "tile_scale must be f32 [rows]")
+    req(q.dim() == 3 and q.dtype == torch.int8
+        and q.shape[2] == tiles.shape[1], "q must be int8 [G_cap, M, V]")
+    req(q.shape[1] == M_SLOTS, f"groups must have {M_SLOTS} slots")
+    for t in (work_region, work_g, work_s):
+        req(t.dim() == 1 and t.dtype == torch.int32
+            and t.shape == work_region.shape,
+            "work_region/work_g/work_s must be int32 [W_cap]")
+    req(ll_max % SUB == 0, "ll_max must be a multiple of 128")
+    dev = tiles.device
+    req(all(t.device == dev
+            for t in (tile_scale, q, work_region, work_g, work_s)),
+        "all operands must be on one device")
+    if dev.type == "cpu":
+        return score_grouped_i8_plain(tiles, tile_scale, q, work_region,
+                                      work_g, work_s, ll_max)
+    req(dev.type == "cuda", f"unsupported device {dev}")
+    req(all(t.is_contiguous()
+            for t in (tiles, tile_scale, q, work_region, work_g, work_s)),
+        "operands must be contiguous")
+    V = tiles.shape[1]
+    req(V in (256, 512, 1024, 2048), f"V={V} is not 256/512/1024/2048")
+    G_cap = q.shape[0]
+    out = torch.empty((G_cap, M_SLOTS, ll_max), dtype=torch.float32,
+                      device=dev)
+    p = _cuda.ptr
+    rc = _lib().seismic_score_grouped_i8(
+        p(tiles), p(tile_scale), p(q), p(work_region), p(work_g),
+        p(work_s), work_region.shape[0], V, ll_max, p(out),
+        ctypes.c_void_p(_cuda.stream_handle(dev)))
+    _cuda.check(rc, "score_grouped_i8")
+    launches += 1
+    return out

@@ -1,0 +1,105 @@
+"""Per-pair query projection onto list vocabularies + int8 quantize (K1).
+
+Counterpart of `seismic_tpu/ops/pallas_qloc.py::project_qloc_pallas` and
+the per-pair quantize after it (`seismic_tpu/search/grouped.py:763-771`),
+fused into one CUDA kernel (`csrc/qloc.cu`). For pair p of query
+b = p // QC over list l = pair_list[p]:
+
+    qloc[p, v] = sum_i qv[b, i] * [vocab[l, v] == qc[b, i]]
+    scale[p]   = max(max_v |qloc[p, v]|, 1e-20) * f32(1/127)
+    q_i8[p, v] = round_half_even(qloc[p, v] / scale[p])
+
+`project_qloc_quantize` launches the kernel for CUDA tensors and uses the
+plain PyTorch version, `project_qloc_quantize_plain`, for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _cuda
+
+# kernel launches since the count was last set to 0
+launches = 0
+# XLA folds the JAX program's `/ 127.0` into a multiply by the f32
+# reciprocal (its algebraic simplifier rewrites division by a constant);
+# the port does the same multiply to stay bit-exact with it
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def project_qloc_quantize_plain(vocab, pair_list, qc, qv, QC: int):
+    """Plain PyTorch version: the same f32 sum (term by term, as the TPU
+    kernel's unrolled loop) and the same quantize."""
+    rows = vocab[pair_list.long()].to(torch.int32)  # [P, V]
+    b = torch.div(torch.arange(rows.shape[0], device=rows.device), QC,
+                  rounding_mode="floor")
+    qcp = qc[b]  # [P, SC]
+    qvp = qv[b]
+    acc = torch.zeros(rows.shape, dtype=torch.float32, device=rows.device)
+    zero = torch.zeros((), dtype=torch.float32, device=rows.device)
+    for i in range(qc.shape[1]):
+        acc = acc + torch.where(rows == qcp[:, i:i + 1], qvp[:, i:i + 1],
+                                zero)
+    amax = acc.abs().amax(dim=1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-20) * INV_127  # [P, 1]
+    q_i8 = torch.round(acc / scale).to(torch.int8)
+    return q_i8, scale[:, 0]
+
+
+_handle = None
+
+
+def _lib():
+    global _handle
+    if _handle is None:
+        lib = _cuda.load("qloc")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.seismic_qloc_quantize.argtypes = [p, p, p, p, i, i, i, i, p, p,
+                                              p]
+        lib.seismic_qloc_quantize.restype = ctypes.c_int
+        lib.seismic_qloc_max_v.restype = ctypes.c_int
+        lib.seismic_qloc_max_terms.restype = ctypes.c_int
+        _handle = lib
+    return _handle
+
+
+def project_qloc_quantize(vocab, pair_list, qc, qv, QC: int):
+    """vocab int16 [n_lists, V] (-1 padded); pair_list int32 [P];
+    qc int32 / qv f32 [B, SC] the queries' top terms (PAD_COMPONENT / 0
+    padded), P == B * QC. Returns (q_i8 int8 [P, V], scale f32 [P])."""
+    global launches
+    req = _cuda.require
+    req(vocab.dim() == 2 and vocab.dtype == torch.int16,
+        "vocab must be int16 [n_lists, V]")
+    req(pair_list.dim() == 1 and pair_list.dtype == torch.int32,
+        "pair_list must be int32 [P]")
+    req(qc.dim() == 2 and qc.dtype == torch.int32, "qc must be int32 [B, SC]")
+    req(qv.shape == qc.shape and qv.dtype == torch.float32,
+        "qv must be f32 of qc's shape")
+    req(pair_list.shape[0] == qc.shape[0] * QC, "P must equal B * QC")
+    dev = vocab.device
+    req(all(t.device == dev for t in (pair_list, qc, qv)),
+        "all operands must be on one device")
+    if dev.type == "cpu":
+        return project_qloc_quantize_plain(vocab, pair_list, qc, qv, QC)
+    req(dev.type == "cuda", f"unsupported device {dev}")
+    req(all(t.is_contiguous() for t in (vocab, pair_list, qc, qv)),
+        "operands must be contiguous")
+    lib = _lib()
+    P, V = pair_list.shape[0], vocab.shape[1]
+    SC = qc.shape[1]
+    req(V <= lib.seismic_qloc_max_v(), f"V={V} exceeds the kernel's cap")
+    req(SC <= lib.seismic_qloc_max_terms(), f"{SC} terms exceed the cap")
+    out = torch.empty((P, V), dtype=torch.int8, device=dev)
+    scale = torch.empty(P, dtype=torch.float32, device=dev)
+    p = _cuda.ptr
+    rc = lib.seismic_qloc_quantize(
+        p(vocab), p(pair_list), p(qc), p(qv), P, V, SC, QC, p(out),
+        p(scale), ctypes.c_void_p(_cuda.stream_handle(dev)))
+    _cuda.check(rc, "qloc_quantize")
+    launches += 1
+    return out, scale
+

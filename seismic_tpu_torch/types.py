@@ -1,0 +1,476 @@
+"""The index representation: host (NumPy) arrays and their device tensors.
+
+`IndexArrays` is a copy of the NumPy half of `seismic_tpu/types.py` (same
+fields, same on-disk formats), so both packages read and write one index.
+`IndexArrays.to_device` uploads the part the grouped search route reads
+as torch tensors (`DeviceIndex`):
+
+- the list-aligned doc tiles, u8 `[rows, V]`, with one f32 scale per row
+  (the TPU layout's int8 view and 8x-replicated scale blocks were Mosaic
+  constraints and are not carried over);
+- the per-list local vocabularies (`vocab16`, int16 with -1 padding);
+- the fused forward rows `fwd_fused` `[n_docs, 2W]` int32 (component ids
+  | f32 value bits) read by the exact rescore;
+- the posting array and the list geometry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from .config import Configuration
+from .data.sparse import PAD_COMPONENT
+
+INDEX_SUFFIX = ".index.seismic_tpu"
+KNN_SUFFIX = ".knn.seismic_tpu"
+
+# Version for the on-disk format.
+FORMAT_VERSION = 1
+
+
+@dataclass
+class IndexArrays:
+    """Host (NumPy) mirror of the device index. `to_device()` uploads."""
+
+    # --- forward index tiles ---
+    fwd_comps: np.ndarray  # int32 [n_docs, W], PAD_COMPONENT padded, sorted
+    fwd_vals: np.ndarray  # f32/f16/bf16 [n_docs, W] (or u8 codes, see scale)
+    # u8 value compression (DotVByte-equivalent, SURVEY §2.3): when set,
+    # true value = fwd_vals * fwd_val_step[doc] + fwd_val_min[doc].
+    fwd_val_min: Optional[np.ndarray] = None  # f32 [n_docs]
+    fwd_val_step: Optional[np.ndarray] = None  # f32 [n_docs]
+
+    # --- posting lists / blocks ---
+    postings: np.ndarray = None  # int32 [total_postings_pad] doc ids
+    block_start: np.ndarray = None  # int32 [n_blocks_pad] into postings
+    block_len: np.ndarray = None  # int32 [n_blocks_pad] (<= max_block_len)
+    list_block_start: np.ndarray = None  # int32 [n_lists] into blocks
+    list_n_blocks: np.ndarray = None  # int32 [n_lists]
+
+    # --- block summaries: exact u8-quantized CSR tiles ---
+    summary_comps: np.ndarray = None  # int32 [n_blocks_pad, S] PAD padded
+    summary_codes: np.ndarray = None  # uint8 [n_blocks_pad, S]
+    summary_min: np.ndarray = None  # f32 [n_blocks_pad]
+    summary_quant: np.ndarray = None  # f32 [n_blocks_pad]
+
+    # --- block summaries: per-list local-vocab dense u8 matrix (the MXU
+    # block-ranking fast path; no reference equivalent — replaces the
+    # sparse-merge of quantized_summary.rs:64-160 with a matmul) ---
+    list_vocab: Optional[np.ndarray] = None  # int32 [n_lists, V] PAD padded
+    dense_summary: Optional[np.ndarray] = None  # uint8 [n_blocks_pad, V]
+    dense_scale: Optional[np.ndarray] = None  # f32 [n_blocks_pad]
+
+    # --- replicated block-aligned dense doc tiles (streaming doc scorer;
+    # no reference equivalent — trades memory for contiguous access so doc
+    # scoring is dynamic-slice + MXU instead of random row gathers) ---
+    doc_tiles: Optional[np.ndarray] = None  # uint8 [total_postings_pad, V]
+    doc_tile_scale: Optional[np.ndarray] = None  # f32 [total_postings_pad]
+    list_post_start: Optional[np.ndarray] = None  # int32 [n_lists]
+    list_len: Optional[np.ndarray] = None  # int32 [n_lists]
+    # local (within-list) block index of each posting occurrence
+    posting_block_local: Optional[np.ndarray] = None  # int32 [total_postings_pad]
+    # per-posting out-of-vocab overflow entries (top-O components of the doc
+    # that fall outside the list vocab; recovers the dot-product mass the
+    # dense tile truncates)
+    tile_ovf_comps: Optional[np.ndarray] = None  # int32 [total_postings_pad, O]
+    tile_ovf_vals: Optional[np.ndarray] = None  # f16 [total_postings_pad, O]
+    # local-vocab importance metadata (consumed by
+    # ops/pallas_tiles.py::narrow_vocab to derive narrower-width tile
+    # sets without rebuilding): vocab_rank[l, j] = importance rank of
+    # list_vocab[l, j] within its list (0 = largest summed doc value;
+    # 32767 = PAD); vocab_csum[l, i] = coverage of the list's total term
+    # mass by its top-GRID[i] terms (grid: build.builder.VOCAB_CSUM_GRID)
+    vocab_rank: Optional[np.ndarray] = None  # int16 [n_lists, V]
+    vocab_csum: Optional[np.ndarray] = None  # f32 [n_lists, len(grid)]
+
+    # --- block summaries: int8 sketch (experimental ranking mode) ---
+    block_sketch: Optional[np.ndarray] = None  # int8 [n_blocks_pad, ds]
+    block_sketch_scale: Optional[np.ndarray] = None  # f32 [n_blocks_pad]
+
+    # --- per-document sketches (coarse candidate scoring) ---
+    doc_sketch: Optional[np.ndarray] = None  # int8 [n_docs, ds]
+    doc_sketch_scale: Optional[np.ndarray] = None  # f32 [n_docs]
+
+    # --- optional k-NN graph ---
+    knn: Optional[np.ndarray] = None  # int32 [n_docs, nknn]
+
+    # --- metadata ---
+    dim: int = 0
+    n_docs: int = 0
+    max_blocks_per_list: int = 0
+    max_block_len: int = 0
+    max_list_len: int = 0
+    # nnz of the SOURCE dataset (before any max_doc_nnz truncation of the
+    # padded forward tiles); 0 = unknown (pre-v2 index files)
+    dataset_nnz: int = 0
+    # bin-pack tiny list regions in the aligned device layout
+    # (ops/pallas_tiles.py::packed_region_layout) — set on block views,
+    # whose ~12-row lists would otherwise pad to csub*128 rows each.
+    # In-memory only (views are rebuilt from the base index, not saved).
+    pack_bins: bool = False
+    config: Optional[Configuration] = None
+
+    # ------------------------------------------------------------------
+    @property
+    def n_lists(self) -> int:
+        return len(self.list_block_start)
+
+    @property
+    def nknn(self) -> int:
+        return 0 if self.knn is None else self.knn.shape[1]
+
+    def space_usage_report(self) -> dict:
+        """Per-structure byte accounting, mirroring the reference SpaceUsage
+        breakdown (reference: src/inverted_index.rs:102-149)."""
+
+        def nb(a):
+            return 0 if a is None else int(a.nbytes)
+
+        forward = (
+            nb(self.fwd_comps)
+            + nb(self.fwd_vals)
+            + nb(self.fwd_val_min)
+            + nb(self.fwd_val_step)
+        )
+        postings = nb(self.postings) + nb(self.block_start) + nb(self.block_len)
+        offsets = nb(self.list_block_start) + nb(self.list_n_blocks)
+        summaries = (
+            nb(self.summary_comps)
+            + nb(self.summary_codes)
+            + nb(self.summary_min)
+            + nb(self.summary_quant)
+            + nb(self.list_vocab)
+            + nb(self.dense_summary)
+            + nb(self.dense_scale)
+            + nb(self.block_sketch)
+            + nb(self.block_sketch_scale)
+            + nb(self.vocab_rank)
+            + nb(self.vocab_csum)
+        )
+        doc_tiles = (
+            nb(self.doc_tiles)
+            + nb(self.doc_tile_scale)
+            + nb(self.list_post_start)
+            + nb(self.list_len)
+            + nb(self.posting_block_local)
+            + nb(self.tile_ovf_comps)
+            + nb(self.tile_ovf_vals)
+        )
+        sketches = nb(self.doc_sketch) + nb(self.doc_sketch_scale)
+        knn = nb(self.knn)
+        total = (
+            forward + postings + offsets + summaries + sketches + knn
+            + doc_tiles
+        )
+        return {
+            "forward_index": forward,
+            "packed_postings": postings,
+            "block_offsets": offsets,
+            "summaries": summaries,
+            "doc_tiles": doc_tiles,
+            "doc_sketches": sketches,
+            "knn": knn,
+            "total": total,
+        }
+
+    def print_space_usage_byte(self) -> int:
+        rep = self.space_usage_report()
+        print("Space Usage:")
+        print(f"\tForward Index: {rep['forward_index']} Bytes")
+        plt = rep["packed_postings"] + rep["block_offsets"] + rep["summaries"]
+        print(f"\tPosting Lists: {plt} Bytes")
+        print(f"\t  packed_postings: {rep['packed_postings']} Bytes")
+        print(f"\t  block_offsets: {rep['block_offsets']} Bytes")
+        print(f"\t  summaries: {rep['summaries']} Bytes")
+        print(f"\tDoc tiles: {rep['doc_tiles']} Bytes")
+        print(f"\tDoc sketches: {rep['doc_sketches']} Bytes")
+        print(f"\tKnn: {rep['knn']} Bytes")
+        print(f"\tTotal: {rep['total']} Bytes")
+        return rep["total"]
+
+    # ------------------------------------------------------------- save/load
+    _ARRAY_FIELDS = (
+        "fwd_comps",
+        "fwd_vals",
+        "fwd_val_min",
+        "fwd_val_step",
+        "postings",
+        "block_start",
+        "block_len",
+        "list_block_start",
+        "list_n_blocks",
+        "summary_comps",
+        "summary_codes",
+        "summary_min",
+        "summary_quant",
+        "list_vocab",
+        "dense_summary",
+        "dense_scale",
+        "doc_tiles",
+        "doc_tile_scale",
+        "list_post_start",
+        "list_len",
+        "posting_block_local",
+        "tile_ovf_comps",
+        "tile_ovf_vals",
+        "vocab_rank",
+        "vocab_csum",
+        "block_sketch",
+        "block_sketch_scale",
+        "doc_sketch",
+        "doc_sketch_scale",
+        "knn",
+    )
+
+    def save(self, path: str) -> str:
+        """Persist to `<path>.index.seismic_tpu` (npz + embedded metadata).
+
+        Preserves the reference's "build once, query many" workflow
+        (reference: IndexSerializer, src/inverted_index.rs:54-59).
+        """
+        if not path.endswith(INDEX_SUFFIX):
+            path = path + INDEX_SUFFIX
+        arrays = {}
+        for f in self._ARRAY_FIELDS:
+            a = getattr(self, f)
+            if a is not None:
+                arrays[f] = self._to_savable(a)
+        arrays["__meta__"] = np.frombuffer(
+            json.dumps(self._meta_dict()).encode("utf-8"), dtype=np.uint8
+        )
+        np.savez(path, **arrays)
+        # np.savez appends .npz; normalize to the exact requested path.
+        if os.path.exists(path + ".npz"):
+            os.replace(path + ".npz", path)
+        return path
+
+    @staticmethod
+    def _to_savable(a: np.ndarray) -> np.ndarray:
+        # np.savez cannot store bfloat16; round-trip through float32.
+        if a.dtype.name == "bfloat16":
+            return np.asarray(a, dtype=np.float32)
+        return a
+
+    def _meta_dict(self) -> dict:
+        return {
+            "version": FORMAT_VERSION,
+            "dim": self.dim,
+            "n_docs": self.n_docs,
+            "max_blocks_per_list": self.max_blocks_per_list,
+            "max_block_len": self.max_block_len,
+            "max_list_len": self.max_list_len,
+            "dataset_nnz": self.dataset_nnz,
+            "config": self.config.to_dict() if self.config else None,
+        }
+
+    @staticmethod
+    def _from_meta(meta: dict, kwargs: dict) -> "IndexArrays":
+        cfg = (
+            Configuration.from_dict(meta["config"]) if meta["config"] else None
+        )
+        return IndexArrays(
+            dim=meta["dim"],
+            n_docs=meta["n_docs"],
+            max_blocks_per_list=meta["max_blocks_per_list"],
+            max_block_len=meta["max_block_len"],
+            max_list_len=meta.get("max_list_len", 0),
+            dataset_nnz=meta.get("dataset_nnz", 0),
+            config=cfg,
+            **kwargs,
+        )
+
+    def save_dir(self, path: str) -> str:
+        """Persist as a DIRECTORY of raw .npy files + meta.json. Unlike the
+        single-file npz (which streams through the zip layer on load),
+        this form memory-maps on load — multi-GB indexes open in
+        milliseconds and pages fault in on demand (the HBM upload then
+        reads them once, sequentially).
+
+        Writes into `<path>.tmp` then renames, so an interrupted save
+        (watchdog/OOM kill mid-np.save) never leaves a half-written
+        directory that load_dir would try to open."""
+        import shutil
+
+        tmp = path.rstrip("/") + ".tmp"
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp, exist_ok=True)
+        for f in self._ARRAY_FIELDS:
+            a = getattr(self, f)
+            if a is not None:
+                np.save(os.path.join(tmp, f + ".npy"), self._to_savable(a))
+        with open(os.path.join(tmp, "meta.json"), "w") as fp:
+            json.dump(self._meta_dict(), fp)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        return path
+
+    @staticmethod
+    def load_dir(path: str, mmap: bool = True) -> "IndexArrays":
+        with open(os.path.join(path, "meta.json")) as fp:
+            meta = json.load(fp)
+        kwargs = {}
+        for f in IndexArrays._ARRAY_FIELDS:
+            p = os.path.join(path, f + ".npy")
+            kwargs[f] = (
+                np.load(p, mmap_mode="r" if mmap else None)
+                if os.path.exists(p)
+                else None
+            )
+        return IndexArrays._from_meta(meta, kwargs)
+
+    @staticmethod
+    def load(path: str) -> "IndexArrays":
+        if os.path.isdir(path):
+            return IndexArrays.load_dir(path)
+        if not path.endswith(INDEX_SUFFIX) and os.path.exists(path + INDEX_SUFFIX):
+            path = path + INDEX_SUFFIX
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode("utf-8"))
+            kwargs = {}
+            for f in IndexArrays._ARRAY_FIELDS:
+                kwargs[f] = z[f] if f in z.files else None
+        return IndexArrays._from_meta(meta, kwargs)
+
+    # ------------------------------------------------------------- device
+    def to_device(self, device=None, tile_csub: int = 1) -> "DeviceIndex":
+        """Upload what the grouped search route reads to `device` (None
+        means "cuda"; raises when CUDA is absent rather than falling back
+        to the CPU). Builds the list-aligned tile layout on the host."""
+        import torch
+
+        from .ops.tiles_prep import prepare_pallas_tiles
+        from .device import resolve_device
+
+        dev = resolve_device(device)
+        if tile_csub != 1:
+            raise NotImplementedError(
+                "tile_csub > 1 arrives with the bench headline configuration "
+                "(ROADMAP.md, modules to port, item 2b)"
+            )
+        if self.doc_tiles is None or self.list_vocab is None:
+            raise ValueError(
+                "the grouped route needs an index built with doc tiles "
+                "(layout.summary_vocab_cap > 0, store_doc_tiles=True)"
+            )
+        if self.dim > 32766:
+            raise NotImplementedError(
+                "dims past the int16 vocab twin (> 32766) need an int32 "
+                "vocab in K1; not ported yet (ROADMAP.md, modules to port, "
+                "item 1)"
+            )
+        if self.fwd_val_min is not None:
+            raise NotImplementedError(
+                "u8-compressed forward values (SeismicIndexDotVByte) arrive "
+                "with the block-pool lean path (ROADMAP.md, modules to "
+                "port, item 2c)"
+            )
+
+        def put(a, dtype=None):
+            a = np.ascontiguousarray(a if dtype is None else
+                                     np.asarray(a, dtype=dtype))
+            return torch.from_numpy(a).to(dev)
+
+        tiles_u8, tile_scale, region_start = prepare_pallas_tiles(
+            self, tile_csub)
+        lv = np.asarray(self.list_vocab)
+        lv = np.where(lv == PAD_COMPONENT, -1, lv)
+        fc = np.asarray(self.fwd_comps, dtype=np.int32)
+        fv = np.asarray(self.fwd_vals, dtype=np.float32)
+        fused = np.concatenate([fc, fv.view(np.int32)], axis=1)
+        return DeviceIndex(
+            doc_tiles_aligned=put(tiles_u8),
+            tile_scale=put(tile_scale),
+            list_region_start=put(region_start, np.int32),
+            vocab16=put(lv, np.int16),
+            fwd_fused=put(fused),
+            postings=put(self.postings, np.int32),
+            list_post_start=put(self.list_post_start, np.int32),
+            list_len=put(self.list_len, np.int32),
+            dim=self.dim,
+            n_docs=self.n_docs,
+            max_list_len=self.max_list_len,
+            tile_csub=tile_csub,
+        )
+
+
+@dataclass
+class DeviceIndex:
+    """Device tensors of the grouped search route (see module docstring)."""
+
+    doc_tiles_aligned: object  # uint8 [n_sub_total * 128, V]
+    tile_scale: object  # f32 [n_sub_total * 128] dequant scale per row
+    list_region_start: object  # int32 [n_lists] subtile start of each list
+    vocab16: object  # int16 [n_lists, V] (-1 padded)
+    fwd_fused: object  # int32 [n_docs, 2W]: comps | f32 value bits
+    postings: object  # int32 [total_postings_pad] doc ids
+    list_post_start: object  # int32 [n_lists]
+    list_len: object  # int32 [n_lists]
+    dim: int = 0
+    n_docs: int = 0
+    max_list_len: int = 0
+    tile_csub: int = 1
+
+    @property
+    def device(self):
+        return self.postings.device
+
+    def nbytes(self) -> int:
+        """Bytes of every tensor this index holds on its device."""
+        return sum(
+            int(t.numel() * t.element_size())
+            for t in (getattr(self, f.name) for f in dataclasses.fields(self))
+            if hasattr(t, "element_size")
+        )
+
+
+def _list_weights(doc_tile_scale, list_post_start, list_len):
+    """f32 [n_lists]: max posting value per list (code 255 * row scale).
+    The packed tile layout stores non-empty lists contiguously, so one
+    np.maximum.reduceat over their starts covers each list's rows (the
+    final segment extends into the zero tail, which cannot raise a max)."""
+    n_lists = len(list_post_start)
+    w = np.zeros(n_lists, np.float32)
+    starts = list_post_start.astype(np.int64)
+    nz_idx = np.flatnonzero(list_len > 0)
+    if len(nz_idx):
+        red = np.maximum.reduceat(doc_tile_scale, starts[nz_idx])
+        w[nz_idx] = red * 255.0
+    return w
+
+
+def from_jax_arrays(arrays_dict: dict) -> IndexArrays:
+    """Carry an index built by the JAX package across: takes the fields of
+    a `seismic_tpu` `IndexArrays` as a dict (NumPy arrays and ints, e.g.
+    `{f.name: getattr(a, f.name) for f in dataclasses.fields(a)}` or
+    `dataclasses.asdict(a)`) and returns this package's `IndexArrays`
+    over the same arrays. The configuration may arrive as a dict or as
+    an object with `to_dict()`."""
+    names = {f.name for f in dataclasses.fields(IndexArrays)}
+    kwargs = {k: v for k, v in arrays_dict.items() if k in names}
+    cfg = kwargs.get("config")
+    if cfg is not None and not isinstance(cfg, Configuration):
+        kwargs["config"] = Configuration.from_dict(
+            cfg if isinstance(cfg, dict) else cfg.to_dict()
+        )
+    for k, v in kwargs.items():
+        if k != "config" and v is not None and not np.isscalar(v):
+            kwargs[k] = np.asarray(v)
+    return IndexArrays(**kwargs)
+
+
+__all__ = [
+    "IndexArrays",
+    "DeviceIndex",
+    "PAD_COMPONENT",
+    "INDEX_SUFFIX",
+    "KNN_SUFFIX",
+    "from_jax_arrays",
+]
