@@ -28,17 +28,20 @@ launches = 0
 _handle = None
 
 
-def grouped_dots_plain(tiles, q, work_region, work_g, chunk: int = 256):
-    """Exact int dots [W, M, SUB] (int64) of every work item, computed in
+def grouped_dots_plain(tiles, q, work_region, work_g, chunk: int = 256,
+                       rows_per_item: int = SUB):
+    """Exact int dots [W, M, rows_per_item] (int64) of every work item
+    (tile rows work_region[w] * rows_per_item onwards), computed in
     float64 (exact: |dot| < 2^53) in chunks of `chunk` items."""
     W = work_region.shape[0]
     M = q.shape[1]
+    R = rows_per_item
     dev = tiles.device
-    offs = torch.arange(SUB, device=dev)
-    out = torch.empty((W, M, SUB), dtype=torch.int64, device=dev)
+    offs = torch.arange(R, device=dev)
+    out = torch.empty((W, M, R), dtype=torch.int64, device=dev)
     for w0 in range(0, W, chunk):
         w1 = min(W, w0 + chunk)
-        rows = work_region[w0:w1].long()[:, None] * SUB + offs  # [n, SUB]
+        rows = work_region[w0:w1].long()[:, None] * R + offs  # [n, R]
         t = tiles[rows].to(torch.float64)  # [n, SUB, V]
         qq = q[work_g[w0:w1].long()].to(torch.float64)  # [n, M, V]
         out[w0:w1] = torch.bmm(qq, t.transpose(1, 2)).round().to(torch.int64)

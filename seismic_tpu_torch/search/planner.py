@@ -1,12 +1,12 @@
 """Host-side query planner for the grouped (list-major) search path.
 
-A copy of `seismic_tpu/search/planner.py` with the NumPy planner
-(`plan_grouped_numpy`) as the planner: it groups the batch's (query, list)
-pairs BY LIST into M-slot groups, so the grouped scorer streams each
-list's doc tiles once per group, and it emits an exact per-subtile work
-list. Everything here is O(B * query_cut) NumPy. The C++ counting-sort
-planner of the JAX package (native/planner.cpp) is a later slice
-(ROADMAP.md, modules to port, item 2b).
+A copy of `seismic_tpu/search/planner.py`: the planner groups the
+batch's (query, list) pairs BY LIST into M-slot groups, so the grouped
+scorer streams each list's doc tiles once per group, and it emits an
+exact per-super-tile work list. `plan_grouped` dispatches to the C++
+counting-sort planner (`native/planner.cpp`, the default) or to the NumPy
+reference `plan_grouped_numpy`; unlike the JAX package it never falls
+back from one to the other silently.
 """
 
 from __future__ import annotations
@@ -121,6 +121,25 @@ class GroupedPlan:
         """Static shape signature (drives jit specialization)."""
         B, QC = self.pair_slot.shape
         return (self.M, self.G_cap, self.W_cap, B, QC)
+
+
+def plan_grouped(
+    q_comps: np.ndarray,
+    q_vals: np.ndarray,
+    ctx: PlannerContext,
+    query_cut: int,
+    M: int = 8,
+    native: bool = True,
+) -> GroupedPlan:
+    """Select each query's top-`query_cut` lists and group the resulting
+    (query, list) pairs by list into M-slot groups: the C++ planner with
+    `native=True` (raises RuntimeError when its library cannot be built),
+    the NumPy planner with `native=False`."""
+    if native:
+        from ..native import plan_grouped_native
+
+        return plan_grouped_native(q_comps, q_vals, ctx, query_cut, M=M)
+    return plan_grouped_numpy(q_comps, q_vals, ctx, query_cut, M=M)
 
 
 def plan_grouped_numpy(

@@ -343,18 +343,17 @@ class IndexArrays:
     def to_device(self, device=None, tile_csub: int = 1) -> "DeviceIndex":
         """Upload what the grouped search route reads to `device` (None
         means "cuda"; raises when CUDA is absent rather than falling back
-        to the CPU). Builds the list-aligned tile layout on the host."""
+        to the CPU). Builds the list-aligned tile layout on the host;
+        `tile_csub` subtiles of 128 rows make one work item (every list's
+        region padded to a multiple of them), as in the JAX package."""
         import torch
 
         from .ops.tiles_prep import prepare_pallas_tiles
         from .device import resolve_device
 
         dev = resolve_device(device)
-        if tile_csub != 1:
-            raise NotImplementedError(
-                "tile_csub > 1 arrives with the bench headline configuration "
-                "(ROADMAP.md, modules to port, item 2b)"
-            )
+        if tile_csub < 1:
+            raise ValueError(f"tile_csub={tile_csub} must be >= 1")
         if self.doc_tiles is None or self.list_vocab is None:
             raise ValueError(
                 "the grouped route needs an index built with doc tiles "
@@ -407,7 +406,8 @@ class DeviceIndex:
 
     doc_tiles_aligned: object  # uint8 [n_sub_total * 128, V]
     tile_scale: object  # f32 [n_sub_total * 128] dequant scale per row
-    list_region_start: object  # int32 [n_lists] subtile start of each list
+    # int32 [n_lists] subtile start of each list (a multiple of tile_csub)
+    list_region_start: object
     vocab16: object  # int16 [n_lists, V] (-1 padded)
     fwd_fused: object  # int32 [n_docs, 2W]: comps | f32 value bits
     postings: object  # int32 [total_postings_pad] doc ids

@@ -180,8 +180,8 @@ def test_device_plan_put_keeps_every_field(setup):
 
 @pytest.mark.parametrize("change", [
     {"compute_dtype": "bf16"}, {"qloc_mode": "rowmajor"},
-    {"kernel_unroll": 8}, {"pool_mode": "hier"}, {"pool_dtype": "bf16"},
-    {"dedup_mode": "post"}, {"rescore": 0}, {"stream_frac": 0.5},
+    {"pool_mode": "stride"}, {"pool_mode": "approx"}, {"pool_mode": "seg"},
+    {"pool_mode": "window"}, {"rescore": 0}, {"stream_frac": 0.5},
     {"block_expand": 8}, {"n_knn": 4}, {"stop_after": "pool"},
     {"return_margin": True},
 ])
