@@ -27,9 +27,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. drive the JAX repo's bench headline path (bench.py:514-669): the same
    corpus built with f32 values, narrowed to V=512 and uploaded with
    csub 2; 16,384 distinct queries padded to 64 terms. The derived plan
-   must equal the C++ host plan on every batch (and both searches agree),
-   K4 must equal its plain version (exact int dots, 1e-6 relative) at
-   B=4096/M=8 and B=16384/M=16; then QPS at B=4096/M=8 (`plan_caps` +
+   must equal the C++ host plan on every batch (and both searches agree);
+   at B=4096/M=8 and B=16384/M=16, on the path's own inputs, K1 must equal
+   its plain version bit for bit, K4 exactly in its int dots and to 1e-6
+   relative, and K3 (on the pool's candidates) to 1e-5 relative, each
+   timed beside its bound; then QPS at B=4096/M=8 (`plan_caps` +
    `search_grouped_derive` per batch, 5 x 4 batches, one synchronise) and
    at B=16384/M=16 (5 calls), with the launch counts set to 0 before and
    read after (K1, K4, K3 > 0, K2 = 0); p50 of a synchronised B=4096
@@ -74,6 +76,31 @@ def log(msg: str):
     print(msg, flush=True)
 
 
+_GC = {"ms": 0.0, "start": None}
+
+
+def _gc_callback(phase, info):
+    if phase == "start":
+        _GC["start"] = time.perf_counter()
+    elif _GC["start"] is not None:
+        _GC["ms"] += (time.perf_counter() - _GC["start"]) * 1e3
+        _GC["start"] = None
+
+
+def gc_ms() -> float:
+    """Host ms spent in Python's garbage collector since main() began
+    (each host-clock window below reports its share)."""
+    return _GC["ms"]
+
+
+def device_allocs() -> int:
+    """Device allocations the caching allocator has made (cudaMalloc
+    calls) since the run began."""
+    import torch
+
+    return int(torch.cuda.memory_stats().get("num_device_alloc", -1))
+
+
 def bound(nbytes: float, nops: float, op_peak: float):
     """(bound_ms, bound_by): the larger of the bytes and the ops times."""
     tb, to = nbytes / PEAK_BYTES, nops / op_peak
@@ -97,6 +124,73 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def check_k1(a1, tag: str, reps: int = 20):
+    """Hold K1 (qloc + quantize) bit-exact against its plain version on
+    a1 = (vocab16, pair_list, top_c, top_v, QC) and time both beside its
+    bound; returns (record, K1's int8 projections)."""
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+    from seismic_tpu_torch.ops import qloc
+
+    vocab16, pair_list, top_c, _, QC = a1
+    k_i8, k_sc = qloc.project_qloc_quantize(*a1)
+    p_i8, p_sc = qloc.project_qloc_quantize_plain(*a1)
+    if not (torch.equal(k_i8, p_i8) and torch.equal(k_sc, p_sc)):
+        fail(f"K1 ({tag}) disagrees: {(k_i8 != p_i8).sum().item()} i8 and "
+             f"{(k_sc != p_sc).sum().item()} scale mismatches")
+    P, V = pair_list.numel(), vocab16.shape[1]
+    n_terms = (top_c != int(PAD_COMPONENT)).sum(1)  # [B] real terms
+    nbytes = (torch.unique(pair_list).numel() * V * 2 + P * 4
+              + top_c.numel() * 8 + P * V + P * 4)
+    nops = 2.0 * V * QC * float(n_terms.sum().item())
+    b, bb = bound(nbytes, nops, PEAK_F32)
+    rec = dict(
+        max_abs_err=float((k_i8.int() - p_i8.int()).abs().max().item()),
+        ms=time_ms(lambda: qloc.project_qloc_quantize(*a1), reps),
+        plain_ms=time_ms(lambda: qloc.project_qloc_quantize_plain(*a1), 3),
+        bound_ms=b, bound_by=bb, library_ms=None, P=P, V=V)
+    del p_i8, p_sc
+    return rec, k_i8
+
+
+def check_k3(a3, tag: str, reps: int = 20) -> dict:
+    """Hold K3 (fused rescore) against its plain version at 1e-5 relative
+    on a3 = (fwd_fused, ids, qc, qv, n_docs) and time both beside its
+    bound."""
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+    from seismic_tpu_torch.ops import rescore
+
+    fwd_fused, ids, qc = a3[:3]
+    k3 = rescore.score_docs_rowmajor(*a3)
+    p3 = rescore.score_docs_rowmajor_plain(*a3)
+    rel = ((k3 - p3).abs() / p3.abs().clamp_min(1e-30)).max().item()
+    if not rel <= 1e-5:
+        fail(f"K3 ({tag}) disagrees: max relative error {rel}")
+    W2 = fwd_fused.shape[1]
+    safe = ids.long().clamp(0, fwd_fused.shape[0] - 1)
+    n_terms = (qc != int(PAD_COMPONENT)).sum(1)  # [B] real terms
+    # bytes the function must move: each distinct row's real entries (4-byte
+    # id + 4-byte value, each run rounded up to 32-byte sectors), the ids,
+    # the query terms and the output
+    uniq_nnz = (fwd_fused[torch.unique(safe), : W2 // 2]
+                != int(PAD_COMPONENT)).sum(-1)
+    nbytes = (2 * int(((uniq_nnz * 4 + 31) // 32 * 32).sum().item())
+              + ids.numel() * 4 + qc.numel() * 8 + ids.numel() * 4)
+    row_nnz = (fwd_fused[safe, : W2 // 2]
+               != int(PAD_COMPONENT)).sum(-1)  # [B, R]
+    nops = float((row_nnz * (2 * n_terms[:, None] + 2)).sum().item())
+    b, bb = bound(nbytes, nops, PEAK_F32)
+    return dict(
+        max_abs_err=float((k3 - p3).abs().max().item()), max_rel_err=rel,
+        ms=time_ms(lambda: rescore.score_docs_rowmajor(*a3), reps),
+        plain_ms=time_ms(lambda: rescore.score_docs_rowmajor_plain(*a3), 3),
+        bound_ms=b, bound_by=bb, library_ms=None, B=ids.shape[0],
+        R=ids.shape[1])
 
 
 def card_line() -> str:
@@ -124,6 +218,7 @@ def breakdown(index, qcomps, qvals, dev) -> dict:
 
     dindex = index.device_index()
     params = route_params(K)
+    g0 = gc_ms()
     t = [time.perf_counter()]
     q_comps, q_vals = pad_queries(qcomps, qvals, DEFAULT_QUERY_PAD)
     t.append(time.perf_counter())
@@ -134,15 +229,22 @@ def breakdown(index, qcomps, qvals, dev) -> dict:
             torch.from_numpy(q_comps).to(dev),
             torch.from_numpy(q_vals).to(dev), params)
     torch.cuda.synchronize()
+    # the device program's own host-side costs: enqueue time, garbage
+    # collections and fresh device allocations (cudaMalloc) inside it
+    g_prog, n_alloc = gc_ms(), device_allocs()
     t.append(time.perf_counter())
     scores, ids = _grouped_impl(*args)
+    t_enq = time.perf_counter()
     torch.cuda.synchronize()
     t.append(time.perf_counter())
+    prog = dict(enqueue_ms=(t_enq - t[3]) * 1e3, gc_ms=gc_ms() - g_prog,
+                cuda_mallocs=device_allocs() - n_alloc)
     scores, ids = scores.cpu().numpy(), ids.cpu().numpy()
     t.append(time.perf_counter())
     out = {name: (t[i + 1] - t[i]) * 1e3 for i, name in enumerate(
         ("pad_queries_ms", "plan_ms", "upload_ms", "device_program_ms",
          "download_ms"))}
+    out.update(gc_ms=gc_ms() - g0, device_program=prog)
     try:
         busy, kern = profile_device(lambda: _grouped_impl(*args))
         out.update(device_busy_ms=busy, kernels_ms=kern,
@@ -269,8 +371,9 @@ def headline_path(ds, dev, record, kernels) -> dict:
     from seismic_tpu_torch.search.grouped import (
         DevicePlan,
         _grouped_impl,
+        _grouped_pool,
         _PLAN_FIELDS,
-        _top_k,
+        _query_terms,
         derive_plan_device,
         plan_caps,
         search_grouped_derive,
@@ -363,26 +466,49 @@ def headline_path(ds, dev, record, kernels) -> dict:
         log(f"phase 4 plan {i}: host-plan search == derived-plan search "
             f"(id sets equal, max rel err {rel:.3g})")
 
-    # ---- K4 against its plain version on the path's own inputs ----
-    def k4_inputs(i):
-        """K4's operands for plan i: the derived plan's work list and the
-        group queries from K1 on its pairs (as _grouped_impl builds them)."""
+    # ---- K1, K4 and K3 against their plain versions on the path's own
+    # inputs: the derived plan's pairs and work list, the group queries
+    # from K1, and the pool's real candidates (rescore = 64) ----
+    at_headline = ({}, {})  # K1's and K3's records at the headline shapes
+
+    def k4_inputs(i, tag):
+        """K4's operands for plan i, as _grouped_impl builds them, after
+        holding K1 (which makes its group queries) against its plain
+        version."""
         qc_t, qv_t = batches[i][2], batches[i][3]
         dp = plans[i][2]
-        qvm = torch.where(qc_t != int(PAD_COMPONENT), qv_t, 0.0)
-        top_v, top_p = _top_k(qvm, 64)
-        top_c = torch.gather(qc_t, 1, top_p).contiguous()
-        q_i8, _ = qloc.project_qloc_quantize(
-            dindex.vocab16, dp.pair_list.reshape(-1).contiguous(), top_c,
-            top_v.contiguous(), dp.pair_list.shape[1])
+        top_c, top_v, sc = _query_terms(qc_t, qv_t, params.score_cut)
+        rec1, q_i8 = check_k1(
+            (dindex.vocab16, dp.pair_list.reshape(-1).contiguous(),
+             top_c[:, :sc].contiguous(), top_v[:, :sc].contiguous(),
+             dp.pair_list.shape[1]), f"headline {tag}")
+        at_headline[0][tag] = rec1
         G_cap, M = dp.slot_b.shape
         q8 = q_i8[dp.slot_pair.long()].reshape(G_cap, M, V0).contiguous()
         return (dindex.doc_tiles_aligned, dindex.tile_scale, q8,
                 dp.work_region, dp.work_g, CSUB)
 
+    def check_k3_headline(i, tag):
+        qc_t, qv_t = batches[i][2], batches[i][3]
+        top_c, top_v, sc, _, cand_ids = _grouped_pool(
+            dindex, plans[i][2], qc_t, qv_t, params)[:5]
+        rp = params.rescore
+        rec3 = check_k3((dindex.fwd_fused,
+                         cand_ids[:, :rp].to(torch.int32).contiguous(),
+                         top_c[:, :sc].contiguous(),
+                         top_v[:, :sc].contiguous(), dindex.n_docs),
+                        f"headline {tag}")
+        at_headline[1][tag] = rec3
+        for name, r in (("K1 qloc_quantize", at_headline[0][tag]),
+                        ("K3 rescore_fused", rec3)):
+            log(f"phase 4: {name} ({tag}): ok, max_abs_err "
+                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+                f"{r['plain_ms']:.3f} ms)")
+
     k4 = {}
     for i, tag in ((0, "b4096_m8"), (nb, "b16384_m16")):
-        a4 = k4_inputs(i)
+        a4 = k4_inputs(i, tag)
         W = plans[i][0].W
         k_out = grouped_scorer_item.score_grouped_i8_item(*a4)
         p_out = grouped_scorer_item.score_grouped_i8_item_plain(*a4)
@@ -432,7 +558,10 @@ def headline_path(ds, dev, record, kernels) -> dict:
             f"{rel:.3g}, {k4[tag]['ms']:.4f} ms (bound {b4:.4f} ms by "
             f"{bb4}, plain {k4[tag]['plain_ms']:.3f} ms, library {lib_ms})")
         del k_out, p_out, kd, pd, a4, a4u
-    torch.cuda.empty_cache()
+        check_k3_headline(i, tag)
+        torch.cuda.empty_cache()
+    for kr, recs in zip((kernels[0], kernels[2]), at_headline):
+        kr["at_headline"] = recs
 
     # ---- timed window: QPS as bench.py times it ----
     def once(b):
@@ -454,6 +583,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
     mods = (qloc, grouped_scorer, grouped_scorer_item, rescore)
     for m in mods:
         m.launches = 0
+    g0 = gc_ms()
     t0 = time.perf_counter()
     outs = [None] * nb
     for _ in range(REPS):
@@ -461,11 +591,13 @@ def headline_path(ds, dev, record, kernels) -> dict:
             outs[b] = once(b)
     torch.cuda.synchronize()
     el4 = time.perf_counter() - t0
+    g1 = gc_ms()
     t0 = time.perf_counter()
     for _ in range(REPS):
         out_big = once_big()
     torch.cuda.synchronize()
     el16 = time.perf_counter() - t0
+    gc_qps = {"b4096_ms": g1 - g0, "b16384_ms": gc_ms() - g1}
     counts = dict(zip(("qloc", "score_grouped_i8", "score_grouped_i8_item",
                        "rescore"), (m.launches for m in mods)))
     qps4 = REPS * nb * BATCH / el4
@@ -473,7 +605,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
     log(f"phase 4: QPS(B={BATCH}, M=8) {qps4:.1f} over {REPS} x {nb} "
         f"batches ({el4:.3f} s, plan_caps included); QPS(B={N_QUERIES}, "
         f"M={BIG_M}) {qps16:.1f} over {REPS} calls ({el16:.3f} s); launches "
-        f"{counts}")
+        f"{counts}; gc {json.dumps(gc_qps)}")
     if min(counts["qloc"], counts["score_grouped_i8_item"],
            counts["rescore"]) <= 0 or counts["score_grouped_i8"] != 0:
         fail(f"headline path launches {counts}: K1, K4 and K3 must launch "
@@ -558,6 +690,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
     # the host returns from the call long before the device finishes when
     # nothing in it waits for the device (the sync debug mode above is a
     # prototype that may miss some synchronising operations)
+    g0, n_alloc = gc_ms(), device_allocs()
     t0 = time.perf_counter()
     once_big()
     t_enq = time.perf_counter()
@@ -565,7 +698,9 @@ def headline_path(ds, dev, record, kernels) -> dict:
     prog_ms = (time.perf_counter() - t0) * 1e3
     brk = {"plan_caps_b4096_ms": caps4_ms, "plan_caps_b16384_ms": caps16_ms,
            "device_program_b16384_ms": prog_ms,
-           "host_enqueue_b16384_ms": (t_enq - t0) * 1e3}
+           "host_enqueue_b16384_ms": (t_enq - t0) * 1e3,
+           "gc_ms": gc_ms() - g0,
+           "cuda_mallocs": device_allocs() - n_alloc}
     try:
         busy, kern = profile_device(once_big)
         brk.update(device_busy_ms=busy,
@@ -584,7 +719,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
     rec.update(qps_b4096_m8=qps4, qps_b16384_m16=qps16, p50_b4096_ms=p50 * 1e3,
                latencies_b4096_s=lat, recall_at_10_b4096=rec4,
                recall_at_10_b16384=rec16, max_rel_score_err=worst,
-               launches=counts, k4=k4, breakdown=brk,
+               launches=counts, k4=k4, breakdown=brk, gc_qps_windows=gc_qps,
                peak_device_bytes=torch.cuda.max_memory_allocated())
     main4 = k4["b4096_m8"]
     return dict(
@@ -652,33 +787,17 @@ def api_path(ds, dev, record) -> list:
     top_v, top_p = _top_k(qvt, 64)
     top_c = torch.gather(qct, 1, top_p).contiguous()
     top_v = top_v.contiguous()
-    n_terms = (top_c != int(PAD_COMPONENT)).sum(1)  # [B] real terms
     kernels = []
     reps = 20
 
     # K1: qloc + quantize
     pair_list = dplan.pair_list.reshape(P).contiguous()
-    a1 = (dindex.vocab16, pair_list, top_c, top_v, QC)
-    k_i8, k_sc = qloc.project_qloc_quantize(*a1)
-    p_i8, p_sc = qloc.project_qloc_quantize_plain(*a1)
-    torch.cuda.synchronize()
-    if not (torch.equal(k_i8, p_i8) and torch.equal(k_sc, p_sc)):
-        fail(f"K1 disagrees: {(k_i8 != p_i8).sum().item()} i8 and "
-             f"{(k_sc != p_sc).sum().item()} scale mismatches")
-    V = dindex.vocab16.shape[1]
-    n_lists_used = torch.unique(pair_list).numel()
-    by1 = (n_lists_used * V * 2 + P * 4 + top_c.numel() * 8 + P * V + P * 4)
-    ops1 = 2.0 * V * float(n_terms.repeat_interleave(QC).sum().item())
-    b1, bb1 = bound(by1, ops1, PEAK_F32)
+    k1, k_i8 = check_k1((dindex.vocab16, pair_list, top_c, top_v, QC), "API")
+    V = k1["V"]
     kernels.append(dict(
         name="qloc_quantize", route="cuda",
         source="seismic_tpu_torch/csrc/qloc.cu",
-        replaces="seismic_tpu/ops/pallas_qloc.py:25",
-        max_abs_err=float((k_i8.int() - p_i8.int()).abs().max().item()),
-        ms=time_ms(lambda: qloc.project_qloc_quantize(*a1), reps),
-        plain_ms=time_ms(lambda: qloc.project_qloc_quantize_plain(*a1), 3),
-        bound_ms=b1, bound_by=bb1, library_ms=None,
-    ))
+        replaces="seismic_tpu/ops/pallas_qloc.py:25", **k1))
 
     # K2: grouped i8 scorer, fed the main path's own projections
     LLMAX = ll_pad_for(arrays.max_list_len, 1)
@@ -741,40 +860,18 @@ def api_path(ds, dev, record) -> list:
     g3 = torch.Generator(device=dev).manual_seed(3)
     ids = torch.randint(0, arrays.n_docs, (B, R), generator=g3,
                         device=dev, dtype=torch.int32)
-    a3 = (dindex.fwd_fused, ids, top_c, top_v, arrays.n_docs)
-    k3 = rescore.score_docs_rowmajor(*a3)
-    p3 = rescore.score_docs_rowmajor_plain(*a3)
-    rel3 = ((k3 - p3).abs() / p3.abs().clamp_min(1e-30)).max().item()
-    if not rel3 <= 1e-5:
-        fail(f"K3 disagrees: max relative error {rel3}")
-    W2 = dindex.fwd_fused.shape[1]
-    uniq = torch.unique(ids).long()
-    # bytes the function must move: each distinct row's real entries (4-byte
-    # id + 4-byte value, each run rounded up to 32-byte sectors), the ids,
-    # the query terms and the output
-    uniq_nnz = (dindex.fwd_fused[uniq, : W2 // 2]
-                != int(PAD_COMPONENT)).sum(-1)
-    by3 = 2 * int(((uniq_nnz * 4 + 31) // 32 * 32).sum().item()) \
-        + ids.numel() * 4 + top_c.numel() * 8 + ids.numel() * 4
-    row_nnz = (dindex.fwd_fused[ids.long(), : W2 // 2]
-               != int(PAD_COMPONENT)).sum(-1)  # [B, R]
-    ops3 = float((row_nnz * (2 * n_terms[:, None] + 2)).sum().item())
-    b3, bb3 = bound(by3, ops3, PEAK_F32)
+    k3 = check_k3((dindex.fwd_fused, ids, top_c, top_v, arrays.n_docs),
+                  "API", reps)
     kernels.append(dict(
         name="rescore_fused", route="cuda",
         source="seismic_tpu_torch/csrc/rescore.cu",
-        replaces="seismic_tpu/ops/pallas_rescore.py:30",
-        max_abs_err=float((k3 - p3).abs().max().item()),
-        ms=time_ms(lambda: rescore.score_docs_rowmajor(*a3), reps),
-        plain_ms=time_ms(lambda: rescore.score_docs_rowmajor_plain(*a3), 3),
-        bound_ms=b3, bound_by=bb3, library_ms=None,
-    ))
+        replaces="seismic_tpu/ops/pallas_rescore.py:30", **k3))
     for kr in kernels:
         log(f"phase 2: {kr['name']}: ok, max_abs_err {kr['max_abs_err']:.3g}"
             f", {kr['ms']:.4f} ms (bound {kr['bound_ms']:.4f} ms by "
             f"{kr['bound_by']}, plain {kr['plain_ms']:.3f} ms, library "
             f"{kr['library_ms']})")
-    del k_i8, p_i8, q8, k3, p3
+    del k_i8, q8
     torch.cuda.empty_cache()
 
     # ---------------- phase 3: the main path ----------------
@@ -789,9 +886,11 @@ def api_path(ds, dev, record) -> list:
     for m in mods:
         m.launches = 0
     lat, res = [], None
+    g0 = gc_ms()
     for _ in range(REPS):
         res, dt = run()
         lat.append(dt)
+    gc3 = gc_ms() - g0
     counts = [m.launches for m in mods]
     for kr, c in zip(kernels, counts):
         kr["launches"] = c
@@ -801,7 +900,7 @@ def api_path(ds, dev, record) -> list:
     qps = BATCH * REPS / sum(lat)  # all queries over the whole window
     log(f"phase 3: {REPS} warm batches of {BATCH}: p50 "
         f"{p50 * 1e3:.2f} ms, QPS {qps:.1f}, launches qloc/scorer/rescore "
-        f"{counts}")
+        f"{counts}, gc {gc3:.2f} ms")
 
     # results: shape, finite, sorted, exact rescored scores
     if len(res) != BATCH:
@@ -846,7 +945,7 @@ def api_path(ds, dev, record) -> list:
     log(f"breakdown of one batch: {json.dumps(record['breakdown'])}")
 
     record.update(
-        qps=qps, p50_ms=p50 * 1e3, batch=BATCH, reps=REPS,
+        qps=qps, p50_ms=p50 * 1e3, batch=BATCH, reps=REPS, gc_ms=gc3,
         latencies_s=lat, recall_at_10=recall, recall_queries=nq,
         peak_device_bytes=torch.cuda.max_memory_allocated(),
         plan={"G": plan.G, "W": plan.W, "G_cap": plan.G_cap,
@@ -874,6 +973,7 @@ def main():
     from seismic_tpu_torch.ops import _cuda
 
     t_start = time.time()
+    gc.callbacks.append(_gc_callback)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -154,8 +154,8 @@ class DevicePlan:
     pair_len: torch.Tensor  # [B, QC]
     slot_pair: torch.Tensor  # [G_cap * M]
     M: int = 8
-    G: object = None
-    W: object = None
+    G: int | torch.Tensor | None = None
+    W: int | torch.Tensor | None = None
 
     @staticmethod
     def put(plan: GroupedPlan, device) -> "DevicePlan":
@@ -172,25 +172,12 @@ class DevicePlan:
 
 def _top_k(x, k: int):
     """`lax.top_k` semantics: descending, the lower index wins among equal
-    values. On bf16 and f32 this is one integer `torch.topk`: each value's
-    order-preserving integer key sits above (n - 1 - column), so every key
-    is distinct and the order exact (bf16 keys are int32, for a last dim
-    <= 65536; f32 keys int64); other dtypes take a stable sort."""
-    n = x.shape[-1]
-    if x.dtype == torch.bfloat16 and n <= 1 << 16:
-        bits, shift, flip = x.view(torch.int16).to(torch.int32), 16, 0x7FFF
-    elif x.dtype == torch.float32:
-        bits = x.view(torch.int32).to(torch.int64)
-        shift, flip = 32, 0x7FFFFFFF
-    else:
-        s = torch.sort(x, dim=-1, descending=True, stable=True)
-        return s.values[..., :k], s.indices[..., :k]
-    # negative floats order by descending magnitude: flip their low bits
-    ordered = torch.where(bits < 0, bits ^ flip, bits)
-    col = torch.arange(n, dtype=bits.dtype, device=x.device)
-    key = ordered * (1 << shift) + ((1 << shift) - 1 - col)
-    idx = torch.topk(key, k, dim=-1).indices
-    return torch.gather(x, -1, idx), idx
+    values (the bf16 pool wall is full of ties). A stable sort: on the
+    card it sorts each row in place for rows of at most 4096 values (every
+    selection of this program) and synchronises with the host past that
+    width (harness/topk_probe.py)."""
+    s = torch.sort(x, dim=-1, descending=True, stable=True)
+    return s.values[..., :k], s.indices[..., :k]
 
 
 def _scatter_drop(n: int, fill, idx, src):
@@ -225,14 +212,7 @@ def derive_plan_device(
     n_lists = index.list_len.shape[0]
     dev = q_comps.device
 
-    valid_q = q_comps != int(PAD_COMPONENT)
-    qv = torch.where(valid_q, q_vals, 0.0)
-    if QC < Q:
-        _, top_p = _top_k(qv, QC)
-        top_v = torch.gather(qv, 1, top_p)
-        lids = torch.gather(q_comps, 1, top_p)
-    else:
-        top_v, lids = qv, q_comps
+    lids, top_v, _ = _query_terms(q_comps, q_vals, QC)
     safe_l = lids.clamp(0, n_lists - 1)
     llen = index.list_len[safe_l.long()]
     valid = ((top_v > 0) & (lids >= 0) & (lids < n_lists)
@@ -336,22 +316,35 @@ def _grouped_impl(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
                   params: GroupedParams):
     """The device program of the grouped route; returns (scores f32 [B, k],
     ids int64 [B, k], -1 where no result)."""
+    return _grouped_tail(index, params,
+                         *_grouped_pool(index, plan, q_comps, q_vals, params))
+
+
+def _query_terms(q_comps, q_vals, score_cut: int):
+    """Each query's top `score_cut` terms by value, padding valued 0:
+    (top_c int32 [B, sc], top_v f32 [B, sc], sc)."""
+    Q = q_comps.shape[1]
+    qv = torch.where(q_comps != int(PAD_COMPONENT), q_vals, 0.0)
+    sc = min(score_cut, Q)
+    if sc == Q:
+        return q_comps, qv, sc
+    top_v, top_p = _top_k(qv, sc)
+    return torch.gather(q_comps, 1, top_p), top_v, sc
+
+
+def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
+                  params: GroupedParams):
+    """The grouped program up to its candidate pool: `_grouped_tail`'s
+    arguments after (index, params)."""
     _check_supported(params)
-    B, Q = q_comps.shape
+    B = q_comps.shape[0]
     G_cap, M = plan.slot_b.shape
     V = index.vocab16.shape[1]
     k = params.k
     csub = index.tile_csub
     LLMAX = ll_pad_for(index.max_list_len, csub)
 
-    valid_q = q_comps != int(PAD_COMPONENT)
-    qv = torch.where(valid_q, q_vals, 0.0)
-    sc = min(params.score_cut, Q)
-    if sc < Q:
-        top_v, top_p = _top_k(qv, sc)
-        top_c = torch.gather(q_comps, 1, top_p)  # [B, sc]
-    else:
-        top_v, top_c = qv, q_comps
+    top_c, top_v, sc = _query_terms(q_comps, q_vals, params.score_cut)
     QC = plan.pair_list.shape[1]
     P = B * QC
 
@@ -418,8 +411,7 @@ def _grouped_impl(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
     cand_ids = index.postings[safe_post]
     cand_ids = torch.where(torch.isfinite(top_scores), cand_ids,
                            index.n_docs)
-    return _grouped_tail(index, params, top_c, top_v, sc, top_scores,
-                         cand_ids, safe_post, pool)
+    return top_c, top_v, sc, top_scores, cand_ids, safe_post, pool
 
 
 def _dedup_with_payload(scores, ids, payload, n_docs: int):
