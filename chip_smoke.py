@@ -37,7 +37,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    read after (K1, K4, K3 > 0, K2 = 0); p50 of a synchronised B=4096
    call; one call under `torch.cuda.set_sync_debug_mode("error")`;
    recall@10 >= 0.95 over all 16,384 queries and every score exact; a
-   torch.profiler breakdown of one B=16384 call.
+   torch.profiler breakdown of one B=16384 call;
+5. drive the engine path on phase 3's index (it runs right after phase 3,
+   before that index is freed): `SeismicIndexRaw.batch_search` of the
+   same 4096 queries with `heap_factor=0.8` (block-pruned tiles mode, the
+   API's default block budget), launch counts set to 0 before and read
+   after (K7 once per batch; K1, K2, K4 never). K7, the per-pair tile
+   scorer, must equal its plain version to 1e-5 relative on the rows
+   inside each list at the path's own inputs, timed beside its bound;
+   on 256 queries the program on the kernel and on the plain scorer must
+   agree (id sets on >= 98% of queries, scores to 1e-5 relative); one
+   batch with `doc_mode="rescore"` through `search_batch` launches K3 and
+   every score must be the exact dot (1e-5 relative, against a brute-force
+   product of the index's own forward rows on the card); recall@10 at the
+   default budget and at `block_budget=512`; QPS over 5 warm batches, p50,
+   and a breakdown with idle share, GC time, enqueue time and the host
+   synchronisations of the device program.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -737,9 +752,369 @@ def headline_path(ds, dev, record, kernels) -> dict:
     )
 
 
-def api_path(ds, dev, record) -> list:
-    """Phases 2 and 3 on the API's grouped route (K1-K3); returns the
-    kernels' records. Everything it builds is freed when it returns."""
+HEAP_FACTOR, BIG_BUDGET = 0.8, 512
+# recall@10 floor of the engine cell at heap_factor 0.8, at either block
+# budget: the first run's reading at budget 64 (0.9320, NVIDIA H100 80GB
+# HBM3, 700 W) less 0.02. A broken mask falls far below it; it is no
+# tuned target.
+ENGINE_RECALL_FLOOR = 0.912
+# the same for the rescore-mode batch (block budget 64, no tile pool):
+# its first reading, 0.8484 on that card, less 0.02. Candidates that K3
+# under-scored would drop out of the top 10 and pull it down.
+ENGINE_RESCORE_RECALL_FLOOR = 0.828
+
+
+def count_syncs(fn) -> int:
+    """Host synchronisations PyTorch reports while `fn` runs (its sync
+    debug mode, a prototype that may miss some)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
+    """Phase 5: the engine path behind `batch_search(heap_factor > 0)` on
+    the API cell's index; returns K7's record and adds the path's launch
+    counts to every kernel's record."""
+    import torch
+
+    from seismic_tpu_torch.api import DEFAULT_QUERY_PAD
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT, pad_queries
+    from seismic_tpu_torch.ops import (
+        grouped_scorer,
+        grouped_scorer_item,
+        qloc,
+        rescore,
+        tiles_scorer,
+    )
+    from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
+    from seismic_tpu_torch.search import engine
+    from seismic_tpu_torch.search.engine import SearchParams, search_batch
+
+    rec = record.setdefault("engine", {})
+    arrays = index.arrays
+    dindex = index.device_index()
+    q_comps, q_vals = pad_queries(qcomps, qvals, DEFAULT_QUERY_PAD)
+    qct = torch.from_numpy(q_comps).to(dev)
+    qvt = torch.from_numpy(q_vals).to(dev)
+    LL = ll_pad_for(arrays.max_list_len)
+    params = index._search_params(K, QUERY_CUT, 0, True, None, None, None)
+    if (params.doc_mode, params.block_mode, params.full_lists) != (
+            "tiles", "dense", False):
+        fail(f"the engine cell expects block-pruned tiles mode, got {params}")
+    rec.update(block_budget=params.block_budget, heap_factor=HEAP_FACTOR,
+               ll_pad=LL, max_blocks_per_list=arrays.max_blocks_per_list,
+               device_index_bytes=dindex.nbytes())
+
+    # ---- K7 against its plain version on the path's own inputs ----
+    qv_masked, safe_lists, _ = engine._select_lists(dindex, qct, qvt,
+                                                    QUERY_CUT)
+    _, ql, rs, ln = engine._tiles_scorer_inputs(dindex, qct, qv_masked,
+                                                safe_lists,
+                                                params.score_cut)
+    P, V = ql.shape[0] * ql.shape[1], ql.shape[2]
+    pl = ln.reshape(P)
+    a7 = (dindex.doc_tiles_aligned, dindex.tile_scale, rs.reshape(P),
+          ql.reshape(P, V), pl, LL)
+    # the same pairs with every one of their LL rows scored, as the TPU
+    # kernel streams them
+    a7_all = a7[:4] + (torch.full_like(pl, LL), LL)
+    k7 = tiles_scorer.score_tiles(*a7)
+    p7 = tiles_scorer.score_tiles_plain(*a7)
+    torch.cuda.synchronize()
+    inside = torch.arange(LL, device=dev) < pl[:, None]
+    err = (k7 - p7).abs()
+    rel7 = (err / p7.abs().clamp_min(1e-30))[inside].max().item()
+    out_abs = err[~inside].max().item()
+    if not (rel7 <= 1e-5 and out_abs <= 1e-5 * p7.max().item()):
+        fail(f"K7 disagrees: max relative error {rel7} inside the lists, "
+             f"max abs error {out_abs} outside")
+    # The bound: one launch scores all P pairs, so the function needs each
+    # distinct subtile (and its scales) once however many pairs share it,
+    # plus every pair's qloc, region start, length and output row; the
+    # operations are those of every (pair, subtile) really scored.
+    n_subtiles = int(((pl + SUB - 1) // SUB).sum().item())
+    sub_ids = (rs.reshape(P).long()[:, None]
+               + torch.arange(LL // SUB, device=dev))
+    live = torch.arange(LL // SUB, device=dev) * SUB < pl[:, None]
+    n_distinct = torch.unique(sub_ids[live]).numel()
+    per_pair = P * V * 4 + P * 8 + P * LL * 4
+    by7 = n_distinct * SUB * (V + 4) + per_pair
+    ops7 = 2.0 * n_subtiles * SUB * V
+    b7, bb7 = bound(by7, ops7, PEAK_F32)
+    # what the kernel's schedule moves: every pair streams its own copy of
+    # its list's subtiles (pairs that share a list meet in L2 at best)
+    by7s = n_subtiles * SUB * (V + 4) + per_pair
+    rec7 = dict(
+        name="score_tiles", route="cuda",
+        source="seismic_tpu_torch/csrc/tiles_scorer.cu",
+        replaces="seismic_tpu/ops/pallas_tiles.py:30",
+        max_abs_err=float(err[inside].max().item()), max_rel_err=rel7,
+        ms=time_ms(lambda: tiles_scorer.score_tiles(*a7), 20),
+        plain_ms=time_ms(lambda: tiles_scorer.score_tiles_plain(*a7), 3),
+        bound_ms=b7, bound_by=bb7,
+        # no one PyTorch call gathers each pair's rows and multiplies u8
+        # by f32: the plain version's gather + bmm is the closest
+        library_ms=None,
+        all_rows_ms=time_ms(lambda: tiles_scorer.score_tiles(*a7_all), 20),
+        bound_as_scheduled_ms=by7s / PEAK_BYTES * 1e3,
+        P=P, V=V, ll_pad=LL, subtiles=n_subtiles,
+        distinct_subtiles=n_distinct, bytes=by7, bytes_as_scheduled=by7s,
+        ops=ops7)
+    log(f"phase 5: K7 score_tiles: ok, max rel err {rel7:.3g} inside the "
+        f"lists, {rec7['ms']:.4f} ms ({rec7['all_rows_ms']:.4f} ms with all "
+        f"{LL} rows of every pair scored; bound {b7:.4f} ms by {bb7} with "
+        f"each distinct subtile read once, "
+        f"{rec7['bound_as_scheduled_ms']:.4f} ms for the bytes its "
+        f"per-pair schedule streams; plain {rec7['plain_ms']:.3f} ms; no "
+        f"library call); P {P}, subtiles {n_subtiles}, distinct "
+        f"{n_distinct}")
+    del k7, p7, err, inside, sub_ids, live, ql, a7, a7_all
+    torch.cuda.empty_cache()
+
+    # ---- the main path: batch_search(heap_factor=0.8), 5 warm batches ----
+    def run(**kw):
+        t = time.time()
+        res = index.batch_search(qcomps, qvals, k=K, query_cut=QUERY_CUT,
+                                 heap_factor=HEAP_FACTOR, **kw)
+        return res, time.time() - t
+
+    run()  # warm-up (allocator, first launches)
+    mods = (qloc, grouped_scorer, rescore, grouped_scorer_item, tiles_scorer)
+    names = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
+             "score_tiles")
+    for m in mods:
+        m.launches = 0
+    lat, res = [], None
+    g0 = gc_ms()
+    for _ in range(REPS):
+        res, dt = run()
+        lat.append(dt)
+    gc5 = gc_ms() - g0
+    counts = dict(zip(names, (m.launches for m in mods)))
+    if counts != {**dict.fromkeys(names, 0), "score_tiles": REPS}:
+        fail(f"engine path launches {counts}: K7 must launch once per batch "
+             "and no other kernel")
+    p50 = float(np.median(lat))
+    qps = BATCH * REPS / sum(lat)
+    log(f"phase 5: {REPS} warm batches of {BATCH} at heap_factor "
+        f"{HEAP_FACTOR}: p50 {p50 * 1e3:.2f} ms, QPS {qps:.1f}, launches "
+        f"{counts}, gc {gc5:.2f} ms")
+    if len(res) != BATCH:
+        fail(f"{len(res)} result rows for {BATCH} queries")
+    for b, row in enumerate(res):
+        sc = np.array([s for s, _ in row])
+        if not (len(row) == K and np.isfinite(sc).all()
+                and (np.diff(sc) <= 0).all()):
+            fail(f"engine query {b}: not {K} finite descending scores")
+        if len({d for _, d in row}) != K:
+            fail(f"engine query {b}: duplicate ids")
+
+    # ---- recall@10 at the default budget and at block_budget=512 ----
+    nq = len(gt)
+
+    def recall(rows):
+        return sum(len(set(gt[b].tolist()) & {d for _, d in rows[b]})
+                   for b in range(nq)) / (K * nq)
+
+    res_big, _ = run(block_budget=BIG_BUDGET)
+    r_def, r_big = recall(res), recall(res_big)
+    log(f"phase 5: recall@10 {r_def:.4f} at block_budget "
+        f"{params.block_budget}, {r_big:.4f} at block_budget {BIG_BUDGET} "
+        f"({nq} queries, heap_factor {HEAP_FACTOR})")
+    if min(r_def, r_big) < ENGINE_RECALL_FLOOR or r_big < r_def - 0.005:
+        fail(f"engine recall@10 {r_def:.4f} / {r_big:.4f}: under "
+             f"{ENGINE_RECALL_FLOOR} or the larger budget lost more than "
+             "0.005")
+
+    # ---- the same program on the kernel and on the plain scorer ----
+    sub = (q_comps[:nq], q_vals[:nq], params)
+    s_k, i_k = search_batch(dindex, *sub, heap_factor=HEAP_FACTOR)
+    kernel_scorer = engine.score_tiles
+    engine.score_tiles = tiles_scorer.score_tiles_plain
+    try:
+        s_p, i_p = search_batch(dindex, *sub, heap_factor=HEAP_FACTOR)
+    finally:
+        engine.score_tiles = kernel_scorer
+    same = np.mean([set(a.tolist()) == set(b.tolist())
+                    for a, b in zip(i_k, i_p)])
+    rel = float(np.max(np.abs(np.sort(s_k, 1) - np.sort(s_p, 1))
+                       / np.maximum(np.abs(np.sort(s_p, 1)), 1e-30)))
+    log(f"phase 5: kernel path vs plain-scorer path on {nq} queries: id "
+        f"sets equal on {same:.4f}, max rel score err {rel:.3g}")
+    if same < 0.98 or not rel <= 1e-5:
+        fail(f"engine path on K7 and on its plain version disagree: id "
+             f"sets equal on {same}, score rel err {rel}")
+
+    # ---- one rescore-mode batch through search_batch: K3, exact dots ----
+    rparams = SearchParams(k=K, query_cut=QUERY_CUT, doc_mode="rescore",
+                           block_mode="dense", block_budget=64)
+    # keep what the path hands K3, to hold the kernel against its plain
+    # version at those shapes afterwards
+    k3_calls = []
+    kernel_k3 = rescore.score_docs_rowmajor
+
+    def keep_k3_args(*a):
+        k3_calls.append(a)
+        return kernel_k3(*a)
+
+    for m in mods:
+        m.launches = 0
+    rescore.score_docs_rowmajor = keep_k3_args
+    try:
+        t0 = time.perf_counter()
+        s_r, i_r = search_batch(dindex, q_comps, q_vals, rparams,
+                                heap_factor=HEAP_FACTOR)
+        rescore_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rescore.score_docs_rowmajor = kernel_k3
+    rcounts = dict(zip(names, (m.launches for m in mods)))
+    if rcounts["rescore"] <= 0 or sum(rcounts.values()) != rcounts["rescore"]:
+        fail(f"rescore-mode batch launches {rcounts}: only K3 must launch")
+    if len(k3_calls) != rcounts["rescore"]:
+        fail(f"{len(k3_calls)} K3 calls kept, {rcounts['rescore']} launches")
+    # K3 on the path's widest-filled candidate chunk (sentinel ids already
+    # clamped to n_docs - 1 by the path), the plain version in row slices
+    # that bound its [rows, R, W] temporaries
+    a3e = max(k3_calls, key=lambda a: int((a[1] != a[4] - 1).sum().item()))
+    k3e = kernel_k3(*a3e)
+    p3e = torch.cat([
+        rescore.score_docs_rowmajor_plain(
+            a3e[0], a3e[1][r0:r0 + 512], a3e[2][r0:r0 + 512],
+            a3e[3][r0:r0 + 512], a3e[4])
+        for r0 in range(0, a3e[1].shape[0], 512)])
+    torch.cuda.synchronize()
+    err3 = (k3e - p3e).abs()
+    rel3 = (err3 / p3e.abs().clamp_min(1e-30))[p3e != 0].max().item()
+    zero3 = err3[p3e == 0].max().item() if (p3e == 0).any() else 0.0
+    at_engine = dict(
+        shape=list(a3e[1].shape), terms=a3e[2].shape[1],
+        chunks_per_batch=len(k3_calls),
+        nonzero_scores=int((p3e != 0).sum().item()),
+        max_abs_err=float(err3.max().item()), max_rel_err=rel3,
+        ms=time_ms(lambda: kernel_k3(*a3e), 10))
+    log(f"phase 5: K3 on the rescore batch's own {at_engine['shape']} "
+        f"candidate chunk ({len(k3_calls)} per batch): max rel err "
+        f"{rel3:.3g} on {at_engine['nonzero_scores']} nonzero scores, "
+        f"{at_engine['ms']:.4f} ms")
+    if not (rel3 <= 1e-5 and zero3 <= 1e-30):
+        fail(f"K3 disagrees with its plain version at the engine's shapes: "
+             f"max relative error {rel3}, {zero3} where the plain score is 0")
+    kernels[names.index("rescore")]["at_engine"] = at_engine
+    del k3_calls, a3e, k3e, p3e, err3
+    torch.cuda.empty_cache()
+    # brute force over the index's own forward rows (f16 values) and the
+    # queries' top score_cut terms, on the card
+    fc = np.asarray(arrays.fwd_comps)
+    real = fc != PAD_COMPONENT
+    crow = np.zeros(len(fc) + 1, np.int64)
+    np.cumsum(real.sum(1), out=crow[1:])
+    docs16 = torch.sparse_csr_tensor(
+        torch.from_numpy(crow), torch.from_numpy(fc[real].astype(np.int64)),
+        torch.from_numpy(np.asarray(arrays.fwd_vals)[real].astype(
+            np.float32)), size=(len(fc), DIM)).to(dev)
+    top_c, top_v, _ = engine._query_terms(qct, qvt, rparams.score_cut)
+    worst = 0.0
+    s_rt = torch.from_numpy(s_r).to(dev)
+    i_rt = torch.from_numpy(i_r).to(dev)
+    fin_r = torch.isfinite(s_rt) & (i_rt >= 0)
+    if fin_r.float().mean().item() < 0.99:
+        fail("rescore-mode results: under 99% of the top-k slots filled")
+    for c0 in range(0, BATCH, 2048):
+        tc, tv = top_c[c0:c0 + 2048], top_v[c0:c0 + 2048]
+        n = tc.shape[0]
+        ok = tc != int(PAD_COMPONENT)
+        col = torch.arange(n, device=dev)[:, None].expand_as(tc)
+        qd = torch.zeros((DIM, n), dtype=torch.float32, device=dev)
+        qd[tc[ok].long(), col[ok]] = tv[ok]
+        exact = torch.sparse.mm(docs16, qd).t()  # [n, n_docs]
+        ex = exact.gather(1, i_rt[c0:c0 + n].clamp_min(0))
+        f = fin_r[c0:c0 + n]
+        worst = max(worst, ((s_rt[c0:c0 + n] - ex).abs()
+                            / ex.abs().clamp_min(1e-30))[f].max().item())
+        del exact, qd
+    r_res = sum(len(set(gt[b].tolist()) & set(i_r[b].tolist()))
+                for b in range(nq)) / (K * nq)
+    log(f"phase 5: one rescore-mode batch of {BATCH}: {rescore_ms:.2f} ms, "
+        f"launches {rcounts}, every score the exact dot to {worst:.3g} "
+        f"relative, recall@10 {r_res:.4f} on {nq} queries")
+    if not worst <= 1e-5:
+        fail(f"rescore-mode scores differ from exact dots by {worst} "
+             "relative")
+    if r_res < ENGINE_RESCORE_RECALL_FLOOR:
+        fail(f"rescore-mode recall@10 {r_res:.4f} under "
+             f"{ENGINE_RESCORE_RECALL_FLOOR}")
+    del docs16
+    torch.cuda.empty_cache()
+
+    # ---- where one batch's time goes ----
+    hf32 = float(np.float32(HEAP_FACTOR))
+    g0 = gc_ms()
+    t = [time.perf_counter()]
+    pad_queries(qcomps, qvals, DEFAULT_QUERY_PAD)
+    t.append(time.perf_counter())
+    qct2 = torch.from_numpy(q_comps).to(dev)
+    qvt2 = torch.from_numpy(q_vals).to(dev)
+    torch.cuda.synchronize()
+    g_prog, n_alloc = gc_ms(), device_allocs()
+    t.append(time.perf_counter())
+    out = engine._search_impl(dindex, qct2, qvt2, hf32, params)
+    t_enq = time.perf_counter()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    prog = dict(enqueue_ms=(t_enq - t[2]) * 1e3, gc_ms=gc_ms() - g_prog,
+                cuda_mallocs=device_allocs() - n_alloc)
+    out[0].cpu(), out[1].cpu()
+    t.append(time.perf_counter())
+    brk = {name: (t[i + 1] - t[i]) * 1e3 for i, name in enumerate(
+        ("pad_queries_ms", "upload_ms", "device_program_ms",
+         "download_ms"))}
+    brk.update(gc_ms=gc_ms() - g0, device_program=prog)
+    prog_fn = lambda: engine._search_impl(dindex, qct2, qvt2, hf32, params)
+    brk["host_syncs_in_device_program"] = count_syncs(prog_fn)
+    try:
+        busy, kern = profile_device(prog_fn)
+        brk.update(device_busy_ms=busy, kernels_ms=kern,
+                   device_idle_share=max(
+                       0.0, 1.0 - busy / brk["device_program_ms"]))
+    except Exception as e:  # noqa: BLE001 - informational only
+        brk["profile"] = f"not measured: {e}"
+    log(f"phase 5 breakdown of one batch: {json.dumps(brk)}")
+
+    for kr, name in zip(kernels, names):
+        kr["launches_engine"] = counts[name] + rcounts[name]
+    rec.update(qps=qps, p50_ms=p50 * 1e3, latencies_s=lat, gc_ms=gc5,
+               launches=counts, rescore_batch_launches=rcounts,
+               rescore_batch_ms=rescore_ms, rescore_max_rel_err=worst,
+               recall_at_10=r_def, recall_at_10_budget_512=r_big,
+               recall_at_10_rescore=r_res, recall_queries=nq,
+               plain_scorer_id_sets_equal=float(same),
+               plain_scorer_max_rel_err=rel, breakdown=brk, k7=rec7,
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict({k_: rec7[k_] for k_ in keys},
+                launches=counts["score_tiles"], launches_headline=0,
+                launches_engine=counts["score_tiles"],
+                max_rel_err=rel7, all_rows_ms=rec7["all_rows_ms"],
+                bound_as_scheduled_ms=rec7["bound_as_scheduled_ms"])
+
+
+def api_path(ds, dev, record):
+    """Phases 2 and 3 on the API's grouped route (K1-K3), then phase 5,
+    the engine path, on the same index; returns (the records of K1-K3,
+    K7's record). Everything it builds is freed when it returns."""
     import torch
 
     from seismic_tpu_torch import (
@@ -951,7 +1326,13 @@ def api_path(ds, dev, record) -> list:
         plan={"G": plan.G, "W": plan.W, "G_cap": plan.G_cap,
               "W_cap": plan.W_cap, "P": P, "LLMAX": LLMAX},
     )
-    return kernels
+    del docs, exact
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 5: the engine path, same index ----------------
+    torch.cuda.reset_peak_memory_stats()
+    return kernels, engine_path(index, qcomps, qvals, gt, dev, record,
+                                kernels)
 
 
 def main():
@@ -1004,14 +1385,17 @@ def main():
     record.update(n_docs=len(ds), synth_s=synth_s,
                   rehearsal=args.n_docs < N_DOCS)
 
-    # ---------------- phases 2 and 3: the API route ----------------
-    kernels = api_path(ds, dev, record)
+    # ------- phases 2, 3 and 5: the API's grouped and engine routes -------
+    kernels, k7 = api_path(ds, dev, record)
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---------------- phase 4: the bench headline path ----------------
     torch.cuda.reset_peak_memory_stats()
     kernels.append(headline_path(ds, dev, record, kernels))
+    kernels[-1]["launches_engine"] = record["engine"]["launches"][
+        "score_grouped_i8_item"]
+    kernels.append(k7)
 
     total_s = time.time() - t_start
     record.update(kernels=kernels, total_s=total_s)

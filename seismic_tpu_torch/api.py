@@ -1,12 +1,14 @@
-"""User-facing API: `SeismicIndexRaw` on the grouped search route.
+"""User-facing API: `SeismicIndexRaw` on the grouped and engine routes.
 
 The counterpart of `seismic_tpu.api.SeismicIndexRaw` (integer component
-ids, no metadata). A request that asks for exhaustive lists
+ids, no metadata), routed as `seismic_tpu/api.py:356-419` routes on the
+accelerator. A tiles-mode request that asks for exhaustive lists
 (`heap_factor <= 0` or `full_lists`) and sets no block/candidate budget
-takes the grouped (list-major) route, whatever the device, with the fixed
-`GroupedParams` of the JAX API (`seismic_tpu/api.py:391-396`). Every other
-request raises NotImplementedError: the engine path is a later slice
-(ROADMAP.md, modules to port, item 5).
+takes the grouped (list-major) route with the fixed `GroupedParams` of
+the JAX API (`seismic_tpu/api.py:391-396`). Every other request
+(`heap_factor > 0`, a block budget, another doc or block mode) takes the
+engine path (`search/engine.py::search_batch`); kNN refinement runs there
+when the index carries a graph.
 
 Entry points take `device=None`, which means the card ("cuda"); when CUDA
 is absent they raise unless the caller asked for the CPU (`device="cpu"`,
@@ -74,8 +76,8 @@ class SeismicIndexRaw:
         config = config or Configuration()
         if config.knn.nknn > 0 or config.knn.knn_path:
             raise NotImplementedError(
-                "k-NN graphs arrive with kNN refinement (ROADMAP.md, "
-                "modules to port, items 2d and 7)")
+                "building or loading a k-NN graph: ROADMAP.md, modules to "
+                "port, item 7")
         arrays = build_index(
             dataset, config, value_dtype=cls._value_dtype, progress=progress,
         )
@@ -110,6 +112,47 @@ class SeismicIndexRaw:
         return self._planner_ctx
 
     # ------------------------------------------------------------ search
+    def _search_params(
+        self,
+        k: int,
+        query_cut: int,
+        n_knn: int,
+        first_sorted: bool,
+        block_budget: Optional[int],
+        cand_budget: Optional[int],
+        block_mode: Optional[str],
+        doc_mode: Optional[str] = None,
+        full_lists: bool = False,
+        score_cut: int = 64,
+    ):
+        """The engine path's parameters with the JAX API's defaults
+        (`seismic_tpu/api.py:221-266`)."""
+        from .search.engine import SearchParams
+
+        a = self._arrays
+        if block_mode is None:
+            if a.dense_summary is not None:
+                block_mode = "dense"
+            elif a.summary_comps is not None:
+                block_mode = "summary"
+            else:
+                block_mode = "sketch"
+        if doc_mode is None:
+            doc_mode = "tiles" if a.doc_tiles is not None else "gather"
+        return SearchParams(
+            k=k,
+            query_cut=query_cut,
+            block_budget=(max(4 * k, 64) if block_budget is None
+                          else block_budget),
+            cand_budget=0 if cand_budget is None else cand_budget,
+            block_mode=block_mode,
+            doc_mode=doc_mode,
+            full_lists=full_lists,
+            score_cut=score_cut,
+            n_knn=n_knn,
+            first_sorted=first_sorted,
+        )
+
     def _raw_batch_search(
         self,
         comp_lists: Sequence[np.ndarray],
@@ -118,24 +161,19 @@ class SeismicIndexRaw:
         query_cut: int,
         heap_factor: float,
         n_knn: int,
+        first_sorted: bool = True,
         block_budget: Optional[int] = None,
         cand_budget: Optional[int] = None,
+        block_mode: Optional[str] = None,
+        doc_mode: Optional[str] = None,
         full_lists: bool = False,
         score_cut: int = 64,
         device=None,
     ):
-        if n_knn > 0:
-            raise NotImplementedError(
-                "n_knn > 0: kNN refinement arrives in ROADMAP.md, modules "
-                "to port, item 2d")
-        grouped = ((full_lists or heap_factor <= 0.0)
-                   and block_budget is None and cand_budget is None
-                   and self._arrays.doc_tiles is not None)
-        if not grouped:
-            raise NotImplementedError(
-                "only the grouped route (heap_factor <= 0 or full_lists, no "
-                "budgets, an index with doc tiles) is ported; the engine "
-                "path arrives in ROADMAP.md, modules to port, item 5")
+        if n_knn > 0 and self._arrays.knn is None:
+            raise ValueError(
+                "n_knn > 0 but the index has no k-NN graph (carry one in "
+                "with from_jax_arrays or IndexArrays.knn)")
         B = len(comp_lists)
         if B == 0:
             return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
@@ -146,21 +184,43 @@ class SeismicIndexRaw:
                 q_comps, ((0, bb - B), (0, 0)), constant_values=PAD_COMPONENT
             )
             q_vals = np.pad(q_vals, ((0, bb - B), (0, 0)))
-        from .search.grouped import DevicePlan, _grouped_impl
-        from .search.planner import plan_grouped_numpy
-
-        index = self.device_index(device)
-        dev = index.device
-        plan = plan_grouped_numpy(q_comps, q_vals, self._grouped_ctx(),
-                                  query_cut)
-        scores, ids = _grouped_impl(
-            index,
-            DevicePlan.put(plan, dev),
-            torch.from_numpy(q_comps).to(dev),
-            torch.from_numpy(q_vals).to(dev),
-            route_params(k, score_cut),
+        params = self._search_params(
+            k, query_cut, n_knn, first_sorted, block_budget, cand_budget,
+            block_mode, doc_mode, full_lists, score_cut,
         )
-        return scores.cpu().numpy()[:B], ids.cpu().numpy()[:B]
+        index = self.device_index(device)
+        # The grouped (list-major) route realizes the exhaustive scan of
+        # the selected lists, so it serves full_lists and heap_factor <= 0
+        # requests; block/cand budgets are honored only by the engine
+        # path, so a request that sets them goes there. kNN refinement on
+        # the grouped route is not ported (ROADMAP.md, modules to port,
+        # item 2d): such a request takes the engine path as well.
+        if (
+            params.doc_mode == "tiles"
+            and (full_lists or heap_factor <= 0.0)
+            and block_budget is None
+            and cand_budget is None
+            and n_knn == 0
+        ):
+            from .search.grouped import DevicePlan, _grouped_impl
+            from .search.planner import plan_grouped_numpy
+
+            dev = index.device
+            plan = plan_grouped_numpy(q_comps, q_vals, self._grouped_ctx(),
+                                      query_cut)
+            scores, ids = _grouped_impl(
+                index,
+                DevicePlan.put(plan, dev),
+                torch.from_numpy(q_comps).to(dev),
+                torch.from_numpy(q_vals).to(dev),
+                route_params(k, score_cut),
+            )
+            return scores.cpu().numpy()[:B], ids.cpu().numpy()[:B]
+        from .search.engine import search_batch
+
+        scores, ids = search_batch(index, q_comps, q_vals, params,
+                                   heap_factor=heap_factor)
+        return scores[:B], ids[:B]
 
     def search(
         self,
@@ -173,14 +233,15 @@ class SeismicIndexRaw:
         sorted: bool = True,
         block_budget: Optional[int] = None,
         cand_budget: Optional[int] = None,
+        block_mode: Optional[str] = None,
         device=None,
     ) -> List[Tuple[float, int]]:
         """-> [(score, internal_doc_id)] (reference: mod.rs:1033-1076)."""
         c = np.asarray(query_components, dtype=np.int64)
         v = np.asarray(query_values, dtype=np.float32)
         scores, ids = self._raw_batch_search(
-            [c], [v], k, query_cut, heap_factor, n_knn, block_budget,
-            cand_budget, device=device,
+            [c], [v], k, query_cut, heap_factor, n_knn, sorted,
+            block_budget, cand_budget, block_mode, device=device,
         )
         return [
             (float(s), int(d))
@@ -200,6 +261,7 @@ class SeismicIndexRaw:
         num_threads: int = 0,
         block_budget: Optional[int] = None,
         cand_budget: Optional[int] = None,
+        block_mode: Optional[str] = None,
         device=None,
     ) -> List[List[Tuple[float, int]]]:
         """Batched queries (reference: mod.rs:1098-1146) from explicit
@@ -212,8 +274,8 @@ class SeismicIndexRaw:
         scores, ids = self._raw_batch_search(
             [np.asarray(c) for c in query_components],
             [np.asarray(v) for v in query_values],
-            k, query_cut, heap_factor, n_knn, block_budget, cand_budget,
-            device=device,
+            k, query_cut, heap_factor, n_knn, sorted, block_budget,
+            cand_budget, block_mode, device=device,
         )
         return [
             [

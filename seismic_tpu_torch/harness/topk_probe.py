@@ -9,7 +9,7 @@ stages), it times each idiom that can give `lax.top_k`'s order or is its
 nearest library call:
 
 - `sort`: a stable descending sort, then the first k (what
-  `search/grouped.py::_top_k` does);
+  `search/engine.py::_top_k` does);
 - `topk`: `torch.topk` on the values (no defined tie order);
 - `key_i64`: `torch.topk` over int64 keys (f32 bits above the column);
 - `key_i32`: `torch.topk` over int32 keys (bf16 bits above the column).

@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, `seismic_tpu_torch/_build/
-lib<name>.so`, at first use (or all at once, in parallel, by `build()`),
-and loaded with ctypes. Every C entry point launches on the stream it is
+lib<name>-<hash>.so`, at first use (or all at once, in parallel, by
+`build()`), and loaded with ctypes. The hash is of the source and the
+compiler flags, so a library left from an older source is never loaded,
+whatever the files' times say. Every C entry point launches on the stream it is
 given and returns `cudaGetLastError()`; `check()` raises on a non-zero
 code. Nothing here runs at import time: the CPU tests import every module
 of the package on a machine without `nvcc`.
@@ -12,6 +14,7 @@ of the package on a machine without `nvcc`.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -21,7 +24,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("qloc", "grouped_scorer", "grouped_scorer_item", "rescore")
+KERNELS = ("qloc", "grouped_scorer", "grouped_scorer_item", "rescore",
+           "tiles_scorer")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,14 +54,17 @@ def _src(name: str) -> str:
     return os.path.join(CSRC, f"{name}.cu")
 
 
+def lib_name(name: str, source: bytes, flags) -> str:
+    """File name of kernel library `name` built from `source` with
+    `flags`: it carries a hash of both."""
+    h = hashlib.sha256(source)
+    h.update("\0".join(flags).encode())
+    return f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
 def lib_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}.so")
-
-
-def _fresh(name: str) -> bool:
-    so = lib_path(name)
-    return os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(
-        _src(name))
+    with open(_src(name), "rb") as f:
+        return os.path.join(BUILD_DIR, lib_name(name, f.read(), NVCC_FLAGS))
 
 
 def build(names=KERNELS, force: bool = False) -> float:
@@ -69,22 +76,23 @@ def build(names=KERNELS, force: bool = False) -> float:
     nvcc = nvcc_path()
     procs = {}
     for name in names:
-        if not force and _fresh(name):
+        path = lib_path(name)
+        if not force and os.path.exists(path):
             continue
-        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
-        procs[name] = (tmp, subprocess.Popen(
+        tmp = f"{path}.{os.getpid()}.tmp"
+        procs[name] = (tmp, path, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, _src(name)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     errors = []
-    for name, (tmp, proc) in procs.items():
+    for name, (tmp, path, proc) in procs.items():
         out, _ = proc.communicate()
         ptxas_report[name] = out
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu failed:\n{out}")
             continue
         # rename into place: a concurrent loader never opens a partial file
-        os.replace(tmp, lib_path(name))
+        os.replace(tmp, path)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.time() - t0
@@ -97,8 +105,7 @@ def load(name: str):
         return lib
     with _lock:
         if name not in _libs:
-            if not _fresh(name):
-                build((name,))
+            build((name,))
             _libs[name] = ctypes.CDLL(lib_path(name))
         return _libs[name]
 

@@ -49,7 +49,12 @@ from ..ops.qloc import project_qloc_quantize
 from ..ops.rescore import rescore_exact
 from ..ops.tiles_prep import SUB, ll_pad_for
 from ..types import DeviceIndex
-from .engine import _dedup_by_id, _sort_by_id_then_score
+from .engine import (
+    _dedup_by_id,
+    _query_terms,
+    _sort_by_id_then_score,
+    _top_k,
+)
 from .planner import GroupedPlan, PlannerContext, plan_grouped
 
 
@@ -168,16 +173,6 @@ class DevicePlan:
                   for f, v, p in zip(_PLAN_FIELDS, views, parts)}
         fields["pair_valid"] = fields["pair_valid"].bool()
         return DevicePlan(**fields, M=plan.M, G=plan.G, W=plan.W)
-
-
-def _top_k(x, k: int):
-    """`lax.top_k` semantics: descending, the lower index wins among equal
-    values (the bf16 pool wall is full of ties). A stable sort: on the
-    card it sorts each row in place for rows of at most 4096 values (every
-    selection of this program) and synchronises with the host past that
-    width (harness/topk_probe.py)."""
-    s = torch.sort(x, dim=-1, descending=True, stable=True)
-    return s.values[..., :k], s.indices[..., :k]
 
 
 def _scatter_drop(n: int, fill, idx, src):
@@ -320,23 +315,14 @@ def _grouped_impl(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
                          *_grouped_pool(index, plan, q_comps, q_vals, params))
 
 
-def _query_terms(q_comps, q_vals, score_cut: int):
-    """Each query's top `score_cut` terms by value, padding valued 0:
-    (top_c int32 [B, sc], top_v f32 [B, sc], sc)."""
-    Q = q_comps.shape[1]
-    qv = torch.where(q_comps != int(PAD_COMPONENT), q_vals, 0.0)
-    sc = min(score_cut, Q)
-    if sc == Q:
-        return q_comps, qv, sc
-    top_v, top_p = _top_k(qv, sc)
-    return torch.gather(q_comps, 1, top_p), top_v, sc
-
-
 def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
                   params: GroupedParams):
     """The grouped program up to its candidate pool: `_grouped_tail`'s
     arguments after (index, params)."""
     _check_supported(params)
+    if index.doc_tiles_aligned is None:
+        raise ValueError("the grouped route needs an index built with doc "
+                         "tiles (layout.summary_vocab_cap > 0)")
     B = q_comps.shape[0]
     G_cap, M = plan.slot_b.shape
     V = index.vocab16.shape[1]

@@ -2,8 +2,8 @@
 
 `IndexArrays` is a copy of the NumPy half of `seismic_tpu/types.py` (same
 fields, same on-disk formats), so both packages read and write one index.
-`IndexArrays.to_device` uploads the part the grouped search route reads
-as torch tensors (`DeviceIndex`):
+`IndexArrays.to_device` uploads what the search routes read as torch
+tensors (`DeviceIndex`):
 
 - the list-aligned doc tiles, u8 `[rows, V]`, with one f32 scale per row
   (the TPU layout's int8 view and 8x-replicated scale blocks were Mosaic
@@ -11,7 +11,11 @@ as torch tensors (`DeviceIndex`):
 - the per-list local vocabularies (`vocab16`, int16 with -1 padding);
 - the fused forward rows `fwd_fused` `[n_docs, 2W]` int32 (component ids
   | f32 value bits) read by the exact rescore;
-- the posting array and the list geometry.
+- the posting array and the list geometry;
+- what the engine path reads on top of those, each `None` when the build
+  left it out: the block geometry, the dense and the u8 CSR block
+  summaries, each posting's block index within its list, the per-posting
+  overflow entries and the k-NN graph.
 """
 
 from __future__ import annotations
@@ -341,11 +345,12 @@ class IndexArrays:
 
     # ------------------------------------------------------------- device
     def to_device(self, device=None, tile_csub: int = 1) -> "DeviceIndex":
-        """Upload what the grouped search route reads to `device` (None
-        means "cuda"; raises when CUDA is absent rather than falling back
-        to the CPU). Builds the list-aligned tile layout on the host;
-        `tile_csub` subtiles of 128 rows make one work item (every list's
-        region padded to a multiple of them), as in the JAX package."""
+        """Upload what the search routes read to `device` (None means
+        "cuda"; raises when CUDA is absent rather than falling back to the
+        CPU). Builds the list-aligned tile layout on the host when the
+        index has doc tiles; `tile_csub` subtiles of 128 rows make one
+        work item (every list's region padded to a multiple of them), as
+        in the JAX package. Fields the build left out stay `None`."""
         import torch
 
         from .ops.tiles_prep import prepare_pallas_tiles
@@ -354,11 +359,6 @@ class IndexArrays:
         dev = resolve_device(device)
         if tile_csub < 1:
             raise ValueError(f"tile_csub={tile_csub} must be >= 1")
-        if self.doc_tiles is None or self.list_vocab is None:
-            raise ValueError(
-                "the grouped route needs an index built with doc tiles "
-                "(layout.summary_vocab_cap > 0, store_doc_tiles=True)"
-            )
         if self.dim > 32766:
             raise NotImplementedError(
                 "dims past the int16 vocab twin (> 32766) need an int32 "
@@ -373,14 +373,20 @@ class IndexArrays:
             )
 
         def put(a, dtype=None):
+            if a is None:
+                return None
             a = np.ascontiguousarray(a if dtype is None else
                                      np.asarray(a, dtype=dtype))
             return torch.from_numpy(a).to(dev)
 
-        tiles_u8, tile_scale, region_start = prepare_pallas_tiles(
-            self, tile_csub)
-        lv = np.asarray(self.list_vocab)
-        lv = np.where(lv == PAD_COMPONENT, -1, lv)
+        tiles_u8 = tile_scale = region_start = None
+        if self.doc_tiles is not None:
+            tiles_u8, tile_scale, region_start = prepare_pallas_tiles(
+                self, tile_csub)
+        lv = self.list_vocab
+        if lv is not None:
+            lv = np.asarray(lv)
+            lv = np.where(lv == PAD_COMPONENT, -1, lv)
         fc = np.asarray(self.fwd_comps, dtype=np.int32)
         fv = np.asarray(self.fwd_vals, dtype=np.float32)
         fused = np.concatenate([fc, fv.view(np.int32)], axis=1)
@@ -393,8 +399,24 @@ class IndexArrays:
             postings=put(self.postings, np.int32),
             list_post_start=put(self.list_post_start, np.int32),
             list_len=put(self.list_len, np.int32),
+            block_start=put(self.block_start, np.int32),
+            block_len=put(self.block_len, np.int32),
+            list_block_start=put(self.list_block_start, np.int32),
+            list_n_blocks=put(self.list_n_blocks, np.int32),
+            dense_summary=put(self.dense_summary),
+            dense_scale=put(self.dense_scale, np.float32),
+            summary_comps=put(self.summary_comps, np.int32),
+            summary_codes=put(self.summary_codes),
+            summary_min=put(self.summary_min, np.float32),
+            summary_quant=put(self.summary_quant, np.float32),
+            posting_block_local=put(self.posting_block_local, np.int32),
+            tile_ovf_comps=put(self.tile_ovf_comps),
+            tile_ovf_vals=put(self.tile_ovf_vals),
+            knn=put(self.knn, np.int32),
             dim=self.dim,
             n_docs=self.n_docs,
+            max_blocks_per_list=self.max_blocks_per_list,
+            max_block_len=self.max_block_len,
             max_list_len=self.max_list_len,
             tile_csub=tile_csub,
         )
@@ -402,7 +424,8 @@ class IndexArrays:
 
 @dataclass
 class DeviceIndex:
-    """Device tensors of the grouped search route (see module docstring)."""
+    """Device tensors of the search routes (see module docstring); a
+    field is `None` when the index was built without it."""
 
     doc_tiles_aligned: object  # uint8 [n_sub_total * 128, V]
     tile_scale: object  # f32 [n_sub_total * 128] dequant scale per row
@@ -413,8 +436,26 @@ class DeviceIndex:
     postings: object  # int32 [total_postings_pad] doc ids
     list_post_start: object  # int32 [n_lists]
     list_len: object  # int32 [n_lists]
+    # --- read by the engine path only ---
+    block_start: object = None  # int32 [n_blocks_pad] into postings
+    block_len: object = None  # int32 [n_blocks_pad]
+    list_block_start: object = None  # int32 [n_lists] into blocks
+    list_n_blocks: object = None  # int32 [n_lists]
+    dense_summary: object = None  # uint8 [n_blocks_pad, V]
+    dense_scale: object = None  # f32 [n_blocks_pad]
+    summary_comps: object = None  # int32 [n_blocks_pad, S] PAD padded
+    summary_codes: object = None  # uint8 [n_blocks_pad, S]
+    summary_min: object = None  # f32 [n_blocks_pad]
+    summary_quant: object = None  # f32 [n_blocks_pad]
+    posting_block_local: object = None  # int32 [total_postings_pad+]
+    # int16 (-1 padded) or int32 (PAD_COMPONENT padded) [postings_pad, O]
+    tile_ovf_comps: object = None
+    tile_ovf_vals: object = None  # f16 [postings_pad, O]
+    knn: object = None  # int32 [n_docs, nknn]
     dim: int = 0
     n_docs: int = 0
+    max_blocks_per_list: int = 0
+    max_block_len: int = 0
     max_list_len: int = 0
     tile_csub: int = 1
 
