@@ -34,7 +34,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    timed beside its bound; then QPS at B=4096/M=8 (`plan_caps` +
    `search_grouped_derive` per batch, 5 x 4 batches, one synchronise) and
    at B=16384/M=16 (5 calls), with the launch counts set to 0 before and
-   read after (K1, K4, K3 > 0, K2 = 0); p50 of a synchronised B=4096
+   read after (K1, K4, K3 > 0, the other six 0); p50 of a synchronised B=4096
    call; one call under `torch.cuda.set_sync_debug_mode("error")`;
    recall@10 >= 0.95 over all 16,384 queries and every score exact; a
    torch.profiler breakdown of one B=16384 call;
@@ -42,7 +42,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    before that index is freed): `SeismicIndexRaw.batch_search` of the
    same 4096 queries with `heap_factor=0.8` (block-pruned tiles mode, the
    API's default block budget), launch counts set to 0 before and read
-   after (K7 once per batch; K1, K2, K4 never). K7, the per-pair tile
+   after (K7 once per batch; the other eight never). K7, the per-pair tile
    scorer, must equal its plain version to 1e-5 relative on the rows
    inside each list at the path's own inputs, timed beside its bound;
    on 256 queries the program on the kernel and on the plain scorer must
@@ -53,6 +53,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    default budget and at `block_budget=512`; QPS over 5 warm batches, p50,
    and a breakdown with idle share, GC time, enqueue time and the host
    synchronisations of the device program.
+
+6. drive the remaining grouped-search modes on phase 4's index (it runs
+   inside phase 4, before that index is freed) with B=4096, M=8,
+   query_cut=14 through `plan_caps` + `search_grouped_derive`, the launch
+   counts set to 0 before each batch and read after: the on-device gate's
+   configuration (f32 scorer, exact pool, whole-pool overflow correction)
+   and a default-constructed `GroupedParams` (bf16, approx, ovf_pool 64),
+   K6 once per batch and K2 = K4 = 0, the gate configuration also on K6's
+   plain version (id sets >= 98%, scores 1e-4); `pool_mode="stride"` on
+   the int8 scorers (K4 + K5, and K2 at csub 2 + K5) and
+   `pool_mode="window"` on bf16 (K6 + K5) with rescore 64, every score the
+   exact dot; `qloc_mode="rowmajor"` (K8 once, K1 never, results equal to
+   the lane-major run's); a second upload with `vocab_residue=8` (K9 once,
+   K1 never, recall@10 within 0.03 of the unpermuted run). K5 inside K2,
+   K4 and K6, K6 (bf16 / f32, centred / fixup), K8 and K9 are held against
+   their plain versions at these shapes and timed beside their bounds;
+   recall@10 floors per mode; one breakdown (idle share, enqueue, syncs)
+   of the default configuration.
+
+Every one of these windows sets the launch counts of all nine wrappers to 0
+and reads all nine, and fails on a kernel that launched where it should
+not; the kernels' record takes `launches` (the kernel's own main path) and
+`launches_api` / `_engine` / `_headline` / `_modes` from those readings.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -71,10 +94,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 tensor-core
-# ops/s, f32 CUDA-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 and bf16
+# tensor-core ops/s, f32 CUDA-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_INT8 = 1979e12
+PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 
 K, QUERY_CUT, V_CAP, DIM = 10, 14, 1024, 30522
@@ -120,6 +144,48 @@ def bound(nbytes: float, nops: float, op_peak: float):
     """(bound_ms, bound_by): the larger of the bytes and the ops times."""
     tb, to = nbytes / PEAK_BYTES, nops / op_peak
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+# the nine kernel wrappers' modules, in the order of the `kernels` line
+COUNTED = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
+           "score_tiles", "pack_epilogue", "score_grouped_f", "qloc_rowmajor",
+           "qloc_residue")
+
+
+def _counted_modules() -> dict:
+    import importlib
+
+    from seismic_tpu_torch import ops
+
+    files = dict(zip(COUNTED, (
+        "qloc", "grouped_scorer", "rescore", "grouped_scorer_item",
+        "tiles_scorer", "pack_epilogue", "grouped_scorer_f", "qloc_rowmajor",
+        "qloc_residue")))
+    return {n_: importlib.import_module(f"{ops.__name__}.{f_}")
+            for n_, f_ in files.items()}
+
+
+def zero_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    for m in _counted_modules().values():
+        m.launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count since `zero_launches`."""
+    return {n_: m.launches for n_, m in _counted_modules().items()}
+
+
+def hold_launches(what: str, counts: dict, positive=(), exact=None) -> dict:
+    """Fail unless the kernels named in `positive` launched, those in
+    `exact` launched exactly that often, and every other one never."""
+    exact = exact or {}
+    for n_, c in counts.items():
+        ok = (c > 0 if n_ in positive else c == exact.get(n_, 0))
+        if not ok:
+            fail(f"{what} launches {counts}: expected > 0 of "
+                 f"{sorted(positive)}, exactly {exact}, 0 of every other")
+    return counts
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -368,20 +434,16 @@ def align_pair_order(host, derived):
 
 def headline_path(ds, dev, record, kernels) -> dict:
     """Phase 4: the bench headline path through `plan_caps` and
-    `search_grouped_derive`; returns K4's record and adds the path's
-    launch counts to every kernel's record."""
+    `search_grouped_derive`; returns K4's record and leaves the path's
+    launch counts of all nine kernels in
+    `record["launch_windows"]["headline"]`."""
     import torch
 
     from seismic_tpu_torch import Configuration, GlobalThresholdPruning
     from seismic_tpu_torch import TpuLayout
     from seismic_tpu_torch.build.builder import build_index
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT
-    from seismic_tpu_torch.ops import (
-        grouped_scorer,
-        grouped_scorer_item,
-        qloc,
-        rescore,
-    )
+    from seismic_tpu_torch.ops import grouped_scorer_item
     from seismic_tpu_torch.ops.tiles_prep import SUB, narrow_vocab
     from seismic_tpu_torch.search.grouped import (
         DevicePlan,
@@ -413,7 +475,6 @@ def headline_path(ds, dev, record, kernels) -> dict:
     dindex = arrays.to_device(dev, tile_csub=CSUB)
     ctx = PlannerContext.from_arrays(arrays, csub=CSUB)
     t3 = time.time()
-    del arrays
     gc.collect()
     q_comps, q_vals = padded_queries(N_QUERIES)
     nb = N_QUERIES // BATCH
@@ -547,17 +608,12 @@ def headline_path(ds, dev, record, kernels) -> dict:
         # library yardstick: one int8 tensor-core product with the same
         # operation count over the same gathered tile rows (one [V, M]
         # query block for all items: not the same function; never used)
-        lib_ms = None
-        try:
-            rows = (a4[3][:W].long()[:, None] * ROWS
-                    + torch.arange(ROWS, device=dev)).reshape(-1)
-            A = a4[0][rows].view(torch.int8)
-            Bq = a4[2][0].t()  # [V, M], column-major
-            torch._int_mm(A, Bq)
-            lib_ms = time_ms(lambda: torch._int_mm(A, Bq), 20)
-            del A
-        except Exception as e:  # noqa: BLE001 - the yardstick is optional
-            log(f"  torch._int_mm yardstick unavailable: {e}")
+        rows = (a4[3][:W].long()[:, None] * ROWS
+                + torch.arange(ROWS, device=dev)).reshape(-1)
+        A = a4[0][rows].view(torch.int8)
+        Bq = a4[2][0].t()  # [V, M], column-major
+        lib_ms = time_ms(lambda: torch._int_mm(A, Bq), 20)
+        del A, rows
         k4[tag] = dict(
             max_abs_err=float((k_out - p_out).abs().max().item()),
             max_rel_err=rel,
@@ -595,9 +651,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
         once(b)
     once_big()
     torch.cuda.synchronize()
-    mods = (qloc, grouped_scorer, grouped_scorer_item, rescore)
-    for m in mods:
-        m.launches = 0
+    zero_launches()
     g0 = gc_ms()
     t0 = time.perf_counter()
     outs = [None] * nb
@@ -613,20 +667,16 @@ def headline_path(ds, dev, record, kernels) -> dict:
     torch.cuda.synchronize()
     el16 = time.perf_counter() - t0
     gc_qps = {"b4096_ms": g1 - g0, "b16384_ms": gc_ms() - g1}
-    counts = dict(zip(("qloc", "score_grouped_i8", "score_grouped_i8_item",
-                       "rescore"), (m.launches for m in mods)))
+    counts = read_launches()
     qps4 = REPS * nb * BATCH / el4
     qps16 = REPS * N_QUERIES / el16
     log(f"phase 4: QPS(B={BATCH}, M=8) {qps4:.1f} over {REPS} x {nb} "
         f"batches ({el4:.3f} s, plan_caps included); QPS(B={N_QUERIES}, "
         f"M={BIG_M}) {qps16:.1f} over {REPS} calls ({el16:.3f} s); launches "
         f"{counts}; gc {json.dumps(gc_qps)}")
-    if min(counts["qloc"], counts["score_grouped_i8_item"],
-           counts["rescore"]) <= 0 or counts["score_grouped_i8"] != 0:
-        fail(f"headline path launches {counts}: K1, K4 and K3 must launch "
-             "and K2 must not")
-    for kr, name in zip(kernels, ("qloc", "score_grouped_i8", "rescore")):
-        kr["launches_headline"] = counts[name]
+    hold_launches("the headline path", counts,
+                  positive=("qloc", "score_grouped_i8_item", "rescore"))
+    record["launch_windows"]["headline"] = counts
     lat = []
     for _ in range(10):
         t0 = time.perf_counter()
@@ -693,7 +743,16 @@ def headline_path(ds, dev, record, kernels) -> dict:
         f"scores exact to {worst:.3g}")
     if rec4 < 0.95 or rec16 < 0.95:
         fail(f"headline recall@10 {rec4:.4f} / {rec16:.4f} < 0.95")
-    del docs
+
+    # ---- phase 6: the remaining modes, on this index and batch 0 ----
+    new_kernels = modes_path(
+        dict(arrays=arrays, dindex=dindex, ctx=ctx, qc_np=qcn[0],
+             qv_np=qvn[0], qc_t=qcd[0], qv_t=qvd[0], plan=plans[0][2],
+             G=plans[0][0].G, W=plans[0][0].W, gt=gt[:256], docs=docs,
+             ids_headline=i4[:BATCH]), dev, record, kernels)
+    del docs, arrays
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- where one B=16384 call's time goes ----
     t0 = time.perf_counter()
@@ -737,12 +796,11 @@ def headline_path(ds, dev, record, kernels) -> dict:
                launches=counts, k4=k4, breakdown=brk, gc_qps_windows=gc_qps,
                peak_device_bytes=torch.cuda.max_memory_allocated())
     main4 = k4["b4096_m8"]
-    return dict(
+    return new_kernels, dict(
         name="score_grouped_i8_item", route="cuda",
         source="seismic_tpu_torch/csrc/grouped_scorer_item.cu",
         replaces="seismic_tpu/ops/pallas_grouped.py:326",
-        launches=counts["score_grouped_i8_item"],
-        launches_headline=counts["score_grouped_i8_item"],
+        packed=record["modes"]["k5"]["in_k4"],
         max_abs_err=main4["max_abs_err"], ms=main4["ms"],
         plain_ms=main4["plain_ms"], bound_ms=main4["bound_ms"],
         bound_by=main4["bound_by"], library_ms=main4["library_ms"],
@@ -750,6 +808,513 @@ def headline_path(ds, dev, record, kernels) -> dict:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
     )
+
+
+# ---- phase 6: the remaining grouped-search modes ----
+# recall@10 floors on 256 queries, each the first reading (NVIDIA H100 80GB
+# HBM3, 700 W: 0.9422, 0.9348, 0.9543, 0.9543, 0.9035, 0.9805, 0.9805) less
+# 0.02, as phase 5's: a broken mask or epilogue falls far below them; they
+# are no tuned targets.
+MODE_RECALL_FLOORS = {
+    "gate": 0.922, "defaults": 0.914, "stride_item": 0.934,
+    "stride_slot": 0.934, "window_bf16": 0.883, "rowmajor": 0.960,
+    "residue": 0.960,
+}
+# share of 256 queries on which the f32 scorer and the int8 scorer, both
+# with the exact pool and rescore 64, return the same top-10 id set: the
+# first reading (1.0) less 0.02
+F32_VS_I8_FLOOR = 0.98
+
+
+def modes_path(env, dev, record, kernels) -> list:
+    """Phase 6: the grouped-search modes of K5, K6, K8 and K9 on the
+    headline cell's index, one B=4096 / M=8 batch; returns the four new
+    kernels' records and leaves the phase's launch counts of all nine
+    kernels in `record["launch_windows"]["modes"]`."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+    from seismic_tpu_torch.ops import (
+        grouped_scorer,
+        grouped_scorer_f,
+        grouped_scorer_item,
+        pack_epilogue,
+        qloc,
+        qloc_residue,
+        qloc_rowmajor,
+    )
+    from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
+    from seismic_tpu_torch.search import grouped
+    from seismic_tpu_torch.search.grouped import (
+        GroupedParams,
+        _query_terms,
+        _residue_buckets,
+        plan_caps,
+        search_grouped_derive,
+    )
+    from seismic_tpu_torch.search.planner import PlannerContext
+
+    rec = record.setdefault("modes", {})
+    t_phase = time.time()
+    arrays, dindex, ctx = env["arrays"], env["dindex"], env["ctx"]
+    qc_np, qv_np, qc_t, qv_t = (env[k_] for k_ in ("qc_np", "qv_np", "qc_t",
+                                                   "qv_t"))
+    dp, G, W, gt = env["plan"], env["G"], env["W"], env["gt"]
+    nq = len(gt)
+    M, QC, ROWS = 8, QUERY_CUT, CSUB * SUB
+    LLMAX = ll_pad_for(dindex.max_list_len, CSUB)
+    G_cap = dp.slot_b.shape[0]
+    P = BATCH * QC
+    total = dict.fromkeys(COUNTED, 0)
+
+    def rel_err(k, p, floor=1e-30):
+        return ((k - p).abs() / p.abs().clamp_min(floor)).max().item()
+
+    # ---- the path's own operands: K1's f32 output, qsum, the groups ----
+    top_c, top_v, sc = _query_terms(qc_t, qv_t, 64)
+    a1 = (dindex.vocab16, dp.pair_list.reshape(-1).contiguous(),
+          top_c[:, :sc].contiguous(), top_v[:, :sc].contiguous(), QC)
+    qf_pairs = qloc.project_qloc_f32(*a1)
+    if not torch.equal(qf_pairs, qloc.project_qloc_plain(*a1)):
+        fail("K1's f32 output disagrees with its plain version")
+    rec["k1_f32_output"] = dict(
+        max_abs_err=0.0, ms=time_ms(lambda: qloc.project_qloc_f32(*a1), 20),
+        plain_ms=time_ms(lambda: qloc.project_qloc_plain(*a1), 3))
+    kernels[0]["f32_output"] = rec["k1_f32_output"]
+    q8_pairs, sc8 = qloc.project_qloc_quantize(*a1)
+    slot_src = dp.slot_pair.long()
+    qf = qf_pairs[slot_src].reshape(G_cap, M, V0).contiguous()
+    q8 = q8_pairs[slot_src].reshape(G_cap, M, V0).contiguous()
+    qsum = (128.0 * qf_pairs.sum(-1))[slot_src].reshape(G_cap, M).contiguous()
+    tiles, tscale = dindex.doc_tiles_aligned, dindex.tile_scale
+    wr, wg, ws = dp.work_region, dp.work_g, dp.work_s
+    wgl, wsl = wg[:W].long(), ws[:W].long()
+    n_regions = torch.unique(wr[:W]).numel()
+    tile_bytes = n_regions * ROWS * (V0 + 4)
+    log(f"phase 6 shapes: B {BATCH}, M {M}, P {P}, G {G}, W {W} items of "
+        f"{ROWS} rows, {n_regions} distinct super-tiles, V {V0}, LLMAX "
+        f"{LLMAX}")
+
+    def covered(out, step):
+        """The slot-major output blocks the W real items wrote."""
+        return out.view(G_cap, M, LLMAX // ROWS, step)[wgl, :, wsl, :]
+
+    # ---- K6 against its plain version: bf16 / f32, centred / fixup ----
+    mag = (qsum[wgl][:, :, None]
+           * tscale[wr[:W].long()[:, None] * ROWS
+                    + torch.arange(ROWS, device=dev)][:, None, :])
+    k6 = {}
+    for dt in ("bf16", "f32"):
+        for qs in (qsum, None):
+            a6 = (tiles, tscale, qf, qs, wr, wg, ws, LLMAX, CSUB, dt)
+            k = covered(grouped_scorer_f.score_grouped_f(*a6), ROWS)
+            p = covered(grouped_scorer_f.score_grouped_f_plain(*a6), ROWS)
+            err = (k - p).abs()
+            # 1e-5 of the larger of the score and the centring term it
+            # cancels against (1e-5 relative in the fixup form)
+            tol = 1e-5 * (torch.maximum(mag, p.abs()) if qs is not None
+                          else p.abs())
+            tag = f"{dt}_{'centred' if qs is not None else 'fixup'}"
+            if not (err <= tol).all():
+                fail(f"K6 ({tag}) disagrees: max abs err {err.max().item()}")
+            by6 = (tile_bytes + G * M * V0 * 4 + (G * M * 4 if qs is not None
+                                                  else 0)
+                   + W * 12 + W * M * ROWS * 4)
+            ops6 = 2.0 * W * M * ROWS * V0
+            b6, bb6 = bound(by6, ops6, PEAK_BF16 if dt == "bf16"
+                            else PEAK_F32)
+            k6[tag] = dict(
+                max_abs_err=float(err.max().item()),
+                max_err_over_tol=float((err / tol.clamp_min(1e-30)).max()
+                                       .item()),
+                ms=time_ms(lambda: grouped_scorer_f.score_grouped_f(*a6), 10),
+                plain_ms=time_ms(
+                    lambda: grouped_scorer_f.score_grouped_f_plain(*a6), 2),
+                bound_ms=b6, bound_by=bb6, bytes=by6, ops=ops6)
+            r6 = k6[tag]
+            log(f"phase 6: K6 score_grouped_f ({tag}): ok, max abs err "
+                f"{r6['max_abs_err']:.3g} ({r6['max_err_over_tol']:.3g} of "
+                f"its tolerance), {r6['ms']:.4f} ms (bound {b6:.4f} ms by "
+                f"{bb6}, plain {r6['plain_ms']:.3f} ms)")
+            del k, p, err, tol
+    # library yardstick: one bf16 tensor-core product with the same
+    # operation count over the same gathered tile rows (one [V, M] query
+    # block for all items: not the same function; timed, never used)
+    rows = (wr[:W].long()[:, None] * ROWS
+            + torch.arange(ROWS, device=dev)).reshape(-1)
+    A = tiles[rows].to(torch.bfloat16)
+    Bq = qf[0].t().to(torch.bfloat16).contiguous()
+    lib6 = time_ms(lambda: torch.matmul(A, Bq), 10)
+    del A, Bq, rows
+    torch.cuda.empty_cache()
+
+    # ---- K2 at csub 2, and K5 inside K2, K4 and K6 ----
+    a2 = (tiles, tscale, q8, wr, wg, ws, LLMAX, CSUB)
+    k2o = covered(grouped_scorer.score_grouped_i8(*a2), ROWS)
+    p2o = covered(grouped_scorer.score_grouped_i8_plain(*a2), ROWS)
+    if not torch.equal(k2o, p2o):
+        fail("K2 at csub 2 disagrees with its plain version")
+    by2 = tile_bytes + G * M * V0 + W * 12 + W * M * ROWS * 4
+    ops_i8 = 2.0 * W * M * ROWS * V0
+    b2, bb2 = bound(by2, ops_i8, PEAK_INT8)
+    kernels[1]["at_csub2"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(lambda: grouped_scorer.score_grouped_i8(*a2), 10),
+        plain_ms=time_ms(lambda: grouped_scorer.score_grouped_i8_plain(*a2),
+                         2), bound_ms=b2, bound_by=bb2)
+    log(f"phase 6: K2 at csub 2: bit-equal, "
+        f"{kernels[1]['at_csub2']['ms']:.4f} ms (bound {b2:.4f} ms by {bb2})")
+    del k2o, p2o
+    k5 = {}
+    a4 = (tiles, tscale, q8, wr, wg, CSUB, ws, LLMAX)
+    a6 = (tiles, tscale, qf, qsum, wr, wg, ws, LLMAX, CSUB, "bf16")
+    for tag, fn, plain, args, pw, slot_major in (
+            ("in_k2", grouped_scorer.score_grouped_i8,
+             grouped_scorer.score_grouped_i8_plain, a2, 2, True),
+            ("in_k4", grouped_scorer_item.score_grouped_i8_item,
+             grouped_scorer_item.score_grouped_i8_item_plain, a4, 2, False),
+            ("in_k6_window", grouped_scorer_f.score_grouped_f,
+             grouped_scorer_f.score_grouped_f_plain, a6, 1, True),
+            ("in_k6_stride", grouped_scorer_f.score_grouped_f,
+             grouped_scorer_f.score_grouped_f_plain, a6, 2, True)):
+        step = ROWS // pw
+        k = fn(*args, pw)
+        p = plain(*args, pw)
+        if slot_major:
+            k, p = covered(k, step), covered(p, step)
+        else:
+            k, p = k[:W], p[:W]
+        if tag.startswith("in_k6"):
+            # the unpacked score to K6's tolerance plus the index bits the
+            # pack clears; the row wherever both name the same score
+            (kv, ko), (pv, po) = (pack_epilogue.unpack(x, LLMAX)
+                                  for x in (k, p))
+            tol = (1e-5 * mag.reshape(W, M, pw, step).amax(2)
+                   + pv.abs() * (2.0 ** (pack_epilogue.idx_bits(LLMAX) - 23)
+                                 + 1e-5))
+            err = (kv - pv).abs()
+            same_v = kv == pv
+            off_ok = (ko[same_v] == po[same_v]).float().mean().item()
+            if not ((err <= tol).all() and off_ok >= 0.999
+                    and same_v.float().mean().item() > 0.5):
+                fail(f"K5 ({tag}) disagrees: max abs err {err.max().item()}"
+                     f", rows equal on {off_ok} of "
+                     f"{same_v.float().mean().item()} equal scores")
+            err_abs = float(err.max().item())
+        else:
+            if not torch.equal(k, p):
+                fail(f"K5 ({tag}) is not bit-equal to its plain version: "
+                     f"{(k != p).sum().item()} packed values differ")
+            err_abs = 0.0
+        out_bytes = W * M * step * 4
+        in_bytes = (tile_bytes + W * 12
+                    + (G * M * V0 if not tag.startswith("in_k6")
+                       else G * M * (V0 + 1) * 4))
+        b5, bb5 = bound(in_bytes + out_bytes, ops_i8,
+                        PEAK_BF16 if tag.startswith("in_k6") else PEAK_INT8)
+        k5[tag] = dict(
+            pack_window=pw, max_abs_err=err_abs,
+            ms=time_ms(lambda: fn(*args, pw), 10),
+            unpacked_ms=time_ms(lambda: fn(*args), 10),
+            plain_ms=time_ms(lambda: plain(*args, pw), 2),
+            bound_ms=b5, bound_by=bb5)
+        log(f"phase 6: K5 pack_epilogue ({tag}, pack_window {pw}): ok, "
+            f"{k5[tag]['ms']:.4f} ms packed against "
+            f"{k5[tag]['unpacked_ms']:.4f} ms unpacked (bound {b5:.4f} ms "
+            f"by {bb5}, plain {k5[tag]['plain_ms']:.3f} ms)")
+        del k, p
+    rec["k5"], rec["k6"] = k5, k6
+    torch.cuda.empty_cache()
+
+    # ---- K8 against its plain version and against K1's codes ----
+    a8 = (dindex.vocab16[a1[1].long()], a1[2].repeat_interleave(QC, dim=0),
+          a1[3].repeat_interleave(QC, dim=0))
+    r_i8, r_sc = qloc_rowmajor.project_qloc_rowmajor(*a8)
+    p_i8, p_sc = qloc_rowmajor.project_qloc_rowmajor_plain(*a8)
+    if not (torch.equal(r_i8, p_i8) and torch.equal(r_sc, p_sc)):
+        fail("K8 disagrees with its plain version")
+    if not (torch.equal(r_i8, q8_pairs) and torch.equal(r_sc, sc8)):
+        fail("K8's codes or scales differ from K1's on the same pairs")
+    n_terms = (a1[2] != int(PAD_COMPONENT)).sum(1)
+    ops8 = 2.0 * V0 * QC * float(n_terms.sum().item())
+    b8, bb8 = bound(P * V0 * 2 + P * sc * 8 + P * V0 + P * 4, ops8, PEAK_F32)
+    rec8 = dict(
+        name="qloc_rowmajor", route="cuda",
+        source="seismic_tpu_torch/csrc/qloc.cu",
+        replaces="seismic_tpu/ops/pallas_qloc.py:77", max_abs_err=0.0,
+        ms=time_ms(lambda: qloc_rowmajor.project_qloc_rowmajor(*a8), 20),
+        plain_ms=time_ms(
+            lambda: qloc_rowmajor.project_qloc_rowmajor_plain(*a8), 3),
+        bound_ms=b8, bound_by=bb8,
+        # no one PyTorch call compares a slot with a list of terms and
+        # quantizes the sum
+        library_ms=None,
+        k1_ms=time_ms(lambda: qloc.project_qloc_quantize(*a1), 20),
+        gather_ms=time_ms(lambda: (
+            dindex.vocab16[a1[1].long()], a1[2].repeat_interleave(QC, dim=0),
+            a1[3].repeat_interleave(QC, dim=0)), 10))
+    log(f"phase 6: K8 qloc_rowmajor: bit-equal to its plain version and to "
+        f"K1's codes, {rec8['ms']:.4f} ms (K1 {rec8['k1_ms']:.4f} ms on the "
+        f"same pairs; its operand gathers {rec8['gather_ms']:.4f} ms; bound "
+        f"{b8:.4f} ms by {bb8}, plain {rec8['plain_ms']:.3f} ms)")
+    del a8, r_i8, p_i8, q8_pairs, qf_pairs, qf, q8
+    torch.cuda.empty_cache()
+
+    # ---- the modes through plan_caps + search_grouped_derive ----
+    caps = plan_caps(qc_np, qv_np, ctx, QC, M=M)
+
+    def exact_of(ids):
+        """The exact dots of the batch's queries with docs `ids` [B, k]."""
+        out = torch.empty(ids.shape, dtype=torch.float32, device=dev)
+        for c0 in range(0, BATCH, 2048):
+            qc_, qv_ = qc_t[c0:c0 + 2048], qv_t[c0:c0 + 2048]
+            n = qc_.shape[0]
+            ok = qc_ != int(PAD_COMPONENT)
+            col = torch.arange(n, device=dev)[:, None].expand_as(qc_)
+            qd = torch.zeros((DIM, n), dtype=torch.float32, device=dev)
+            qd[qc_[ok].long(), col[ok]] = qv_[ok]
+            exact = torch.sparse.mm(env["docs"], qd)  # [n_docs, n]
+            out[c0:c0 + n] = exact.t().gather(1, ids[c0:c0 + n].clamp_min(0))
+            del exact, qd
+        return out
+
+    def recall(ids):
+        ids = ids[:nq].cpu().numpy()
+        return sum(len(set(g.tolist()) & set(r.tolist()))
+                   for g, r in zip(gt, ids)) / (K * nq)
+
+    def id_sets_equal(a, b):
+        a, b = a[:nq].cpu().numpy(), b[:nq].cpu().numpy()
+        return float(np.mean([set(x.tolist()) == set(y.tolist())
+                              for x, y in zip(a, b)]))
+
+    modes = rec.setdefault("runs", {})
+
+    def run_mode(name, params, expect, index=dindex, exact_scores=False):
+        """One warm batch of `params`, launch counts set to 0 before and
+        read after; `expect` names the kernels that must launch exactly
+        once (every other one never)."""
+        def once():
+            return search_grouped_derive(index, qc_t, qv_t, params, QC, M,
+                                         caps[0], caps[1], ctx.zero_region)
+        once()  # warm-up (allocator, first launches)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        s_, i_ = once()
+        t_enq = time.perf_counter()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = hold_launches(f"mode {name}", read_launches(),
+                               exact=dict.fromkeys(expect, 1))
+        for n_, c in counts.items():
+            total[n_] += c
+        if s_.shape != (BATCH, K) or not (s_[:, 1:] <= s_[:, :-1]).all():
+            fail(f"mode {name}: results are not descending [{BATCH}, {K}]")
+        fin = torch.isfinite(s_) & (i_ >= 0)
+        if fin.float().mean().item() < 0.99:
+            fail(f"mode {name}: under 99% of the top-k slots filled")
+        r = dict(recall_at_10=recall(i_), device_program_ms=wall,
+                 enqueue_ms=(t_enq - t0) * 1e3, launches=counts,
+                 host_syncs=count_syncs(once))
+        if exact_scores:
+            ex = exact_of(i_)
+            r["max_rel_score_err"] = ((s_ - ex).abs()
+                                      / ex.abs().clamp_min(1e-30))[fin] \
+                .max().item()
+            if not r["max_rel_score_err"] <= 1e-5:
+                fail(f"mode {name}: scores differ from exact dots by "
+                     f"{r['max_rel_score_err']} relative")
+        floor = MODE_RECALL_FLOORS[name]
+        log(f"phase 6 mode {name}: recall@10 {r['recall_at_10']:.4f} on {nq} "
+            f"queries (floor {floor}), device program {wall:.2f} ms (enqueue "
+            f"{r['enqueue_ms']:.2f} ms, {r['host_syncs']} host syncs), "
+            f"launches { {n_: c for n_, c in counts.items() if c} }"
+            + (f", every score the exact dot to {r['max_rel_score_err']:.3g}"
+               if exact_scores else ""))
+        if r["recall_at_10"] < floor:
+            fail(f"mode {name}: recall@10 {r['recall_at_10']:.4f} under "
+                 f"{floor}")
+        modes[name] = r
+        return s_, i_
+
+    gate = GroupedParams(k=K, score_cut=64, pool=128, compute_dtype="f32",
+                         ovf_pool=0, pool_mode="exact")
+    s_g, i_g = run_mode("gate", gate, ("qloc", "score_grouped_f"))
+    # the same program on K6's plain version: the on-device gate
+    kernel_scorer = grouped.score_grouped_f
+    grouped.score_grouped_f = grouped_scorer_f.score_grouped_f_plain
+    try:
+        s_p, i_p = search_grouped_derive(dindex, qc_t[:nq], qv_t[:nq], gate,
+                                         QC, M, caps[0], caps[1],
+                                         ctx.zero_region)
+    finally:
+        grouped.score_grouped_f = kernel_scorer
+    s_k, i_k = search_grouped_derive(dindex, qc_t[:nq], qv_t[:nq], gate, QC,
+                                     M, caps[0], caps[1], ctx.zero_region)
+    same = id_sets_equal(i_k, i_p)
+    rel = rel_err(torch.sort(s_k, 1).values, torch.sort(s_p, 1).values)
+    log(f"phase 6 gate: kernel path vs plain-scorer path on {nq} queries: "
+        f"id sets equal on {same:.4f}, max rel score err {rel:.3g}")
+    if same < 0.98 or not rel <= 1e-4:
+        fail(f"the gate configuration on K6 and on its plain version "
+             f"disagree: id sets equal on {same}, score rel err {rel}")
+    rec["gate_vs_plain"] = dict(id_sets_equal=same, max_rel_score_err=rel)
+    run_mode("defaults", GroupedParams(k=K, pool=128),
+             ("qloc", "score_grouped_f"))
+    # the f32 scorer against the int8 one, both exact pool + rescore 64
+    both_kw = dict(k=K, score_cut=64, pool=128, rescore=64,
+                   pool_mode="exact")
+    ids_fi = [search_grouped_derive(
+        dindex, qc_t[:nq], qv_t[:nq], GroupedParams(compute_dtype=dt,
+                                                    **both_kw),
+        QC, M, caps[0], caps[1], ctx.zero_region)[1] for dt in ("f32", "i8")]
+    f32_i8 = id_sets_equal(*ids_fi)
+    log(f"phase 6: f32 scorer vs int8 scorer (exact pool, rescore 64): id "
+        f"sets equal on {f32_i8:.4f} of {nq} queries (floor "
+        f"{F32_VS_I8_FLOOR})")
+    if f32_i8 < F32_VS_I8_FLOOR:
+        fail(f"f32 and int8 scorers agree on {f32_i8:.4f} < "
+             f"{F32_VS_I8_FLOOR} of the queries")
+    rec["f32_vs_i8_id_sets_equal"] = f32_i8
+
+    stride = GroupedParams(k=K, score_cut=64, pool=96, rescore=64,
+                           compute_dtype="i8", pool_mode="stride",
+                           pool_stride=8, kernel_unroll=8)
+    run_mode("stride_item", stride,
+             ("qloc", "score_grouped_i8_item", "pack_epilogue", "rescore"),
+             exact_scores=True)
+    run_mode("stride_slot", dataclasses.replace(stride, kernel_unroll=1),
+             ("qloc", "score_grouped_i8", "pack_epilogue", "rescore"),
+             exact_scores=True)
+    run_mode("window_bf16",
+             GroupedParams(k=K, score_cut=64, pool=96, rescore=64,
+                           pool_mode="window"),
+             ("qloc", "score_grouped_f", "pack_epilogue", "rescore"),
+             exact_scores=True)
+    head = headline_params()
+    s_r, i_r = run_mode("rowmajor",
+                        dataclasses.replace(head, qloc_mode="rowmajor"),
+                        ("qloc_rowmajor", "score_grouped_i8_item", "rescore"),
+                        exact_scores=True)
+    s_l, i_l = search_grouped_derive(dindex, qc_t, qv_t, head, QC, M,
+                                     caps[0], caps[1], ctx.zero_region)
+    if not (torch.equal(i_r, i_l) and torch.equal(s_r, s_l)):
+        fail("the rowmajor run's results differ from the lane-major run's")
+    log("phase 6: rowmajor results equal the qloc_mode='pallas' run's, ids "
+        "and scores")
+    r_head = recall(i_l)
+
+    # ---- one breakdown: the default configuration ----
+    dflt = GroupedParams(k=K, pool=128)
+    prog = lambda: search_grouped_derive(  # noqa: E731
+        dindex, qc_t, qv_t, dflt, QC, M, caps[0], caps[1], ctx.zero_region)
+    g0, n_alloc = gc_ms(), device_allocs()
+    t0 = time.perf_counter()
+    prog()
+    t_enq = time.perf_counter()
+    torch.cuda.synchronize()
+    brk = dict(device_program_ms=(time.perf_counter() - t0) * 1e3,
+               enqueue_ms=(t_enq - t0) * 1e3, gc_ms=gc_ms() - g0,
+               cuda_mallocs=device_allocs() - n_alloc,
+               host_syncs=modes["defaults"]["host_syncs"])
+    try:
+        busy, kern = profile_device(prog)
+        brk.update(device_busy_ms=busy, kernels_ms=kern,
+                   device_idle_share=max(
+                       0.0, 1.0 - busy / brk["device_program_ms"]))
+    except Exception as e:  # noqa: BLE001 - informational only
+        brk["profile"] = f"not measured: {e}"
+    log(f"phase 6 breakdown of one default-configuration batch: "
+        f"{json.dumps(brk)}")
+    rec["breakdown"] = brk
+
+    # ---- K9: a second upload with vocab_residue = 8 ----
+    RES, SCB = 8, 16
+    t0 = time.time()
+    rindex = arrays.to_device(dev, tile_csub=CSUB, vocab_residue=RES)
+    rec["residue_upload_s"] = time.time() - t0
+    log(f"phase 6: residue upload (host permutation of the full corpus "
+        f"included, no cut) {rec['residue_upload_s']:.1f} s")
+    rctx = PlannerContext.from_arrays(arrays, csub=CSUB)
+    if (rctx.zero_region, caps) != (ctx.zero_region,
+                                    plan_caps(qc_np, qv_np, rctx, QC, M=M)):
+        fail("the residue upload changed the plan's geometry")
+    qcb, qvb = _residue_buckets(a1[2], a1[3], RES, SCB)
+    a9 = (rindex.vocab16, a1[1], qcb, qvb, a1[2], a1[3], QC, RES, SCB)
+    k9 = qloc_residue.project_qloc_residue(*a9, quantize=True)
+    p9 = qloc_residue.project_qloc_residue_plain(*a9, quantize=True)
+    if not (torch.equal(k9[0], p9[0]) and torch.equal(k9[1], p9[1])
+            and torch.equal(qloc_residue.project_qloc_residue(*a9),
+                            qloc_residue.project_qloc_residue_plain(*a9))):
+        fail("K9 disagrees with its plain version")
+    VRS = (V0 - V0 // 8) // RES // 8 * 8
+    bucket_terms = (qcb >= 0).sum(1)
+    ops9 = 2.0 * QC * float((VRS * RES * SCB * torch.ones_like(n_terms)
+                             + (V0 - RES * VRS) * n_terms).sum().item())
+    by9 = (torch.unique(a1[1]).numel() * V0 * 2 + P * 4 + a1[2].numel() * 8
+           + qcb.numel() * 8 + P * V0 + P * 4)
+    b9, bb9 = bound(by9, ops9, PEAK_F32)
+    rec9 = dict(
+        name="qloc_residue", route="cuda",
+        source="seismic_tpu_torch/csrc/qloc_residue.cu",
+        replaces="seismic_tpu/ops/pallas_qloc.py:152", max_abs_err=0.0,
+        ms=time_ms(lambda: qloc_residue.project_qloc_residue(
+            *a9, quantize=True), 20),
+        plain_ms=time_ms(lambda: qloc_residue.project_qloc_residue_plain(
+            *a9, quantize=True), 3),
+        bound_ms=b9, bound_by=bb9,
+        library_ms=None,  # as K8: no one PyTorch call does this
+        f32_output_ms=time_ms(
+            lambda: qloc_residue.project_qloc_residue(*a9), 20),
+        terms_kept_by_buckets=float(bucket_terms.sum().item()
+                                    / max(n_terms.sum().item(), 1)))
+    log(f"phase 6: K9 qloc_residue (R {RES}, scb {SCB}, VRS {VRS}): "
+        f"bit-equal, {rec9['ms']:.4f} ms quantized, "
+        f"{rec9['f32_output_ms']:.4f} ms f32 (K1 {rec8['k1_ms']:.4f} ms; "
+        f"bound {b9:.4f} ms by {bb9}, plain {rec9['plain_ms']:.3f} ms); the "
+        f"buckets keep {rec9['terms_kept_by_buckets']:.4f} of the terms")
+    del k9, p9
+    _, i_res = run_mode("residue",
+                        dataclasses.replace(head, residue_scb=SCB),
+                        ("qloc_residue", "score_grouped_i8_item", "rescore"),
+                        index=rindex, exact_scores=True)
+    r_res = modes["residue"]["recall_at_10"]
+    log(f"phase 6: residue recall@10 {r_res:.4f} against {r_head:.4f} "
+        "unpermuted")
+    if r_res < r_head - 0.03:
+        fail(f"residue recall@10 {r_res:.4f} more than 0.03 under the "
+             f"unpermuted run's {r_head:.4f}")
+    rec["recall_at_10_headline_params"] = r_head
+    del rindex
+    torch.cuda.empty_cache()
+
+    record["launch_windows"]["modes"] = total
+    rec.update(launches_total=total, phase_s=time.time() - t_phase)
+    log(f"phase 6: {rec['phase_s']:.1f} s, launches over its "
+        f"{len(modes)} counted batches {total}")
+    main5, main6 = k5["in_k4"], k6["bf16_centred"]
+    rec5 = dict(
+        name="pack_epilogue", route="cuda",
+        source="seismic_tpu_torch/csrc/pack_epilogue.cuh",
+        replaces="seismic_tpu/ops/pallas_grouped.py:204",
+        max_abs_err=main5["max_abs_err"], ms=main5["ms"],
+        plain_ms=main5["plain_ms"], bound_ms=main5["bound_ms"],
+        bound_by=main5["bound_by"],
+        # no one PyTorch call packs a row index into score bits and takes
+        # a windowed integer max
+        library_ms=None, measured_in="score_grouped_i8_item, pack_window 2",
+        unpacked_ms=main5["unpacked_ms"], cases=k5)
+    rec6 = dict(
+        name="score_grouped_f", route="cuda",
+        source="seismic_tpu_torch/csrc/grouped_scorer_f.cu",
+        replaces="seismic_tpu/ops/pallas_grouped.py:32",
+        max_abs_err=main6["max_abs_err"], ms=main6["ms"],
+        plain_ms=main6["plain_ms"], bound_ms=main6["bound_ms"],
+        bound_by=main6["bound_by"], library_ms=lib6, cases=k6)
+    return [rec5, rec6, rec8, rec9]
 
 
 HEAP_FACTOR, BIG_BUDGET = 0.8, 512
@@ -791,13 +1356,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
 
     from seismic_tpu_torch.api import DEFAULT_QUERY_PAD
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT, pad_queries
-    from seismic_tpu_torch.ops import (
-        grouped_scorer,
-        grouped_scorer_item,
-        qloc,
-        rescore,
-        tiles_scorer,
-    )
+    from seismic_tpu_torch.ops import rescore, tiles_scorer
     from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
     from seismic_tpu_torch.search import engine
     from seismic_tpu_torch.search.engine import SearchParams, search_batch
@@ -891,21 +1450,15 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
         return res, time.time() - t
 
     run()  # warm-up (allocator, first launches)
-    mods = (qloc, grouped_scorer, rescore, grouped_scorer_item, tiles_scorer)
-    names = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
-             "score_tiles")
-    for m in mods:
-        m.launches = 0
+    zero_launches()
     lat, res = [], None
     g0 = gc_ms()
     for _ in range(REPS):
         res, dt = run()
         lat.append(dt)
     gc5 = gc_ms() - g0
-    counts = dict(zip(names, (m.launches for m in mods)))
-    if counts != {**dict.fromkeys(names, 0), "score_tiles": REPS}:
-        fail(f"engine path launches {counts}: K7 must launch once per batch "
-             "and no other kernel")
+    counts = hold_launches("the engine path", read_launches(),
+                           exact={"score_tiles": REPS})
     p50 = float(np.median(lat))
     qps = BATCH * REPS / sum(lat)
     log(f"phase 5: {REPS} warm batches of {BATCH} at heap_factor "
@@ -969,8 +1522,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
         k3_calls.append(a)
         return kernel_k3(*a)
 
-    for m in mods:
-        m.launches = 0
+    zero_launches()
     rescore.score_docs_rowmajor = keep_k3_args
     try:
         t0 = time.perf_counter()
@@ -979,9 +1531,8 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
         rescore_ms = (time.perf_counter() - t0) * 1e3
     finally:
         rescore.score_docs_rowmajor = kernel_k3
-    rcounts = dict(zip(names, (m.launches for m in mods)))
-    if rcounts["rescore"] <= 0 or sum(rcounts.values()) != rcounts["rescore"]:
-        fail(f"rescore-mode batch launches {rcounts}: only K3 must launch")
+    rcounts = hold_launches("the rescore-mode batch", read_launches(),
+                            positive=("rescore",))
     if len(k3_calls) != rcounts["rescore"]:
         fail(f"{len(k3_calls)} K3 calls kept, {rcounts['rescore']} launches")
     # K3 on the path's widest-filled candidate chunk (sentinel ids already
@@ -1011,7 +1562,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     if not (rel3 <= 1e-5 and zero3 <= 1e-30):
         fail(f"K3 disagrees with its plain version at the engine's shapes: "
              f"max relative error {rel3}, {zero3} where the plain score is 0")
-    kernels[names.index("rescore")]["at_engine"] = at_engine
+    kernels[COUNTED.index("rescore")]["at_engine"] = at_engine
     del k3_calls, a3e, k3e, p3e, err3
     torch.cuda.empty_cache()
     # brute force over the index's own forward rows (f16 values) and the
@@ -1092,8 +1643,8 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
         brk["profile"] = f"not measured: {e}"
     log(f"phase 5 breakdown of one batch: {json.dumps(brk)}")
 
-    for kr, name in zip(kernels, names):
-        kr["launches_engine"] = counts[name] + rcounts[name]
+    record["launch_windows"]["engine"] = {
+        n_: counts[n_] + rcounts[n_] for n_ in COUNTED}
     rec.update(qps=qps, p50_ms=p50 * 1e3, latencies_s=lat, gc_ms=gc5,
                launches=counts, rescore_batch_launches=rcounts,
                rescore_batch_ms=rescore_ms, rescore_max_rel_err=worst,
@@ -1105,8 +1656,6 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     keys = ("name", "route", "source", "replaces", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict({k_: rec7[k_] for k_ in keys},
-                launches=counts["score_tiles"], launches_headline=0,
-                launches_engine=counts["score_tiles"],
                 max_rel_err=rel7, all_rows_ms=rec7["all_rows_ms"],
                 bound_as_scheduled_ms=rec7["bound_as_scheduled_ms"])
 
@@ -1124,7 +1673,7 @@ def api_path(ds, dev, record):
         TpuLayout,
     )
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT, pad_queries
-    from seismic_tpu_torch.ops import grouped_scorer, qloc, rescore
+    from seismic_tpu_torch.ops import grouped_scorer
     from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
     from seismic_tpu_torch.search.grouped import DevicePlan, _top_k
     from seismic_tpu_torch.search.planner import plan_grouped_numpy
@@ -1207,17 +1756,12 @@ def api_path(ds, dev, record):
     # library yardstick: one int8 tensor-core product with the same
     # operation count over the same gathered tile rows (one [V, 8] query
     # block for all items: not the same function; timed, never used)
-    lib_ms = None
-    try:
-        rows = (dplan.work_region[:Wr].long()[:, None] * SUB
-                + torch.arange(SUB, device=dev)).reshape(-1)
-        A = dindex.doc_tiles_aligned[rows].view(torch.int8)
-        Bq = q8[0].t()  # [V, 8], column-major
-        torch._int_mm(A, Bq)
-        lib_ms = time_ms(lambda: torch._int_mm(A, Bq), reps)
-        del A
-    except Exception as e:  # noqa: BLE001 - the yardstick is optional
-        log(f"  torch._int_mm yardstick unavailable: {e}")
+    rows = (dplan.work_region[:Wr].long()[:, None] * SUB
+            + torch.arange(SUB, device=dev)).reshape(-1)
+    A = dindex.doc_tiles_aligned[rows].view(torch.int8)
+    Bq = q8[0].t()  # [V, 8], column-major
+    lib_ms = time_ms(lambda: torch._int_mm(A, Bq), reps)
+    del A, rows
     kernels.append(dict(
         name="score_grouped_i8", route="cuda",
         source="seismic_tpu_torch/csrc/grouped_scorer.cu",
@@ -1257,25 +1801,22 @@ def api_path(ds, dev, record):
         return res, time.time() - t
 
     run()  # warm-up (allocator, first launches)
-    mods = (qloc, grouped_scorer, rescore)
-    for m in mods:
-        m.launches = 0
+    zero_launches()
     lat, res = [], None
     g0 = gc_ms()
     for _ in range(REPS):
         res, dt = run()
         lat.append(dt)
     gc3 = gc_ms() - g0
-    counts = [m.launches for m in mods]
-    for kr, c in zip(kernels, counts):
-        kr["launches"] = c
-    if min(counts) <= 0:
-        fail(f"a kernel of the main path never launched: {counts}")
+    counts = hold_launches(
+        "the API's grouped route", read_launches(),
+        positive=("qloc", "score_grouped_i8", "rescore"))
+    record["launch_windows"] = {"api": counts}
     p50 = float(np.median(lat))
     qps = BATCH * REPS / sum(lat)  # all queries over the whole window
     log(f"phase 3: {REPS} warm batches of {BATCH}: p50 "
-        f"{p50 * 1e3:.2f} ms, QPS {qps:.1f}, launches qloc/scorer/rescore "
-        f"{counts}, gc {gc3:.2f} ms")
+        f"{p50 * 1e3:.2f} ms, QPS {qps:.1f}, launches {counts}, "
+        f"gc {gc3:.2f} ms")
 
     # results: shape, finite, sorted, exact rescored scores
     if len(res) != BATCH:
@@ -1392,10 +1933,20 @@ def main():
 
     # ---------------- phase 4: the bench headline path ----------------
     torch.cuda.reset_peak_memory_stats()
-    kernels.append(headline_path(ds, dev, record, kernels))
-    kernels[-1]["launches_engine"] = record["engine"]["launches"][
-        "score_grouped_i8_item"]
-    kernels.append(k7)
+    new_kernels, k4 = headline_path(ds, dev, record, kernels)
+    kernels += [k4, k7] + new_kernels
+    # every count below was read from a wrapper's counter after a window that
+    # set all nine to 0 first; `launches` is the count on the kernel's own
+    # main path
+    windows = record["launch_windows"]
+    main_window = dict.fromkeys(COUNTED, "modes")
+    main_window.update(qloc="api", score_grouped_i8="api", rescore="api",
+                       score_grouped_i8_item="headline", score_tiles="engine")
+    for kr, n_ in zip(kernels, COUNTED, strict=True):
+        kr["launches"] = windows[main_window[n_]][n_]
+        kr.update({f"launches_{w_}": windows[w_][n_] for w_ in windows})
+        if kr["launches"] <= 0:
+            fail(f"{kr['name']} never launched on its main path: {windows}")
 
     total_s = time.time() - t_start
     record.update(kernels=kernels, total_s=total_s)

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 shared library with a plain C interface, `seismic_tpu_torch/_build/
 lib<name>-<hash>.so`, at first use (or all at once, in parallel, by
-`build()`), and loaded with ctypes. The hash is of the source and the
-compiler flags, so a library left from an older source is never loaded,
-whatever the files' times say. Every C entry point launches on the stream it is
+`build()`), and loaded with ctypes. The hash is of the source, of every
+`csrc/*.cuh` header it includes (headers of headers too) and of the
+compiler flags, so a library left from an older source or header is never
+loaded, whatever the files' times say. Every C entry point launches on the stream it is
 given and returns `cudaGetLastError()`; `check()` raises on a non-zero
 code. Nothing here runs at import time: the CPU tests import every module
 of the package on a machine without `nvcc`.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("qloc", "grouped_scorer", "grouped_scorer_item", "rescore",
-           "tiles_scorer")
+           "tiles_scorer", "grouped_scorer_f", "qloc_residue")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -62,9 +65,26 @@ def lib_name(name: str, source: bytes, flags) -> str:
     return f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def source_with_headers(path: str, _seen=None) -> bytes:
+    """The bytes of source `path` followed by those of every header it
+    includes with `#include "..."` (resolved beside it, each once, in
+    order of first inclusion): what a kernel library's name hashes."""
+    seen = set() if _seen is None else _seen
+    seen.add(os.path.abspath(path))
+    with open(path, "rb") as f:
+        text = f.read()
+    parts = [text]
+    for inc in _INCLUDE.findall(text):
+        hdr = os.path.abspath(os.path.join(os.path.dirname(path),
+                                           inc.decode()))
+        if hdr not in seen:
+            parts.append(source_with_headers(hdr, seen))
+    return b"\0".join(parts)
+
+
 def lib_path(name: str) -> str:
-    with open(_src(name), "rb") as f:
-        return os.path.join(BUILD_DIR, lib_name(name, f.read(), NVCC_FLAGS))
+    return os.path.join(BUILD_DIR, lib_name(
+        name, source_with_headers(_src(name)), NVCC_FLAGS))
 
 
 def build(names=KERNELS, force: bool = False) -> float:

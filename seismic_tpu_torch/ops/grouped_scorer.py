@@ -1,16 +1,20 @@
-"""Grouped int8 doc-tile scorer (K2).
+"""Slot-major grouped int8 doc-tile scorer (K2).
 
 Counterpart of `seismic_tpu/ops/pallas_grouped.py::_score_grouped_i8`
 with unroll = 1 (`csrc/grouped_scorer.cu`). For each work item w, with
-g = work_g[w], s = work_s[w] and tile rows R0 = work_region[w] * 128:
+g = work_g[w], s = work_s[w], ROWS = csub * 128 and tile rows
+R0 = work_region[w] * ROWS:
 
-    out[g, m, s*128 + r] = f32(sum_v q[g, m, v] * u8[R0 + r, v])
-                           * tile_scale[R0 + r]
+    out[g, m, s*ROWS + r] = f32(sum_v q[g, m, v] * u8[R0 + r, v])
+                            * tile_scale[R0 + r]
 
 The int32 dot is exact; the per-pair scale is applied in the regroup.
-Output blocks no work item covers are left uninitialized (the caller
-masks them). `score_grouped_i8` launches the kernel for CUDA tensors and
-uses the plain PyTorch version, `score_grouped_i8_plain`, for CPU ones.
+With `pack_window` >= 1 the block goes through the packed epilogue (K5,
+`ops/pack_epilogue.py`) and the output is int32 `[G_cap, M, ll_max //
+pack_window]`. Output blocks no work item covers are left uninitialized
+(the caller masks them). `score_grouped_i8` launches the kernel for CUDA
+tensors and uses the plain PyTorch version, `score_grouped_i8_plain`, for
+CPU ones.
 """
 
 from __future__ import annotations
@@ -19,10 +23,11 @@ import ctypes
 
 import torch
 
-from . import _cuda
+from . import _cuda, pack_epilogue
 from .tiles_prep import SUB
 
-M_SLOTS = 8  # query slots per group the kernel serves
+M_SLOTS = (8, 16)  # query slots per group the kernel serves
+CSUBS = (1, 2)  # subtiles per work item the kernel serves
 # kernel launches since the count was last set to 0
 launches = 0
 _handle = None
@@ -48,18 +53,24 @@ def grouped_dots_plain(tiles, q, work_region, work_g, chunk: int = 256,
     return out
 
 
+def item_scores_plain(tiles, tile_scale, q, work_region, work_g, csub: int):
+    """f32 [W, M, csub * 128]: every work item's scaled scores (the same
+    products and the same f32 multiply order as the kernels)."""
+    rows_per_item = csub * SUB
+    dots = grouped_dots_plain(tiles, q, work_region, work_g,
+                              rows_per_item=rows_per_item)
+    rows = (work_region.long()[:, None] * rows_per_item
+            + torch.arange(rows_per_item, device=tiles.device))
+    return dots.to(torch.float32) * tile_scale[rows][:, None, :]
+
+
 def score_grouped_i8_plain(tiles, tile_scale, q, work_region, work_g,
-                           work_s, ll_max: int):
+                           work_s, ll_max: int, csub: int = 1,
+                           pack_window: int = 0):
     """Plain PyTorch version (same products, same f32 multiply order)."""
-    G_cap, M, V = q.shape
-    dev = tiles.device
-    dots = grouped_dots_plain(tiles, q, work_region, work_g)  # [W, M, SUB]
-    rows = work_region.long()[:, None] * SUB + torch.arange(SUB, device=dev)
-    vals = dots.to(torch.float32) * tile_scale[rows][:, None, :]
-    out = torch.empty((G_cap, M, ll_max // SUB, SUB), dtype=torch.float32,
-                      device=dev)
-    out[work_g.long(), :, work_s.long(), :] = vals
-    return out.reshape(G_cap, M, ll_max)
+    vals = item_scores_plain(tiles, tile_scale, q, work_region, work_g, csub)
+    return pack_epilogue.slot_major_plain(vals, work_g, work_s, q.shape[0],
+                                          ll_max, pack_window)
 
 
 def _lib():
@@ -68,17 +79,19 @@ def _lib():
         lib = _cuda.load("grouped_scorer")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.seismic_score_grouped_i8.argtypes = [
-            p, p, p, p, p, p, i, i, i, p, p]
+            p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
         lib.seismic_score_grouped_i8.restype = ctypes.c_int
         _handle = lib
     return _handle
 
 
 def score_grouped_i8(tiles, tile_scale, q, work_region, work_g, work_s,
-                     ll_max: int):
-    """tiles uint8 [rows, V]; tile_scale f32 [rows]; q int8 [G_cap, 8, V];
-    work_region / work_g / work_s int32 [W_cap] (SUB-row tile region,
-    destination group, subtile slot). Returns f32 [G_cap, 8, ll_max]."""
+                     ll_max: int, csub: int = 1, pack_window: int = 0):
+    """tiles uint8 [rows, V]; tile_scale f32 [rows]; q int8 [G_cap, M, V];
+    work_region / work_g / work_s int32 [W_cap] (super-tile of csub * 128
+    rows, destination group, super-tile slot). Returns f32 [G_cap, M,
+    ll_max], or with pack_window >= 1 int32 [G_cap, M, ll_max //
+    pack_window]."""
     global launches
     req = _cuda.require
     req(tiles.dim() == 2 and tiles.dtype == torch.uint8,
@@ -88,33 +101,43 @@ def score_grouped_i8(tiles, tile_scale, q, work_region, work_g, work_s,
         "tile_scale must be f32 [rows]")
     req(q.dim() == 3 and q.dtype == torch.int8
         and q.shape[2] == tiles.shape[1], "q must be int8 [G_cap, M, V]")
-    req(q.shape[1] == M_SLOTS, f"groups must have {M_SLOTS} slots")
     for t in (work_region, work_g, work_s):
         req(t.dim() == 1 and t.dtype == torch.int32
             and t.shape == work_region.shape,
             "work_region/work_g/work_s must be int32 [W_cap]")
-    req(ll_max % SUB == 0, "ll_max must be a multiple of 128")
+    rows = csub * SUB
+    req(ll_max % rows == 0, "ll_max must be a multiple of csub * 128")
+    req(tiles.shape[0] % rows == 0,
+        "tile rows must be a multiple of csub * 128")
+    pack_epilogue.check_pack_window(pack_window, rows)
     dev = tiles.device
     req(all(t.device == dev
             for t in (tile_scale, q, work_region, work_g, work_s)),
         "all operands must be on one device")
     if dev.type == "cpu":
         return score_grouped_i8_plain(tiles, tile_scale, q, work_region,
-                                      work_g, work_s, ll_max)
+                                      work_g, work_s, ll_max, csub,
+                                      pack_window)
     req(dev.type == "cuda", f"unsupported device {dev}")
     req(all(t.is_contiguous()
             for t in (tiles, tile_scale, q, work_region, work_g, work_s)),
         "operands must be contiguous")
-    V = tiles.shape[1]
-    req(V in (256, 512, 1024, 2048), f"V={V} is not 256/512/1024/2048")
-    G_cap = q.shape[0]
-    out = torch.empty((G_cap, M_SLOTS, ll_max), dtype=torch.float32,
-                      device=dev)
+    G_cap, M, V = q.shape
+    req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
+    req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
+    req(V in (256, 512, 1024) or (V == 2048 and M == 8),
+        f"V={V} is not 256/512/1024 (or 2048 at M=8)")
+    out = torch.empty(
+        (G_cap, M, ll_max // pack_window if pack_window else ll_max),
+        dtype=torch.int32 if pack_window else torch.float32, device=dev)
     p = _cuda.ptr
     rc = _lib().seismic_score_grouped_i8(
         p(tiles), p(tile_scale), p(q), p(work_region), p(work_g),
-        p(work_s), work_region.shape[0], V, ll_max, p(out),
+        p(work_s), work_region.shape[0], V, M, csub, ll_max,
+        pack_epilogue.idx_mask(ll_max), pack_window, p(out),
         ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "score_grouped_i8")
     launches += 1
+    if pack_window:
+        pack_epilogue.count_launch()
     return out

@@ -9,9 +9,11 @@ R0 = work_region[w] * ROWS:
 
 The int32 dot is exact; the per-pair scale is applied in the regroup
 (`search/grouped.py::_item_regroup`). Every item is written, padding items
-included. `score_grouped_i8_item` launches the kernel for CUDA tensors and
-uses the plain PyTorch version, `score_grouped_i8_item_plain`, for CPU
-ones.
+included. With `pack_window` >= 1 the block goes through the packed
+epilogue (K5, `ops/pack_epilogue.py`), its rows counted from `work_s[w] *
+ROWS`, and the output is int32 `[W_cap, M, ROWS // pack_window]`.
+`score_grouped_i8_item` launches the kernel for CUDA tensors and uses the
+plain PyTorch version, `score_grouped_i8_item_plain`, for CPU ones.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import ctypes
 
 import torch
 
-from . import _cuda
-from .grouped_scorer import grouped_dots_plain
+from . import _cuda, pack_epilogue
+from .grouped_scorer import grouped_dots_plain, item_scores_plain
 from .tiles_prep import SUB
 
 M_SLOTS = (8, 16)  # query slots per group the kernel serves
@@ -32,14 +34,14 @@ _handle = None
 
 
 def score_grouped_i8_item_plain(tiles, tile_scale, q, work_region, work_g,
-                                csub: int):
+                                csub: int, work_s=None, ll_max: int = 0,
+                                pack_window: int = 0):
     """Plain PyTorch version (same products, same f32 multiply order)."""
-    rows_per_item = csub * SUB
-    dots = grouped_dots_plain(tiles, q, work_region, work_g,
-                              rows_per_item=rows_per_item)  # [W, M, ROWS]
-    rows = (work_region.long()[:, None] * rows_per_item
-            + torch.arange(rows_per_item, device=tiles.device))
-    return dots.to(torch.float32) * tile_scale[rows][:, None, :]
+    vals = item_scores_plain(tiles, tile_scale, q, work_region, work_g, csub)
+    if pack_window:
+        vals = pack_epilogue.pack_window_plain(
+            vals, work_s * (csub * SUB), ll_max, pack_window)
+    return vals
 
 
 def _lib():
@@ -48,17 +50,21 @@ def _lib():
         lib = _cuda.load("grouped_scorer_item")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.seismic_score_grouped_i8_item.argtypes = [
-            p, p, p, p, p, i, i, i, i, p, p]
+            p, p, p, p, p, p, i, i, i, i, i, i, p, p]
         lib.seismic_score_grouped_i8_item.restype = ctypes.c_int
         _handle = lib
     return _handle
 
 
 def score_grouped_i8_item(tiles, tile_scale, q, work_region, work_g,
-                          csub: int):
+                          csub: int, work_s=None, ll_max: int = 0,
+                          pack_window: int = 0):
     """tiles uint8 [rows, V]; tile_scale f32 [rows]; q int8 [G_cap, M, V];
     work_region / work_g int32 [W_cap] (super-tile of csub * 128 rows,
-    source group). Returns f32 [W_cap, M, csub * 128], item-major."""
+    source group). Returns f32 [W_cap, M, csub * 128], item-major; or, with
+    pack_window >= 1 (then work_s int32 [W_cap], the item's super-tile slot
+    in its group, and ll_max, the group's row capacity, are needed), int32
+    [W_cap, M, csub * 128 // pack_window]."""
     global launches
     req = _cuda.require
     req(tiles.dim() == 2 and tiles.dtype == torch.uint8,
@@ -68,33 +74,43 @@ def score_grouped_i8_item(tiles, tile_scale, q, work_region, work_g,
         "tile_scale must be f32 [rows]")
     req(q.dim() == 3 and q.dtype == torch.int8
         and q.shape[2] == tiles.shape[1], "q must be int8 [G_cap, M, V]")
-    for t in (work_region, work_g):
-        req(t.dim() == 1 and t.dtype == torch.int32
+    works = (work_region, work_g) + ((work_s,) if pack_window else ())
+    for t in works:
+        req(t is not None and t.dim() == 1 and t.dtype == torch.int32
             and t.shape == work_region.shape,
-            "work_region/work_g must be int32 [W_cap]")
-    req(tiles.shape[0] % (csub * SUB) == 0,
+            "work_region/work_g/work_s must be int32 [W_cap]")
+    rows = csub * SUB
+    req(tiles.shape[0] % rows == 0,
         "tile rows must be a multiple of csub * 128")
+    step = pack_epilogue.check_pack_window(pack_window, rows)
+    req(not pack_window or (ll_max > 0 and ll_max % rows == 0),
+        "packed output needs ll_max, a multiple of csub * 128")
     dev = tiles.device
-    req(all(t.device == dev for t in (tile_scale, q, work_region, work_g)),
+    req(all(t.device == dev for t in (tile_scale, q) + works),
         "all operands must be on one device")
     if dev.type == "cpu":
         return score_grouped_i8_item_plain(tiles, tile_scale, q, work_region,
-                                           work_g, csub)
+                                           work_g, csub, work_s, ll_max,
+                                           pack_window)
     req(dev.type == "cuda", f"unsupported device {dev}")
-    req(all(t.is_contiguous()
-            for t in (tiles, tile_scale, q, work_region, work_g)),
+    req(all(t.is_contiguous() for t in (tiles, tile_scale, q) + works),
         "operands must be contiguous")
     M, V = q.shape[1], tiles.shape[1]
     req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
     req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
     req(V in (256, 512, 1024), f"V={V} is not 256/512/1024")
     W_cap = work_region.shape[0]
-    out = torch.empty((W_cap, M, csub * SUB), dtype=torch.float32,
+    out = torch.empty((W_cap, M, step),
+                      dtype=torch.int32 if pack_window else torch.float32,
                       device=dev)
     p = _cuda.ptr
     rc = _lib().seismic_score_grouped_i8_item(
-        p(tiles), p(tile_scale), p(q), p(work_region), p(work_g), W_cap, V,
-        M, csub, p(out), ctypes.c_void_p(_cuda.stream_handle(dev)))
+        p(tiles), p(tile_scale), p(q), p(work_region), p(work_g),
+        p(work_s) if pack_window else None, W_cap, V, M, csub,
+        pack_epilogue.idx_mask(ll_max) if pack_window else 0, pack_window,
+        p(out), ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "score_grouped_i8_item")
     launches += 1
+    if pack_window:
+        pack_epilogue.count_launch()
     return out

@@ -9,8 +9,11 @@ b = p // QC over list l = pair_list[p]:
     scale[p]   = max(max_v |qloc[p, v]|, 1e-20) * f32(1/127)
     q_i8[p, v] = round_half_even(qloc[p, v] / scale[p])
 
-`project_qloc_quantize` launches the kernel for CUDA tensors and uses the
-plain PyTorch version, `project_qloc_quantize_plain`, for CPU tensors.
+`project_qloc_f32` is the same kernel without the quantize: it returns the
+f32 projection the bf16/f32 scorer (K6) reads
+(`seismic_tpu/search/grouped.py:772-773`). Both launch the kernel for CUDA
+tensors and use the plain PyTorch versions, `project_qloc_quantize_plain`
+and `project_qloc_plain`, for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,9 +33,9 @@ launches = 0
 INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
-def project_qloc_quantize_plain(vocab, pair_list, qc, qv, QC: int):
-    """Plain PyTorch version: the same f32 sum (term by term, as the TPU
-    kernel's unrolled loop) and the same quantize."""
+def project_qloc_plain(vocab, pair_list, qc, qv, QC: int):
+    """Plain PyTorch version of the f32 projection [P, V]: the same f32 sum
+    (term by term, as the TPU kernel's unrolled loop)."""
     rows = vocab[pair_list.long()].to(torch.int32)  # [P, V]
     b = torch.div(torch.arange(rows.shape[0], device=rows.device), QC,
                   rounding_mode="floor")
@@ -43,10 +46,21 @@ def project_qloc_quantize_plain(vocab, pair_list, qc, qv, QC: int):
     for i in range(qc.shape[1]):
         acc = acc + torch.where(rows == qcp[:, i:i + 1], qvp[:, i:i + 1],
                                 zero)
+    return acc
+
+
+def quantize_plain(acc):
+    """Per-row symmetric int8 quantize of a projection f32 [P, V]:
+    (q_i8 int8 [P, V], scale f32 [P])."""
     amax = acc.abs().amax(dim=1, keepdim=True)
     scale = torch.clamp(amax, min=1e-20) * INV_127  # [P, 1]
     q_i8 = torch.round(acc / scale).to(torch.int8)
     return q_i8, scale[:, 0]
+
+
+def project_qloc_quantize_plain(vocab, pair_list, qc, qv, QC: int):
+    """Plain PyTorch version: the same f32 sum and the same quantize."""
+    return quantize_plain(project_qloc_plain(vocab, pair_list, qc, qv, QC))
 
 
 _handle = None
@@ -60,17 +74,17 @@ def _lib():
         lib.seismic_qloc_quantize.argtypes = [p, p, p, p, i, i, i, i, p, p,
                                               p]
         lib.seismic_qloc_quantize.restype = ctypes.c_int
+        lib.seismic_qloc_f32.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.seismic_qloc_f32.restype = ctypes.c_int
+        lib.seismic_qloc_rowmajor.argtypes = [p, p, p, i, i, i, p, p, p]
+        lib.seismic_qloc_rowmajor.restype = ctypes.c_int
         lib.seismic_qloc_max_v.restype = ctypes.c_int
         lib.seismic_qloc_max_terms.restype = ctypes.c_int
         _handle = lib
     return _handle
 
 
-def project_qloc_quantize(vocab, pair_list, qc, qv, QC: int):
-    """vocab int16 [n_lists, V] (-1 padded); pair_list int32 [P];
-    qc int32 / qv f32 [B, SC] the queries' top terms (PAD_COMPONENT / 0
-    padded), P == B * QC. Returns (q_i8 int8 [P, V], scale f32 [P])."""
-    global launches
+def _check(vocab, pair_list, qc, qv, QC: int):
     req = _cuda.require
     req(vocab.dim() == 2 and vocab.dtype == torch.int16,
         "vocab must be int16 [n_lists, V]")
@@ -80,26 +94,61 @@ def project_qloc_quantize(vocab, pair_list, qc, qv, QC: int):
     req(qv.shape == qc.shape and qv.dtype == torch.float32,
         "qv must be f32 of qc's shape")
     req(pair_list.shape[0] == qc.shape[0] * QC, "P must equal B * QC")
-    dev = vocab.device
-    req(all(t.device == dev for t in (pair_list, qc, qv)),
+    req(all(t.device == vocab.device for t in (pair_list, qc, qv)),
         "all operands must be on one device")
-    if dev.type == "cpu":
-        return project_qloc_quantize_plain(vocab, pair_list, qc, qv, QC)
-    req(dev.type == "cuda", f"unsupported device {dev}")
+
+
+def _check_cuda(vocab, pair_list, qc, qv):
+    """The loaded library, after the checks only the kernel needs."""
+    req = _cuda.require
+    req(vocab.device.type == "cuda", f"unsupported device {vocab.device}")
     req(all(t.is_contiguous() for t in (vocab, pair_list, qc, qv)),
         "operands must be contiguous")
     lib = _lib()
+    req(vocab.shape[1] <= lib.seismic_qloc_max_v(),
+        f"V={vocab.shape[1]} exceeds the kernel's cap")
+    req(qc.shape[1] <= lib.seismic_qloc_max_terms(),
+        f"{qc.shape[1]} terms exceed the cap")
+    return lib
+
+
+def project_qloc_quantize(vocab, pair_list, qc, qv, QC: int):
+    """vocab int16 [n_lists, V] (-1 padded); pair_list int32 [P];
+    qc int32 / qv f32 [B, SC] the queries' top terms (PAD_COMPONENT / 0
+    padded), P == B * QC. Returns (q_i8 int8 [P, V], scale f32 [P])."""
+    global launches
+    _check(vocab, pair_list, qc, qv, QC)
+    dev = vocab.device
+    if dev.type == "cpu":
+        return project_qloc_quantize_plain(vocab, pair_list, qc, qv, QC)
+    lib = _check_cuda(vocab, pair_list, qc, qv)
     P, V = pair_list.shape[0], vocab.shape[1]
-    SC = qc.shape[1]
-    req(V <= lib.seismic_qloc_max_v(), f"V={V} exceeds the kernel's cap")
-    req(SC <= lib.seismic_qloc_max_terms(), f"{SC} terms exceed the cap")
     out = torch.empty((P, V), dtype=torch.int8, device=dev)
     scale = torch.empty(P, dtype=torch.float32, device=dev)
     p = _cuda.ptr
     rc = lib.seismic_qloc_quantize(
-        p(vocab), p(pair_list), p(qc), p(qv), P, V, SC, QC, p(out),
+        p(vocab), p(pair_list), p(qc), p(qv), P, V, qc.shape[1], QC, p(out),
         p(scale), ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "qloc_quantize")
     launches += 1
     return out, scale
 
+
+def project_qloc_f32(vocab, pair_list, qc, qv, QC: int):
+    """The operands of `project_qloc_quantize`; returns the unquantized
+    projection f32 [P, V]."""
+    global launches
+    _check(vocab, pair_list, qc, qv, QC)
+    dev = vocab.device
+    if dev.type == "cpu":
+        return project_qloc_plain(vocab, pair_list, qc, qv, QC)
+    lib = _check_cuda(vocab, pair_list, qc, qv)
+    P, V = pair_list.shape[0], vocab.shape[1]
+    out = torch.empty((P, V), dtype=torch.float32, device=dev)
+    p = _cuda.ptr
+    rc = lib.seismic_qloc_f32(
+        p(vocab), p(pair_list), p(qc), p(qv), P, V, qc.shape[1], QC, p(out),
+        ctypes.c_void_p(_cuda.stream_handle(dev)))
+    _cuda.check(rc, "qloc_f32")
+    launches += 1
+    return out

@@ -9,7 +9,10 @@ scorer reads one contiguous `[csub*SUB, V]` block, and a zero tail of
 u8 and the per-row scale stays a flat `[rows]` vector (the TPU layout's
 int8 view and `[n_super, 8, 128]` scale blocks were Mosaic constraints).
 `narrow_vocab` (a copy of `seismic_tpu/ops/pallas_tiles.py::narrow_vocab`)
-derives a narrower-vocabulary index from a built one.
+derives a narrower-vocabulary index from a built one; `residue_layout` and
+`residue_permute_arrays` (copies of the functions of those names there)
+reorder every list's vocabulary into residue groups for the bucketed
+projection kernel (ops/qloc_residue.py).
 """
 
 from __future__ import annotations
@@ -166,3 +169,128 @@ def narrow_vocab(arrays, V0: int, chunk: int = 262144):
         dense_summary=new_ds if new_ds is not None else arrays.dense_summary,
         config=cfg,
     )
+
+
+def residue_layout(V: int, R: int):
+    """Static column layout of a residue-R-ordered local vocabulary:
+    R groups of VRS slots (residue groups) + one SPILL region holding
+    each list's per-group overflow (compared against ALL query terms in
+    the kernel, so overflow costs compares, not recall). VRS is the
+    largest multiple of 8 with spill >= V/8 (the TPU's sublane alignment,
+    kept so that both packages lay an index out alike).
+    Returns (VRS, spill)."""
+    assert V % 8 == 0
+    vrs = ((V - V // 8) // R) // 8 * 8
+    return vrs, V - R * vrs
+
+
+def residue_permute_arrays(arrays, R: int = 8):
+    """Reorder every list's local vocabulary (and the matching doc-tile /
+    dense-summary columns) into R STATIC residue groups of VRS slots plus
+    a spill region (residue_layout): group r holds the list's terms with
+    `term % R == r` in their original (importance) order; each group's
+    overflow goes to the spill region (importance-ordered across groups),
+    and only spill overflow drops terms (to the out-of-vocab path, like
+    vocab-width truncation; rare: term ids are uncorrelated with
+    `id % R`, so groups are near-uniform).
+
+    The residue-bucketed projection kernel (ops/qloc_residue.py) then
+    compares each residue-group slot against only the query terms of ITS
+    residue, and only the spill slots against the full term list.
+
+    Returns a shallow copy of `arrays` with new list_vocab / doc_tiles /
+    dense_summary buffers and `vocab_residue = R`."""
+    import dataclasses as _dc
+
+    from ..data.sparse import PAD_COMPONENT
+
+    lv = np.asarray(arrays.list_vocab)
+    n_lists, V = lv.shape
+    assert V % R == 0, (V, R)
+    VRS, SPILL = residue_layout(V, R)
+    valid = (lv >= 0) & (lv != PAD_COMPONENT)
+    res = np.where(valid, lv.astype(np.int64) % R, R)
+    perm_src = np.argsort(res, axis=1, kind="stable")  # [n_lists, V]
+    rs = np.take_along_axis(res, perm_src, axis=1)
+    col = np.broadcast_to(np.arange(V, dtype=np.int64), (n_lists, V))
+    new_grp = np.empty((n_lists, V), bool)
+    new_grp[:, 0] = True
+    np.not_equal(rs[:, 1:], rs[:, :-1], out=new_grp[:, 1:])
+    seg_start = np.maximum.accumulate(np.where(new_grp, col, 0), axis=1)
+    rank = col - seg_start
+    in_group = (rank < VRS) & (rs < R)
+    spilled = (rank >= VRS) & (rs < R)
+    # spill slots in importance order (perm_src = original importance col)
+    spill_key = np.where(spilled, perm_src, V + col)
+    spill_rank = np.empty((n_lists, V), np.int64)
+    np.put_along_axis(
+        spill_rank, np.argsort(spill_key, axis=1, kind="stable"),
+        col, axis=1,
+    )
+    dst = np.where(
+        in_group,
+        rs * VRS + rank,
+        np.where(
+            spilled & (spill_rank < SPILL),
+            R * VRS + spill_rank,
+            V,  # dropped
+        ),
+    )
+
+    # new vocab + per-list source-column map (V -> zero column)
+    new_vocab = np.full((n_lists, V + 1), -1, lv.dtype)
+    np.put_along_axis(
+        new_vocab, dst, np.take_along_axis(lv, perm_src, axis=1), axis=1
+    )
+    new_vocab = new_vocab[:, :V]
+    src_of_dst = np.full((n_lists, V + 1), V, np.int64)
+    np.put_along_axis(src_of_dst, dst, perm_src, axis=1)
+    src_of_dst = src_of_dst[:, :V]
+
+    list_len = np.asarray(arrays.list_len, np.int64)
+    post_start = np.asarray(arrays.list_post_start, np.int64)
+    tiles = np.asarray(arrays.doc_tiles)
+    new_tiles = np.zeros_like(tiles)
+    total = int(list_len.sum())
+    if total:
+        starts = np.zeros(len(list_len), dtype=np.int64)
+        np.cumsum(list_len[:-1], out=starts[1:])
+        row_of = np.repeat(post_start, list_len) + (
+            np.arange(total, dtype=np.int64)
+            - np.repeat(starts, list_len)
+        )
+        list_of = np.repeat(
+            np.arange(n_lists, dtype=np.int64), list_len
+        )
+        src32 = src_of_dst.astype(np.int32)
+        CHUNK = max(1, (1 << 28) // (4 * V))  # ~256 MB index working set
+        for c0 in range(0, total, CHUNK):
+            c1 = min(c0 + CHUNK, total)
+            rows = row_of[c0:c1]
+            blk = tiles[rows]
+            ext = np.concatenate(
+                [blk, np.zeros((len(rows), 1), tiles.dtype)], axis=1
+            )
+            new_tiles[rows] = np.take_along_axis(
+                ext, src32[list_of[c0:c1]], axis=1
+            )
+
+    new_dsum = arrays.dense_summary
+    if new_dsum is not None:
+        dsum = np.asarray(arrays.dense_summary)
+        nblk = np.asarray(arrays.list_n_blocks, np.int64)
+        bstart = np.asarray(arrays.list_block_start, np.int64)
+        new_dsum = np.zeros_like(dsum)
+        for li in range(n_lists):
+            nb_ = int(nblk[li])
+            if nb_ == 0:
+                continue
+            b0 = int(bstart[li])
+            blk = dsum[b0:b0 + nb_]
+            ext = np.concatenate(
+                [blk, np.zeros((nb_, 1), dsum.dtype)], axis=1
+            )
+            new_dsum[b0:b0 + nb_] = ext[:, src_of_dst[li]]
+
+    return _dc.replace(arrays, list_vocab=new_vocab, doc_tiles=new_tiles,
+                       dense_summary=new_dsum, vocab_residue=R)

@@ -9,30 +9,47 @@ Pipeline (planner -> device program), as in
             derived on the device from the queries (`derive_plan_device`,
             torch sorts, scans and scatters), with the host supplying only
             the static capacities (`plan_caps`)
-  device 2. per-pair query projection onto each list's local vocabulary,
-            quantized to int8 per pair (ops/qloc.py, kernel K1)
+  device 2. per-pair query projection onto each list's local vocabulary:
+            K1 (ops/qloc.py; quantized to int8 per pair for the i8 scorer,
+            f32 for the bf16/f32 one), K8 (ops/qloc_rowmajor.py,
+            qloc_mode "rowmajor"), K9 (ops/qloc_residue.py, an index
+            uploaded with vocab_residue), or a plain lookup (qloc_mode
+            "einsum")
          3. slot expansion: each group's M projections side by side
-         4. grouped int8 scorer: each list's u8 doc tiles read once per
-            group and scored for all M member queries, slot-major
-            (kernel_unroll 1: ops/grouped_scorer.py, kernel K2) or
-            work-item-major (kernel_unroll > 1: ops/grouped_scorer_item.py,
-            kernel K4, then `_item_regroup`)
+         4. grouped scorer: each list's u8 doc tiles read once per group
+            and scored for all M member queries: int8, slot-major
+            (kernel_unroll 1: ops/grouped_scorer.py, K2) or work-item-major
+            (kernel_unroll > 1: ops/grouped_scorer_item.py, K4, then
+            `_item_regroup`); bf16 / f32, slot-major
+            (ops/grouped_scorer_f.py, K6). For the "window" and "stride"
+            pools the scorers pack each score with its row and take a
+            window max in their epilogue (ops/pack_epilogue.py, K5)
          5. regroup to query order in the pool dtype (f32 or bf16), per-pair
-            scale, length masks, candidate pool (exact top-`pool`, or
-            "hier": exact top-t per pair, then an exact merge)
-         6. exact rescore of the top `rescore` candidates from the forward
-            rows (ops/rescore.py, kernel K3), with the id dedup before it
-            ("pre") or after it ("post"), final top-k
+            scale, length masks, candidate pool: "exact" / "approx" (exact
+            top-`pool` of the wall), "hier" and "slot" (top-t per pair, then
+            a merge), "seg" (two-level segment pool), "window" and "stride"
+            (packed pools)
+         6. rescore > 0: exact rescore of the top `rescore` candidates from
+            the forward rows (ops/rescore.py, K3), with the id dedup before
+            it ("pre") or after it ("post"); rescore == 0: the overflow
+            correction of the pool (or of its top `ovf_pool` unique
+            candidates) and the id dedup; final top-k
 
 Two entry points: `search_grouped` (host plan) and
 `search_grouped_derive` (device-derived plan; the bench headline path of
-the JAX package, `bench.py:604-669`). Served modes: compute_dtype "i8",
-qloc_mode "pallas", any kernel_unroll, pool_mode "exact" or "hier",
-pool_dtype "f32" or "bf16", dedup_mode "pre" or "post", rescore > 0,
-stream_frac 1. Every other mode raises NotImplementedError naming the
-ROADMAP.md item that brings it. The glue between the kernels (top-k,
-sorts, scans, gathers, masks) is plain torch, and none of it reads a
-device value back to the host.
+the JAX package, `bench.py:604-669`). Served: compute_dtype "i8", "bf16",
+"f32"; qloc_mode "pallas", "rowmajor" (i8, no vocab_residue), "einsum";
+an index uploaded with vocab_residue (qloc_mode "pallas" or "einsum");
+kernel_unroll 1, or > 1 with "i8" and pool_mode "exact", "approx", "hier",
+"seg" or "stride"; every pool_mode; pool_select "exact" and "approx"
+(every selection here is exact, as `approx_max_k` is on JAX's CPU
+backend); pool_dtype "f32", "bf16"; dedup_mode "pre", "post"; rescore > 0
+and the overflow tail (rescore == 0); stop_after. Not served, each
+raising NotImplementedError with its ROADMAP.md item: stream_frac < 1,
+return_margin and the weighted list cut (2f; hashed tiles, also 2f, have
+no upload path here), block_expand (2c), n_knn > 0 (2d). The glue between
+the kernels (top-k, sorts, scans, gathers, masks) is plain torch, and none
+of it reads a device value back to the host.
 """
 
 from __future__ import annotations
@@ -43,17 +60,27 @@ import numpy as np
 import torch
 
 from ..data.sparse import PAD_COMPONENT
+from ..ops import pack_epilogue
 from ..ops.grouped_scorer import score_grouped_i8
+from ..ops.grouped_scorer_f import score_grouped_f
 from ..ops.grouped_scorer_item import score_grouped_i8_item
-from ..ops.qloc import project_qloc_quantize
+from ..ops.qloc import (
+    project_qloc_f32,
+    project_qloc_quantize,
+    quantize_plain,
+)
+from ..ops.qloc_residue import project_qloc_residue
+from ..ops.qloc_rowmajor import project_qloc_rowmajor
 from ..ops.rescore import rescore_exact
 from ..ops.tiles_prep import SUB, ll_pad_for
 from ..types import DeviceIndex
 from .engine import (
     _dedup_by_id,
+    _lookup,
     _query_terms,
     _sort_by_id_then_score,
     _top_k,
+    densify_query_batch,
 )
 from .planner import GroupedPlan, PlannerContext, plan_grouped
 
@@ -94,38 +121,54 @@ class GroupedParams:
     return_margin: bool = False
 
 
-_R2A = "ROADMAP.md, modules to port, item 2"
+_R2 = "ROADMAP.md, modules to port, item 2"
+_STOPS = ("", "qloc", "expand", "kernel", "regroup", "pool", "prerank")
+_POOL_MODES = ("exact", "approx", "hier", "slot", "seg", "window", "stride")
 
 
 def _check_supported(params: GroupedParams) -> None:
-    """Raise for every mode this package does not serve, naming the
-    ROADMAP item that brings it."""
+    """Raise NotImplementedError for every mode this package does not serve
+    yet, naming the ROADMAP item that brings it (2f: stream_frac,
+    return_margin, the weighted cut; 2c: block_expand; 2d: n_knn), and
+    ValueError for values and combinations the JAX package refuses too."""
     unsupported = [
-        (params.compute_dtype != "i8",
-         f"compute_dtype={params.compute_dtype!r} (bf16/f32 scorer: "
-         "ROADMAP.md kernel queue, score_grouped_pallas bf16/f32)"),
-        (params.qloc_mode != "pallas",
-         f"qloc_mode={params.qloc_mode!r} ({_R2A}e)"),
-        (params.pool_mode not in ("exact", "hier"),
-         f"pool_mode={params.pool_mode!r} ({_R2A}e)"),
-        (params.pool_dtype not in ("f32", "bf16"),
-         f"pool_dtype={params.pool_dtype!r} ({_R2A}e)"),
-        (params.dedup_mode not in ("pre", "post"),
-         f"dedup_mode={params.dedup_mode!r} ({_R2A}e)"),
-        (params.rescore <= 0,
-         f"rescore={params.rescore}: the overflow re-rank tail ({_R2A}e)"),
         (params.stream_frac < 1.0,
-         f"stream_frac={params.stream_frac} ({_R2A}e)"),
+         f"stream_frac={params.stream_frac} ({_R2}f)"),
+        (params.return_margin, f"return_margin ({_R2}f)"),
         (params.block_expand > 0,
-         f"block_expand={params.block_expand} ({_R2A}c)"),
-        (params.n_knn > 0, f"n_knn={params.n_knn} ({_R2A}d)"),
-        (bool(params.stop_after),
-         f"stop_after={params.stop_after!r} ({_R2A}e)"),
-        (params.return_margin, f"return_margin ({_R2A}e)"),
+         f"block_expand={params.block_expand} ({_R2}c)"),
+        (params.n_knn > 0, f"n_knn={params.n_knn} ({_R2}d)"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"grouped search: {what}")
+    i8 = params.compute_dtype == "i8"
+    invalid = [
+        (params.compute_dtype not in ("i8", "bf16", "f32"),
+         f"compute_dtype={params.compute_dtype!r}"),
+        (params.qloc_mode not in ("pallas", "rowmajor", "einsum"),
+         f"qloc_mode={params.qloc_mode!r}"),
+        (params.pool_mode not in _POOL_MODES,
+         f"pool_mode={params.pool_mode!r}"),
+        (params.pool_select not in ("exact", "approx"),
+         f"pool_select={params.pool_select!r}"),
+        (params.pool_dtype not in ("f32", "bf16"),
+         f"pool_dtype={params.pool_dtype!r}"),
+        (params.dedup_mode not in ("pre", "post"),
+         f"dedup_mode={params.dedup_mode!r}"),
+        (params.stop_after not in _STOPS,
+         f"stop_after={params.stop_after!r}"),
+        (params.kernel_unroll < 1, f"kernel_unroll={params.kernel_unroll}"),
+        (params.kernel_unroll > 1 and not i8,
+         "kernel_unroll > 1 is i8-only"),
+        (params.kernel_unroll > 1 and params.pool_mode in ("slot", "window"),
+         f"kernel_unroll > 1 with pool_mode={params.pool_mode!r}"),
+        (params.qloc_mode == "rowmajor" and not i8,
+         "rowmajor qloc is i8-only"),
+    ]
+    for bad, what in invalid:
+        if bad:
+            raise ValueError(f"grouped search: {what}")
 
 
 # plan fields, in the packed order of the JAX package (grouped.py:204-219)
@@ -307,18 +350,122 @@ def _item_regroup(scores_item, plan: DevicePlan, csub: int, NSUP: int):
     return out.reshape(slot.shape[0], NSUP * STEP)
 
 
+def _residue_buckets(top_c, top_v, R: int, scb: int):
+    """Per-query residue-bucketed term tables for the bucketed projection
+    kernel (K9): terms are grouped by `term % R` into R buckets of `scb`
+    slots, keeping value order (top_c / top_v arrive value-sorted and the
+    sort is stable), so bucket overflow drops only the smallest values.
+    Returns (qcb int32 [B, R*scb] with -2 padding, qvb f32 [B, R*scb])."""
+    B, sc = top_c.shape
+    dev = top_c.device
+    valid = (top_c != int(PAD_COMPONENT)) & (top_c >= 0)
+    r_key = torch.where(valid, top_c % R, R).to(torch.int32)
+    pos = torch.arange(sc, dtype=torch.int32, device=dev).expand(B, sc)
+    # JAX's two-key sort (residue, position): a stable sort by residue
+    order = torch.sort(r_key, dim=1, stable=True).indices
+    rk_s = torch.gather(r_key, 1, order)
+    c_s = torch.gather(top_c.to(torch.int32), 1, order)
+    v_s = torch.gather(top_v, 1, order)
+    new_grp = torch.ones((B, sc), dtype=torch.bool, device=dev)
+    new_grp[:, 1:] = rk_s[:, 1:] != rk_s[:, :-1]
+    seg_start = torch.cummax(torch.where(new_grp, pos, 0), dim=1).values
+    rank = pos - seg_start
+    dump = R * scb  # one extra column takes what does not fit; cut off
+    dst = torch.where((rank < scb) & (rk_s < R), rk_s * scb + rank,
+                      dump).long()
+    qcb = torch.full((B, dump + 1), -2, dtype=torch.int32,
+                     device=dev).scatter_(1, dst, c_s)[:, :dump]
+    qvb = torch.zeros((B, dump + 1), dtype=torch.float32,
+                      device=dev).scatter_(1, dst, v_s)[:, :dump]
+    return qcb.contiguous(), qvb.contiguous()
+
+
+def _ovf_correction(index: DeviceIndex, qd_top, top_scores, safe_post):
+    """Re-rank a candidate pool with each occurrence's out-of-vocab
+    overflow entries: adds back the dot mass the local-vocab tile
+    truncates. qd_top: the dense copy of the queries' top terms."""
+    qmatch = _lookup(qd_top, index.tile_ovf_comps[safe_post])
+    ov = index.tile_ovf_vals[safe_post].to(torch.float32)
+    correction = (qmatch * ov).sum(dim=-1)
+    return torch.where(torch.isfinite(top_scores), top_scores + correction,
+                       top_scores)
+
+
+@dataclass
+class _Stopped:
+    """The output of the stage `stop_after` names."""
+
+    out: torch.Tensor
+
+
 def _grouped_impl(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
                   params: GroupedParams):
     """The device program of the grouped route; returns (scores f32 [B, k],
-    ids int64 [B, k], -1 where no result)."""
-    return _grouped_tail(index, params,
-                         *_grouped_pool(index, plan, q_comps, q_vals, params))
+    ids int64 [B, k], -1 where no result), or with `stop_after` the named
+    stage's output twice, as the JAX program does."""
+    pooled = _grouped_pool(index, plan, q_comps, q_vals, params)
+    if isinstance(pooled, _Stopped):
+        return pooled.out, pooled.out
+    if params.stop_after == "pool":
+        return pooled[3], pooled[4]
+    return _grouped_tail(index, params, *pooled)
+
+
+def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
+             params: GroupedParams):
+    """Per-pair projections on the compact [P] pair grid: (q_i8 int8 [P, V],
+    pair_scale f32 [P]) for the i8 scorer, (qloc f32 [P, V], None)
+    otherwise."""
+    QC = plan.pair_list.shape[1]
+    i8 = params.compute_dtype == "i8"
+    pair_list = plan.pair_list.reshape(-1)
+    tc = top_c[:, :scq].contiguous()
+    tv = top_v[:, :scq].contiguous()
+    R = index.vocab_residue
+    if params.qloc_mode == "rowmajor":
+        if R:
+            raise ValueError("rowmajor qloc and vocab_residue are exclusive")
+        # the kernel's contract (K8): every pair brings its vocab row and
+        # its term row
+        return project_qloc_rowmajor(
+            index.vocab16[pair_list.long()],
+            tc.repeat_interleave(QC, dim=0), tv.repeat_interleave(QC, dim=0))
+    if params.qloc_mode == "einsum":
+        # JAX's `_qloc_compare`; a slot matches at most one term, so the
+        # one-hot sum is a lookup in the dense copy of the top terms
+        qd = densify_query_batch(tc, tv, index.dim)
+        qloc = _lookup(qd, index.vocab16[plan.pair_list.long()]).reshape(
+            pair_list.shape[0], -1)
+        return quantize_plain(qloc) if i8 else (qloc, None)
+    if R:
+        qcb, qvb = _residue_buckets(tc, tv, R, params.residue_scb)
+        out = project_qloc_residue(index.vocab16, pair_list, qcb, qvb, tc,
+                                   tv, QC, R, params.residue_scb, quantize=i8)
+        return out if i8 else (out, None)
+    if i8:
+        return project_qloc_quantize(index.vocab16, pair_list, tc, tv, QC)
+    return project_qloc_f32(index.vocab16, pair_list, tc, tv, QC), None
+
+
+def _candidates(index: DeviceIndex, plan: DevicePlan, top_scores, sel,
+                LLMAX: int):
+    """Pool positions `sel` (qc slot * LLMAX + row) to (f32 scores, doc
+    ids with n_docs where empty, clipped posting index)."""
+    top_scores = top_scores.to(torch.float32)
+    qc_slot = torch.div(sel, LLMAX, rounding_mode="floor")
+    off = sel % LLMAX
+    post_sel = torch.gather(plan.pair_pstart, 1, qc_slot) + off
+    safe_post = post_sel.clamp(0, index.postings.shape[0] - 1)
+    cand_ids = index.postings[safe_post]
+    cand_ids = torch.where(torch.isfinite(top_scores), cand_ids,
+                           index.n_docs)
+    return top_scores, cand_ids, safe_post
 
 
 def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
                   params: GroupedParams):
     """The grouped program up to its candidate pool: `_grouped_tail`'s
-    arguments after (index, params)."""
+    arguments after (index, params), or a `_Stopped` stage output."""
     _check_supported(params)
     if index.doc_tiles_aligned is None:
         raise ValueError("the grouped route needs an index built with doc "
@@ -329,75 +476,183 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
     k = params.k
     csub = index.tile_csub
     LLMAX = ll_pad_for(index.max_list_len, csub)
+    dev = q_comps.device
+    stop = params.stop_after
 
     top_c, top_v, sc = _query_terms(q_comps, q_vals, params.score_cut)
     QC = plan.pair_list.shape[1]
     P = B * QC
 
-    # ---- per-pair int8 projections (K1), expanded to slot order ----
+    # ---- per-pair projections (K1 / K8 / K9), expanded to slot order ----
     scq = min(params.qloc_cut, sc) if params.qloc_cut > 0 else sc
-    q_i8, pair_scale = project_qloc_quantize(
-        index.vocab16, plan.pair_list.reshape(P),
-        top_c[:, :scq].contiguous(), top_v[:, :scq].contiguous(), QC)
-    qloc = q_i8[plan.slot_pair.long()].reshape(G_cap, M, V)
+    qloc_pairs, pair_scale = _project(index, plan, top_c, top_v, scq, params)
+    if stop == "qloc":
+        return _Stopped(qloc_pairs)
+    slot_src = plan.slot_pair.long()
+    qloc = qloc_pairs[slot_src].reshape(G_cap, M, V)
+    qsum = None
+    if pair_scale is None:
+        # 128 * sum_v qloc for the centred-tile form, from the f32 qloc
+        qsum = (128.0 * qloc_pairs.sum(dim=-1))[slot_src].reshape(G_cap, M)
+    if stop == "expand":
+        return _Stopped(qloc)
 
-    # ---- grouped tile scoring (K4 item-major, or K2 slot-major), then
-    # the regroup to query order in the pool dtype ----
-    pdt = torch.bfloat16 if params.pool_dtype == "bf16" else torch.float32
-    U = params.kernel_unroll
-    if U > 1:
+    # ---- grouped tile scoring (K2 / K4 / K6), K5 epilogue when packed ----
+    pack_idx = params.pool_mode in ("window", "stride")
+    rk = 1
+    if params.pool_mode == "stride":
+        # the kernel's share of the stride max: slices 128 rows apart
+        rk = max(1, min(params.pool_stride, csub))
+    pack_window = rk if pack_idx else 0
+    item_major = params.kernel_unroll > 1
+    tiles, tscale = index.doc_tiles_aligned, index.tile_scale
+    if item_major:
         W_cap = plan.work_region.shape[0]
-        if W_cap % U:
+        if W_cap % params.kernel_unroll:
             raise ValueError(f"W_cap={W_cap} is not a multiple of "
-                             f"kernel_unroll={U}")
+                             f"kernel_unroll={params.kernel_unroll}")
         scores = score_grouped_i8_item(
-            index.doc_tiles_aligned, index.tile_scale, qloc,
-            plan.work_region, plan.work_g, csub)  # [W_cap, M, csub*128]
-        pv = _item_regroup(scores.to(pdt), plan, csub,
-                           LLMAX // (csub * SUB))
-    else:
-        if csub != 1:
-            raise NotImplementedError(
-                "kernel_unroll=1 with tile_csub > 1: K2 scores 128-row "
-                "items only; use kernel_unroll > 1 (ROADMAP.md, modules "
-                "to port, item 2e)")
+            tiles, tscale, qloc, plan.work_region, plan.work_g, csub,
+            plan.work_s, LLMAX, pack_window)  # [W_cap, M, csub*128 / rk]
+    elif pair_scale is not None:
         scores = score_grouped_i8(
-            index.doc_tiles_aligned, index.tile_scale, qloc,
-            plan.work_region, plan.work_g, plan.work_s,
-            LLMAX)  # [G_cap, M, LLMAX], unmasked
-        pv = scores.to(pdt).reshape(G_cap * M, LLMAX)[
-            plan.pair_slot.reshape(P).long()]
-    # one f32 product rounded to the pool dtype, as XLA does in bf16
-    pv = pv.reshape(B, QC, LLMAX) * pair_scale.reshape(B, QC, 1).to(pdt)
-    rows = torch.arange(LLMAX, dtype=torch.int32, device=pv.device)
+            tiles, tscale, qloc, plan.work_region, plan.work_g, plan.work_s,
+            LLMAX, csub, pack_window)  # [G_cap, M, LLMAX / rk], unmasked
+    else:
+        scores = score_grouped_f(
+            tiles, tscale, qloc, qsum, plan.work_region, plan.work_g,
+            plan.work_s, LLMAX, csub, params.compute_dtype, pack_window)
+    if stop == "kernel":
+        return _Stopped(scores)
+    NSUP = LLMAX // (csub * SUB)
+    pslot = plan.pair_slot.reshape(P).long()
+    pool = min(params.pool if params.pool > 0 else 8 * k, QC * LLMAX)
+
+    def done(top_scores, sel, pool):
+        return (top_c, top_v, sc,
+                *_candidates(index, plan, top_scores, sel, LLMAX), pool)
+
+    if pack_idx:
+        # ---- packed pools: each packed value carries its row offset ----
+        imask = pack_epilogue.idx_mask(LLMAX)
+        plen = plan.pair_len[:, :, None]
+        if params.pool_mode == "stride":
+            # regroup first (reads only real pairs' rows), then the rest of
+            # the stride max pair-major: rows >= 32 apart within one work
+            # item. Cells nothing wrote conflate only with cells of the
+            # same item, masked below by the item's start row.
+            ROWS = csub * SUB
+            step_k = ROWS // rk
+            Wk = LLMAX // rk
+            if item_major:
+                pw = _item_regroup(scores, plan, csub, NSUP)
+            else:
+                pw = scores.reshape(G_cap * M, Wk)[pslot]
+            pw = pw.reshape(B, QC, Wk)
+            rx = max(1, min(params.pool_stride // rk, step_k // 32))
+            if rx > 1:
+                S = Wk // step_k
+                pw = pw.reshape(B, QC, S, rx, step_k // rx).amax(dim=3)
+                pw = pw.reshape(B, QC, S * (step_k // rx))
+            NW = Wk // rx
+            s_row = torch.div(
+                torch.arange(NW, dtype=torch.int32, device=dev),
+                step_k // rx, rounding_mode="floor") * ROWS
+            val, off = pack_epilogue.unpack(pw, LLMAX)
+            ok = plan.pair_valid[:, :, None] & (s_row < plen) & (off < plen)
+        else:
+            WP = params.pool_window
+            if LLMAX % WP:
+                raise ValueError(f"pool_window={WP} does not divide the "
+                                 f"row capacity {LLMAX}")
+            NW = LLMAX // WP
+            # lax.reduce_window starts from -2^31 + 1
+            wmax = scores.reshape(G_cap, M, NW, WP).amax(dim=-1).clamp(
+                min=-(2 ** 31) + 1)
+            # windows past a group's rows hold whatever memory held
+            win_real = (torch.arange(NW, dtype=torch.int32, device=dev)
+                        * WP)[None, :] < plan.group_nrows[:, None]
+            neg_inf_bits = int(np.float32(-np.inf).view(np.int32))
+            wmax = torch.where(win_real[:, None, :], wmax, neg_inf_bits)
+            pw = wmax.reshape(G_cap * M, NW)[pslot].reshape(B, QC, NW)
+            val, off = pack_epilogue.unpack(pw, LLMAX)
+            ok = plan.pair_valid[:, :, None] & (off < plen)
+        if pair_scale is not None:
+            val = val * pair_scale.reshape(B, QC, 1)
+        val = torch.where(ok, val, -torch.inf)
+        if stop == "regroup":
+            return _Stopped(val)
+        gsel = (torch.arange(QC, dtype=torch.int32, device=dev)[None, :, None]
+                * LLMAX + off).reshape(B, QC * NW).long()
+        pool = min(pool, QC * NW)
+        top_scores, p1 = _top_k(val.reshape(B, QC * NW), pool)
+        return done(top_scores, torch.gather(gsel, 1, p1), pool)
+
+    rows = torch.arange(LLMAX, dtype=torch.int32, device=dev)
+    if params.pool_mode == "slot":
+        # ---- pool on the scorer's slot grid, then regroup [P, t] ----
+        t = min(params.pool_per_pair, LLMAX)
+        m3 = ((rows[None, :] < plan.group_nrows[:, None])[:, None, :]
+              & (plan.slot_b < B)[:, :, None])
+        sl = torch.where(m3, scores, -torch.inf).reshape(G_cap * M, LLMAX)
+        v1, i1 = _top_k(sl, t)
+        v1p = v1[pslot].reshape(B, QC, t)
+        i1p = i1[pslot].reshape(B, QC, t)
+        if pair_scale is not None:
+            v1p = v1p * pair_scale.reshape(B, QC, 1)
+        v1p = torch.where(plan.pair_valid[..., None], v1p, -torch.inf)
+        if stop == "regroup":
+            return _Stopped(v1p)
+        gsel = (torch.arange(QC, device=dev)[None, :, None] * LLMAX
+                + i1p).reshape(B, QC * t)
+        pool = min(pool, QC * t)
+        top_scores, p1 = _top_k(v1p.reshape(B, QC * t), pool)
+        return done(top_scores, torch.gather(gsel, 1, p1), pool)
+
+    # ---- regroup to query order in the pool dtype, scale, mask ----
+    pdt = torch.bfloat16 if params.pool_dtype == "bf16" else torch.float32
+    if item_major:
+        pv = _item_regroup(scores.to(pdt), plan, csub, NSUP)
+    else:
+        pv = scores.to(pdt).reshape(G_cap * M, LLMAX)[pslot]
+    pv = pv.reshape(B, QC, LLMAX)
+    if pair_scale is not None:
+        # one f32 product rounded to the pool dtype, as XLA does in bf16
+        pv = pv * pair_scale.reshape(B, QC, 1).to(pdt)
     rows_ok = (rows[None, None, :] < plan.pair_len[..., None]) & (
         plan.pair_valid[..., None])
-    pv = torch.where(rows_ok, pv, -torch.inf)
+    pv = torch.where(rows_ok, pv, -torch.inf).reshape(B, QC * LLMAX)
+    if stop == "regroup":
+        return _Stopped(pv)
 
-    # ---- candidate pool (exact selection; the hier stages keep lax.top_k's
-    # tie order, which the bf16 wall is full of) ----
-    pool = min(params.pool if params.pool > 0 else 8 * k, QC * LLMAX)
+    # ---- candidate pool (exact selection; the narrow stages keep
+    # lax.top_k's tie order, which the bf16 wall is full of) ----
+    segw = params.pool_seg_width
     if params.pool_mode == "hier":
         # stage 1: top-t per (query, list) row; stage 2: exact merge
         t = min(params.pool_per_pair, LLMAX)
         v1, i1 = _top_k(pv.reshape(P, LLMAX), t)
-        gsel = (torch.arange(QC, device=pv.device)[None, :, None] * LLMAX
+        gsel = (torch.arange(QC, device=dev)[None, :, None] * LLMAX
                 + i1.reshape(B, QC, t)).reshape(B, QC * t)
         pool = min(pool, QC * t)
         top_scores, p1 = _top_k(v1.reshape(B, QC * t), pool)
         sel = torch.gather(gsel, 1, p1)
+    elif params.pool_mode == "seg" and pool * segw < QC * LLMAX:
+        # two-level segment pool: the top-`pool` segments by max hold the
+        # top-`pool` rows. Past that width the JAX program falls through
+        # to the whole-wall selection, and so does this one.
+        if (QC * LLMAX) % segw:
+            raise ValueError(f"pool_seg_width={segw} does not divide "
+                             f"{QC * LLMAX}")
+        seg_max = pv.reshape(B, (QC * LLMAX) // segw, segw).amax(dim=-1)
+        _, seg_sel = _top_k(seg_max, pool)
+        row_idx = (seg_sel[:, :, None] * segw
+                   + torch.arange(segw, device=dev)).reshape(B, pool * segw)
+        top_scores, p1 = _top_k(torch.gather(pv, 1, row_idx), pool)
+        sel = torch.gather(row_idx, 1, p1)
     else:
-        top_scores, sel = torch.topk(pv.reshape(B, QC * LLMAX), pool, dim=1)
-    # the tail runs in f32; only the wall the pool selected over was pdt
-    top_scores = top_scores.to(torch.float32)
-    qc_slot = torch.div(sel, LLMAX, rounding_mode="floor")
-    off = sel % LLMAX
-    post_sel = torch.gather(plan.pair_pstart, 1, qc_slot) + off
-    safe_post = post_sel.clamp(0, index.postings.shape[0] - 1)
-    cand_ids = index.postings[safe_post]
-    cand_ids = torch.where(torch.isfinite(top_scores), cand_ids,
-                           index.n_docs)
-    return top_c, top_v, sc, top_scores, cand_ids, safe_post, pool
+        top_scores, sel = torch.topk(pv, pool, dim=1)
+    return done(top_scores, sel, pool)
 
 
 def _dedup_with_payload(scores, ids, payload, n_docs: int):
@@ -418,31 +673,57 @@ def _dedup_with_payload(scores, ids, payload, n_docs: int):
 
 def _grouped_tail(index, params, top_c, top_v, sc, top_scores, cand_ids,
                   safe_post, pool):
-    """Post-pool tail: exact-rescore `rescore` candidates (K3) and take the
-    final top-k. dedup_mode "pre" sort-dedups the pool first and rescores
-    the top unique candidates; "post" rescores the raw top of the pool
-    (it arrives sorted) and dedups on the exact scores."""
+    """Post-pool tail. rescore > 0: exact-rescore `rescore` candidates (K3)
+    and take the final top-k; dedup_mode "pre" sort-dedups the pool first
+    and rescores the top unique candidates, "post" rescores the raw top of
+    the pool (it arrives sorted) and dedups on the exact scores.
+    rescore == 0: the overflow correction (of the whole pool, or after the
+    dedup of its top `ovf_pool` unique candidates) and the id dedup."""
     k = params.k
-    rp = min(params.rescore, pool)
-    if params.dedup_mode == "post":
-        t2 = top_scores[:, :rp]
-        ids2 = cand_ids[:, :rp]
+    n_docs = index.n_docs
+    if params.rescore > 0:
+        rp = min(params.rescore, pool)
+        if params.dedup_mode == "post":
+            t2 = top_scores[:, :rp]
+            ids2 = cand_ids[:, :rp]
+        else:
+            dscores, dids, _ = _dedup_with_payload(top_scores, cand_ids,
+                                                   safe_post, n_docs)
+            t2, pos2 = torch.topk(dscores, rp, dim=1)
+            ids2 = torch.gather(dids, 1, pos2)
+        if params.stop_after == "prerank":
+            return t2, ids2
         exact = rescore_exact(index, ids2, top_c, top_v, sc,
                               chunk_r=params.rescore_chunk)
         t2 = torch.where(torch.isfinite(t2), exact, -torch.inf)
-        t2, ids2 = _dedup_by_id(t2, ids2, index.n_docs)
+        if params.dedup_mode == "post":
+            t2, ids2 = _dedup_by_id(t2, ids2, n_docs)
     else:
-        dscores, dids, _ = _dedup_with_payload(top_scores, cand_ids,
-                                               safe_post, index.n_docs)
-        t2, pos2 = torch.topk(dscores, rp, dim=1)
-        ids2 = torch.gather(dids, 1, pos2)
-        exact = rescore_exact(index, ids2, top_c, top_v, sc,
-                              chunk_r=params.rescore_chunk)
-        t2 = torch.where(torch.isfinite(t2), exact, -torch.inf)
+        use_ovf = params.use_ovf and index.tile_ovf_comps is not None
+        qd_top = (densify_query_batch(top_c, top_v, index.dim)
+                  if use_ovf else None)
+        if use_ovf and 0 < params.ovf_pool < pool:
+            # dedup first, then correct only the top unique candidates
+            dscores, dids, dpost = _dedup_with_payload(
+                top_scores, cand_ids, safe_post, n_docs)
+            t2, pos2 = torch.topk(dscores, params.ovf_pool, dim=1)
+            ids2 = torch.gather(dids, 1, pos2)
+            post2 = torch.gather(dpost, 1, pos2).long()
+            t2 = _ovf_correction(index, qd_top, t2, post2)
+        else:
+            if use_ovf:
+                top_scores = _ovf_correction(index, qd_top, top_scores,
+                                             safe_post)
+            t2, ids2 = _dedup_by_id(top_scores, cand_ids, n_docs)
     out_scores, opos = torch.topk(t2, k, dim=1)
     out_ids = torch.gather(ids2, 1, opos).long()
     out_ids = torch.where(torch.isfinite(out_scores), out_ids, -1)
     return out_scores, out_ids
+
+
+def _to_numpy(t):
+    t = t.float() if t.dtype == torch.bfloat16 else t
+    return t.cpu().numpy()
 
 
 def search_grouped(
@@ -455,7 +736,8 @@ def search_grouped(
     M: int = 8,
 ):
     """Convenience wrapper: plan on the host (the C++ planner), execute on
-    the index's device, numpy out."""
+    the index's device, numpy out (with `stop_after`, the named stage's
+    output twice)."""
     _check_supported(params)
     dev = index.device
     plan = plan_grouped(q_comps, q_vals, ctx, query_cut, M=M)
@@ -466,7 +748,7 @@ def search_grouped(
         torch.from_numpy(np.ascontiguousarray(q_vals, np.float32)).to(dev),
         params,
     )
-    return scores.cpu().numpy(), ids.cpu().numpy()
+    return _to_numpy(scores), _to_numpy(ids)
 
 
 def search_grouped_derive(index: DeviceIndex, q_comps, q_vals,
@@ -482,7 +764,7 @@ def search_grouped_derive(index: DeviceIndex, q_comps, q_vals,
     if weighted:
         raise NotImplementedError(
             "weighted=True: the weighted list cut (ROADMAP.md, modules to "
-            "port, item 2e)")
+            "port, item 2f)")
     _check_supported(params)
     dev = index.device
     if not (torch.is_tensor(q_comps) and torch.is_tensor(q_vals)
@@ -501,6 +783,6 @@ def plan_caps(q_comps, q_vals, ctx: PlannerContext, query_cut: int,
     if weighted:
         raise NotImplementedError(
             "weighted=True: the weighted list cut (ROADMAP.md, modules to "
-            "port, item 2e)")
+            "port, item 2f)")
     p = plan_grouped(q_comps, q_vals, ctx, query_cut, M=M)
     return p.G_cap, p.W_cap

@@ -118,6 +118,10 @@ class IndexArrays:
     # whose ~12-row lists would otherwise pad to csub*128 rows each.
     # In-memory only (views are rebuilt from the base index, not saved).
     pack_bins: bool = False
+    # > 0: list_vocab (and the doc_tiles / dense_summary columns) are in
+    # the residue-R order of ops/tiles_prep.py::residue_permute_arrays.
+    # In-memory only: the on-disk index stays residue-free.
+    vocab_residue: int = 0
     config: Optional[Configuration] = None
 
     # ------------------------------------------------------------------
@@ -344,18 +348,28 @@ class IndexArrays:
         return IndexArrays._from_meta(meta, kwargs)
 
     # ------------------------------------------------------------- device
-    def to_device(self, device=None, tile_csub: int = 1) -> "DeviceIndex":
+    def to_device(self, device=None, tile_csub: int = 1,
+                  vocab_residue: int = 0) -> "DeviceIndex":
         """Upload what the search routes read to `device` (None means
         "cuda"; raises when CUDA is absent rather than falling back to the
         CPU). Builds the list-aligned tile layout on the host when the
         index has doc tiles; `tile_csub` subtiles of 128 rows make one
         work item (every list's region padded to a multiple of them), as
-        in the JAX package. Fields the build left out stay `None`."""
+        in the JAX package. `vocab_residue=R` first reorders every list's
+        vocabulary and tile columns into R residue groups for the bucketed
+        projection kernel (upload time only). Fields the build left out
+        stay `None`."""
         import torch
 
-        from .ops.tiles_prep import prepare_pallas_tiles
+        from .ops.tiles_prep import (
+            prepare_pallas_tiles,
+            residue_permute_arrays,
+        )
         from .device import resolve_device
 
+        if vocab_residue and self.vocab_residue == 0:
+            return residue_permute_arrays(self, vocab_residue).to_device(
+                device, tile_csub)
         dev = resolve_device(device)
         if tile_csub < 1:
             raise ValueError(f"tile_csub={tile_csub} must be >= 1")
@@ -419,6 +433,7 @@ class IndexArrays:
             max_block_len=self.max_block_len,
             max_list_len=self.max_list_len,
             tile_csub=tile_csub,
+            vocab_residue=self.vocab_residue,
         )
 
 
@@ -458,6 +473,8 @@ class DeviceIndex:
     max_block_len: int = 0
     max_list_len: int = 0
     tile_csub: int = 1
+    # > 0: vocab16 and the tile columns are residue-R ordered
+    vocab_residue: int = 0
 
     @property
     def device(self):

@@ -15,7 +15,7 @@ from a seed:
   (bench.py:355-360), >= 98% of queries with equal top-k id sets and
   scores < 1e-3 relative;
 - `search_grouped` with a host plan gives the same results with the
-  item-major scorer as with the slot-major one
+  item-major scorer as with the slot-major one, at csub 1 and 2
   (tests/test_grouped.py:418-441)."""
 
 import dataclasses
@@ -221,13 +221,19 @@ def test_item_major_equals_slot_major(setup, pool_mode, unroll):
 
 
 def test_slot_major_refuses_csub2(setup, port_index):
+    """The slot-major scorer (K2) no longer refuses csub 2: it gives the
+    item-major scorer's results there. The weighted list cut still raises,
+    naming its ROADMAP item."""
     _, _, _, ctx, q_comps, q_vals = setup
-    params = dataclasses.replace(_headline(tgrouped.GroupedParams),
-                                 kernel_unroll=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgrouped.search_grouped(port_index, ctx, q_comps, q_vals, params,
-                                query_cut=QC)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = _headline(tgrouped.GroupedParams)
+    s_i, i_i = tgrouped.search_grouped(port_index, ctx, q_comps, q_vals,
+                                       item, query_cut=QC)
+    s_s, i_s = tgrouped.search_grouped(
+        port_index, ctx, q_comps, q_vals,
+        dataclasses.replace(item, kernel_unroll=1), query_cut=QC)
+    np.testing.assert_array_equal(i_s, i_i)
+    np.testing.assert_allclose(s_s, s_i, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2f"):
         tgrouped.plan_caps(q_comps, q_vals, ctx, QC, weighted=True)
 
 

@@ -11,6 +11,7 @@ the rows past a list's length are the caller's to mask and are compared
 only where both versions define them."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -127,11 +128,23 @@ def test_kernel_library_named_by_source_and_flags():
     assert base != _cuda.lib_name("k", b"__global__ void f() {}", ["-O2"])
     assert base != _cuda.lib_name("j", b"__global__ void f() {}", ["-O3"])
     # every kernel of the package has a source, and a path that carries
-    # the hash of that source
+    # the hash of that source and of the csrc headers it includes
     for name in _cuda.KERNELS:
+        hashed = _cuda.source_with_headers(_cuda._src(name))
         with open(_cuda._src(name), "rb") as f:
-            want = _cuda.lib_name(name, f.read(), _cuda.NVCC_FLAGS)
+            assert hashed.startswith(f.read())
+        want = _cuda.lib_name(name, hashed, _cuda.NVCC_FLAGS)
         assert _cuda.lib_path(name).endswith(want)
+    # a shared header enters the name of every library that includes it,
+    # headers of headers too
+    with open(os.path.join(_cuda.CSRC, "pack_epilogue.cuh"), "rb") as f:
+        pack = f.read()
+    with open(os.path.join(_cuda.CSRC, "warp_sum.cuh"), "rb") as f:
+        warp = f.read()
+    for name in ("grouped_scorer", "grouped_scorer_item", "grouped_scorer_f"):
+        hashed = _cuda.source_with_headers(_cuda._src(name))
+        assert pack in hashed and warp in hashed, name
+    assert pack not in _cuda.source_with_headers(_cuda._src("rescore"))
     assert "tiles_scorer" in _cuda.KERNELS
 
 
