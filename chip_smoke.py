@@ -42,7 +42,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    before that index is freed): `SeismicIndexRaw.batch_search` of the
    same 4096 queries with `heap_factor=0.8` (block-pruned tiles mode, the
    API's default block budget), launch counts set to 0 before and read
-   after (K7 once per batch; the other eight never). K7, the per-pair tile
+   after (K7 once per batch; every other kernel never). K7, the per-pair tile
    scorer, must equal its plain version to 1e-5 relative on the rows
    inside each list at the path's own inputs, timed beside its bound;
    on 256 queries the program on the kernel and on the plain scorer must
@@ -71,11 +71,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    their plain versions at these shapes and timed beside their bounds;
    recall@10 floors per mode; one breakdown (idle share, enqueue, syncs)
    of the default configuration.
+7. drive the device probe (`python -m seismic_tpu_torch.harness.
+   device_probe`'s entry point `run`) on the card: every probe at the JAX
+   probe's own sizes, each of K10-K18 held against its plain version and
+   the probe's numpy expectation (gathers bit-exact; compare scores 1e-5
+   of sum_w |vals * qmatch| + 1e-6 a row; products 1e-6 of sum_k |a * b|
+   of an f64 product), timed as the mean of 200 back-to-back calls beside
+   its bound, its plain version and its library call, with its device
+   time per call (calls queued behind a held stream, with L2 warm and
+   flushed); the launch counts set to 0 before and read after (each of
+   K10-K18 exactly once per check, timed and device-timed call, every
+   other kernel never); the launch floor (an empty kernel, timed both
+   ways); then the microbench once (`harness/microbench.py`).
 
-Every one of these windows sets the launch counts of all nine wrappers to 0
-and reads all nine, and fails on a kernel that launched where it should
-not; the kernels' record takes `launches` (the kernel's own main path) and
-`launches_api` / `_engine` / `_headline` / `_modes` from those readings.
+Every one of these windows sets the launch counts of all eighteen wrappers
+to 0 and reads all eighteen, and fails on a kernel that launched where it
+should not; the kernels' record takes `launches` (the kernel's own main
+path) and `launches_api` / `_engine` / `_headline` / `_modes` / `_probe`
+from those readings.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -146,10 +159,14 @@ def bound(nbytes: float, nops: float, op_peak: float):
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-# the nine kernel wrappers' modules, in the order of the `kernels` line
+# the eighteen kernel wrappers, in the order of the `kernels` line: K1-K9
+# each with a module of its own, K10-K18 in `ops/probe_kernels.py`
 COUNTED = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
            "score_tiles", "pack_epilogue", "score_grouped_f", "qloc_rowmajor",
-           "qloc_residue")
+           "qloc_residue", "table_take", "row_gather", "compare_intersect",
+           "u8_matvec", "take_along_axis", "flat_row_gather",
+           "compare_term_loop", "i8_matmul", "tile_matvec")
+PROBE_KERNELS = COUNTED[9:]
 
 
 def _counted_modules() -> dict:
@@ -157,7 +174,7 @@ def _counted_modules() -> dict:
 
     from seismic_tpu_torch import ops
 
-    files = dict(zip(COUNTED, (
+    files = dict(zip(COUNTED[:9], (
         "qloc", "grouped_scorer", "rescore", "grouped_scorer_item",
         "tiles_scorer", "pack_epilogue", "grouped_scorer_f", "qloc_rowmajor",
         "qloc_residue")))
@@ -167,13 +184,20 @@ def _counted_modules() -> dict:
 
 def zero_launches():
     """Set every kernel wrapper's launch count to 0."""
+    from seismic_tpu_torch.ops import probe_kernels
+
     for m in _counted_modules().values():
         m.launches = 0
+    probe_kernels.launches.update(dict.fromkeys(PROBE_KERNELS, 0))
 
 
 def read_launches() -> dict:
     """Every kernel wrapper's launch count since `zero_launches`."""
-    return {n_: m.launches for n_, m in _counted_modules().items()}
+    from seismic_tpu_torch.ops import probe_kernels
+
+    counts = {n_: m.launches for n_, m in _counted_modules().items()}
+    counts.update((n_, probe_kernels.launches[n_]) for n_ in PROBE_KERNELS)
+    return counts
 
 
 def hold_launches(what: str, counts: dict, positive=(), exact=None) -> dict:
@@ -435,7 +459,7 @@ def align_pair_order(host, derived):
 def headline_path(ds, dev, record, kernels) -> dict:
     """Phase 4: the bench headline path through `plan_caps` and
     `search_grouped_derive`; returns K4's record and leaves the path's
-    launch counts of all nine kernels in
+    launch counts of all eighteen kernels in
     `record["launch_windows"]["headline"]`."""
     import torch
 
@@ -829,7 +853,7 @@ F32_VS_I8_FLOOR = 0.98
 def modes_path(env, dev, record, kernels) -> list:
     """Phase 6: the grouped-search modes of K5, K6, K8 and K9 on the
     headline cell's index, one B=4096 / M=8 batch; returns the four new
-    kernels' records and leaves the phase's launch counts of all nine
+    kernels' records and leaves the phase's launch counts of all eighteen
     kernels in `record["launch_windows"]["modes"]`."""
     import dataclasses
 
@@ -1660,6 +1684,59 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
                 bound_as_scheduled_ms=rec7["bound_as_scheduled_ms"])
 
 
+def probe_path(dev, record) -> list:
+    """Phase 7: the device probe's `run` on the card at the JAX probes'
+    own sizes (each of K10-K18 held against its plain version inside its
+    probe), the launch counts of all eighteen wrappers set to 0 before and
+    read after, then the microbench once. Returns K10-K18's records."""
+    import torch
+
+    from seismic_tpu_torch.harness import device_probe, microbench
+
+    t0 = time.time()
+    floor_us, floor_device_us = device_probe.launch_floor_us(dev)
+    zero_launches()
+    records, failures = device_probe.run(dev)
+    counts = read_launches()
+    if failures:
+        fail(f"phase 7: probes failed or missed their checks: {failures}")
+    kernels = [r for r in records if "name" in r]
+    if tuple(r["name"] for r in kernels) != PROBE_KERNELS:
+        fail(f"phase 7: probe kernels {[r['name'] for r in kernels]}")
+    # each of K10-K18: once per check, timed and device-timed call
+    record["launch_windows"]["probe"] = hold_launches(
+        "the device probe", counts,
+        exact={r["name"]: sum(r["calls"].values()) for r in kernels})
+    for r in kernels:
+        r.update(launch_floor_us=floor_us,
+                 launch_floor_device_us=floor_device_us)
+        log(f"phase 7: {r['name']} ({r['probe']}): ok, max_abs_err "
+            f"{r['max_abs_err']:.3g}, {r['ms'] * 1e3:.2f} us a call, device "
+            f"{r['device_ms'] * 1e3:.2f} us, with L2 flushed "
+            f"{r['device_cold_ms'] * 1e3:.2f} us (bound "
+            f"{r['bound_ms'] * 1e3:.3f} "
+            f"us by {r['bound_by']}, plain {r['plain_ms'] * 1e3:.2f} us, "
+            f"library {r['library_ms']} ms, on the card "
+            f"{r['library_device_ms']} / {r['library_device_cold_ms']} ms)")
+    probe_s = time.time() - t0
+    log(f"phase 7: launch floor {floor_us:.2f} us a call, "
+        f"{floor_device_us:.2f} us on the card; probes {probe_s:.1f} s, "
+        f"launches {counts}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    mb = microbench.run(dev)
+    mb_s = time.time() - t0
+    log(f"phase 7: microbench {mb_s:.1f} s, peak device bytes "
+        f"{mb['peak_device_bytes']}")
+    record["probe"] = dict(
+        launch_floor_us=floor_us, launch_floor_device_us=floor_device_us,
+        probe_s=probe_s, microbench=mb, microbench_s=mb_s,
+        plain_probes=[r for r in records if "name" not in r])
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def api_path(ds, dev, record):
     """Phases 2 and 3 on the API's grouped route (K1-K3), then phase 5,
     the engine path, on the same index; returns (the records of K1-K3,
@@ -1912,7 +1989,8 @@ def main():
     except Exception as e:  # noqa: BLE001 - reported, then fail
         fail(f"kernel build: {e}")
     record["kernel_build_s"] = build_s
-    log(f"phase 1: built {len(_cuda.KERNELS)} kernels in {build_s:.2f} s")
+    log(f"phase 1: built {len(_cuda.KERNELS)} kernel libraries "
+        f"({len(COUNTED)} kernels) in {build_s:.2f} s")
     for name, rep in _cuda.ptxas_report.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -1935,13 +2013,20 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     new_kernels, k4 = headline_path(ds, dev, record, kernels)
     kernels += [k4, k7] + new_kernels
+    del ds
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------- phase 7: the device probe and microbench ------------
+    kernels += probe_path(dev, record)
     # every count below was read from a wrapper's counter after a window that
-    # set all nine to 0 first; `launches` is the count on the kernel's own
-    # main path
+    # set all eighteen to 0 first; `launches` is the count on the kernel's
+    # own main path
     windows = record["launch_windows"]
     main_window = dict.fromkeys(COUNTED, "modes")
     main_window.update(qloc="api", score_grouped_i8="api", rescore="api",
                        score_grouped_i8_item="headline", score_tiles="engine")
+    main_window.update(dict.fromkeys(PROBE_KERNELS, "probe"))
     for kr, n_ in zip(kernels, COUNTED, strict=True):
         kr["launches"] = windows[main_window[n_]][n_]
         kr.update({f"launches_{w_}": windows[w_][n_] for w_ in windows})

@@ -1,0 +1,452 @@
+// The device probe's nine kernels (K10-K18 of PERF.md's table), one entry
+// point each, plus two for the timing: an empty kernel (the launch floor)
+// and one that holds the stream while the host queues launches behind it.
+//
+// Replaces the nine pallas_calls of seismic_tpu/harness/device_probe.py:
+//   K10 table_take         vmem_table_take (:86)
+//   K11 row_gather         row_dma_gather (:151)
+//   K12 compare_intersect  compare_intersect_kernel (:188)
+//   K13 u8_matvec          u8_tile_matmul (:230)
+//   K14 take_along_axis    take_along_axis_sublane (:270)
+//   K15 flat_row_gather    flat_row_dma (:338)
+//   K16 compare_term_loop  compare_term_loop (:382)
+//   K17 i8_matmul          int8_cast_matmul (:426)
+//   K18 tile_matvec        pallas_pipelined_blocks (:554)
+// Each computes what its TPU kernel computes (the formulas sit beside each
+// kernel below); none carries a Mosaic block layout over. Indices outside
+// their table read nothing and give 0, in the plain versions too
+// (seismic_tpu_torch/ops/probe_kernels.py): the TPU kernels would fault.
+//
+// Bounds on an H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32 on the CUDA
+// cores): every one of them moves under 50 MB, so K10, K12-K14, K16 have
+// bounds under 1 us, K11 / K15 2.5 us (4096 rows of 1 KB), K17 1.0 us of
+// f32 FMAs, K18 about 14 us of int8 tiles; a launch costs more than most.
+// The designs are the simple right ones: a warp per output row with 16-byte
+// loads where rows are long, tables a block reads many times staged in
+// shared memory, f32 FMAs on the CUDA cores (no wgmma, TMA or cp.async).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// dynamic shared memory a block may opt into on an H100 (227 KB)
+constexpr int kMaxSmem = 232448;
+// dynamic shared memory a block gets without opting in
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxTerms = 1024;  // K12 stages at most this many query terms
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// ---- K10: out[e] = table[idx[e]] from a table staged in shared memory ----
+// The TPU kernel holds the table in VMEM; here each block copies it into
+// dynamic shared memory (122,880 bytes at the probe's 30,720 entries, over
+// the 48 KB default: the launch opts in) and serves its share of the
+// lookups from there.
+constexpr int kTakeThreads = 1024;
+constexpr int kTakePerBlock = 4 * kTakeThreads;
+
+__global__ void __launch_bounds__(kTakeThreads)
+table_take_kernel(const float* __restrict__ table, int n_table,
+                  const int* __restrict__ idx, int n,
+                  float* __restrict__ out) {
+  extern __shared__ float s_table[];
+  for (int i = threadIdx.x; i < n_table; i += blockDim.x) {
+    s_table[i] = table[i];
+  }
+  __syncthreads();
+  const int first = static_cast<int>(blockIdx.x) * kTakePerBlock;
+  const int end = min(n, first + kTakePerBlock);
+  for (int e = first + static_cast<int>(threadIdx.x); e < end;
+       e += blockDim.x) {
+    const int j = idx[e];
+    out[e] = (j >= 0 && j < n_table) ? s_table[j] : 0.0f;
+  }
+}
+
+// ---- K11 / K15: out[r, :] = src[idx[r] * W : idx[r] * W + W] ----
+// K11 reads a [n, W] table (valid rows 0 <= j < n), K15 a flat one of n
+// elements (valid where j * W + W <= n); the addresses are the same. A
+// warp per row, float4 loads (W % 4 == 0, 16-byte aligned base), offsets
+// in 64 bits (the probe's tables hold 256M floats).
+template <bool kFlat>
+__global__ void __launch_bounds__(kThreads)
+row_gather_kernel(const float* __restrict__ src, int64_t n,
+                  const int* __restrict__ idx, int R, int W,
+                  float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const int64_t j = idx[r];
+  const bool valid = kFlat ? (j >= 0 && j * W + W <= n) : (j >= 0 && j < n);
+  float4* o = reinterpret_cast<float4*>(out + static_cast<int64_t>(r) * W);
+  const int W4 = W / 4;
+  if (valid) {
+    const float4* row = reinterpret_cast<const float4*>(src + j * W);
+#pragma unroll 4
+    for (int c = lane; c < W4; c += 32) o[c] = row[c];
+  } else {
+    for (int c = lane; c < W4; c += 32) {
+      o[c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+}
+
+// ---- K12 / K16: compare-intersection scoring ----
+//   out[t] = sum_w vals[t, w] * sum_q qv[q] * [comps[t, w] == qc[q]]
+// A warp per row t. K12 keeps its TPU body's broadcast form: each element
+// meets every term (terms staged in shared memory, broadcast reads). K16
+// keeps its terms-outer loop: each lane holds its kPer elements' partial
+// matches in registers and walks the terms, read as scalars (one address
+// for the whole warp) from device memory. Every match adds: duplicate ids
+// among the terms add their values.
+constexpr int kPer = 8;
+
+template <bool kTermsOuter>
+__global__ void __launch_bounds__(kThreads)
+compare_kernel(const int* __restrict__ comps, const float* __restrict__ vals,
+               const int* __restrict__ qc, const float* __restrict__ qv,
+               int T, int W, int Q, float* __restrict__ out) {
+  __shared__ int s_qc[kTermsOuter ? 1 : kMaxTerms];
+  __shared__ float s_qv[kTermsOuter ? 1 : kMaxTerms];
+  if constexpr (!kTermsOuter) {
+    for (int i = threadIdx.x; i < Q; i += blockDim.x) {
+      s_qc[i] = qc[i];
+      s_qv[i] = qv[i];
+    }
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (t >= T) return;
+  const int* crow = comps + static_cast<int64_t>(t) * W;
+  const float* vrow = vals + static_cast<int64_t>(t) * W;
+  float part = 0.0f;
+  if constexpr (!kTermsOuter) {
+    for (int w = lane; w < W; w += 32) {
+      const int c = crow[w];
+      float m = 0.0f;
+      for (int q = 0; q < Q; ++q) {
+        m += (c == s_qc[q]) ? s_qv[q] : 0.0f;
+      }
+      part = fmaf(vrow[w], m, part);
+    }
+  } else {
+    for (int w0 = 0; w0 < W; w0 += 32 * kPer) {
+      int c[kPer];
+      float v[kPer], m[kPer];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int w = w0 + lane + 32 * k;
+        c[k] = w < W ? crow[w] : 0;
+        v[k] = w < W ? vrow[w] : 0.0f;
+        m[k] = 0.0f;
+      }
+      for (int q = 0; q < Q; ++q) {
+        const int cq = qc[q];
+        const float vq = qv[q];
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          m[k] += (c[k] == cq) ? vq : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        if (w0 + lane + 32 * k < W) part = fmaf(v[k], m[k], part);
+      }
+    }
+  }
+  part = warp_sum(part);
+  if (lane == 0) out[t] = part;
+}
+
+// ---- K13: out[m] = (sum_k f32(tile[m, k]) * q[k]) * scale[m] ----
+// A warp per row; the u8 row is read 4 bytes a lane (K % 4 == 0), cast to
+// f32 in registers, and multiplied with q staged in shared memory.
+__global__ void __launch_bounds__(kThreads)
+u8_matvec_kernel(const uint8_t* __restrict__ tile, const float* __restrict__ q,
+                 const float* __restrict__ scale, int M, int K,
+                 float* __restrict__ out) {
+  extern __shared__ float s_q[];
+  for (int i = threadIdx.x; i < K; i += blockDim.x) s_q[i] = q[i];
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const uchar4* row =
+      reinterpret_cast<const uchar4*>(tile + static_cast<int64_t>(m) * K);
+  const float4* q4 = reinterpret_cast<const float4*>(s_q);
+  float part = 0.0f;
+  for (int c = lane; c < K / 4; c += 32) {
+    const uchar4 x = row[c];
+    const float4 y = q4[c];
+    part = fmaf(static_cast<float>(x.x), y.x, part);
+    part = fmaf(static_cast<float>(x.y), y.y, part);
+    part = fmaf(static_cast<float>(x.z), y.z, part);
+    part = fmaf(static_cast<float>(x.w), y.w, part);
+  }
+  part = warp_sum(part);
+  if (lane == 0) out[m] = part * scale[m];
+}
+
+// ---- K14: out[m, c] = table[idx[m, c], c] ----
+// The table (R x C f32, 128 KB at the probe's sizes) is read many times per
+// column; one thread per output element reads it through the L1 / L2
+// caches, neighbouring threads on neighbouring columns.
+__global__ void __launch_bounds__(kThreads)
+take_along_axis_kernel(const float* __restrict__ table, int R, int C,
+                       const int* __restrict__ idx, int64_t n,
+                       float* __restrict__ out) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= n) return;
+  const int c = static_cast<int>(e % C);
+  const int j = idx[e];
+  out[e] = (j >= 0 && j < R) ? __ldg(table + static_cast<int64_t>(j) * C + c)
+                             : 0.0f;
+}
+
+// ---- K17: out[M, N] = f32(tile[M, K]) @ q[K, N] ----
+// A shared-memory-tiled GEMM on the CUDA cores: 32 x 32 output tiles, a
+// 32-deep K step, each of 256 threads accumulates 2 x 2 outputs with f32
+// FMAs; the int8 tile is cast to f32 as it is staged.
+constexpr int kTM = 32, kTN = 32, kTK = 32;
+
+__global__ void __launch_bounds__(kThreads)
+i8_matmul_kernel(const int8_t* __restrict__ a, const float* __restrict__ b,
+                 int M, int K, int N, float* __restrict__ out) {
+  __shared__ float sa[kTK][kTM + 1];
+  __shared__ float sb[kTK][kTN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
+  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  for (int k0 = 0; k0 < K; k0 += kTK) {
+#pragma unroll
+    for (int i = 0; i < (kTM * kTK) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int mm = e / kTK, kk = e % kTK;
+      const int gm = m0 + mm, gk = k0 + kk;
+      sa[kk][mm] = (gm < M && gk < K)
+                       ? static_cast<float>(a[static_cast<int64_t>(gm) * K + gk])
+                       : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < (kTK * kTN) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int kk = e / kTN, nn = e % kTN;
+      const int gk = k0 + kk, gn = n0 + nn;
+      sb[kk][nn] = (gk < K && gn < N) ? b[static_cast<int64_t>(gk) * N + gn]
+                                      : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kTK; ++kk) {
+      const float a0 = sa[kk][ty * 2], a1 = sa[kk][ty * 2 + 1];
+      const float b0 = sb[kk][tx * 2], b1 = sb[kk][tx * 2 + 1];
+      acc[0][0] = fmaf(a0, b0, acc[0][0]);
+      acc[0][1] = fmaf(a0, b1, acc[0][1]);
+      acc[1][0] = fmaf(a1, b0, acc[1][0]);
+      acc[1][1] = fmaf(a1, b1, acc[1][1]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int gm = m0 + ty * 2 + i, gn = n0 + tx * 2 + j;
+      if (gm < M && gn < N) out[static_cast<int64_t>(gm) * N + gn] = acc[i][j];
+    }
+  }
+}
+
+// ---- K18: out[i, r] = sum_v f32(dense[tidx[i] * MB + r, v]) * qloc[i, v] ----
+// The data-dependent tile stream: one block per tile i finds its tile from
+// tidx (the TPU's scalar-prefetched index map), stages qloc[i] in shared
+// memory, and each warp scores rows of the [MB, V] int8 tile, 4 bytes a
+// lane (V % 4 == 0), coalesced 128-byte rows segments.
+__global__ void __launch_bounds__(kThreads)
+tile_matvec_kernel(const int8_t* __restrict__ dense, int n_tiles,
+                   const int* __restrict__ tidx,
+                   const float* __restrict__ qloc, int MB, int V,
+                   float* __restrict__ out) {
+  extern __shared__ float s_q[];
+  const int i = blockIdx.x;
+  const float* qrow = qloc + static_cast<int64_t>(i) * V;
+  for (int v = threadIdx.x; v < V; v += blockDim.x) s_q[v] = qrow[v];
+  __syncthreads();
+  const int t = tidx[i];
+  const bool valid = t >= 0 && t < n_tiles;
+  const int lane = threadIdx.x & 31;
+  const float4* q4 = reinterpret_cast<const float4*>(s_q);
+  for (int r = threadIdx.x >> 5; r < MB; r += kWarps) {
+    float part = 0.0f;
+    if (valid) {
+      const char4* row = reinterpret_cast<const char4*>(
+          dense + (static_cast<int64_t>(t) * MB + r) * V);
+      for (int c = lane; c < V / 4; c += 32) {
+        const char4 x = row[c];
+        const float4 y = q4[c];
+        part = fmaf(static_cast<float>(x.x), y.x, part);
+        part = fmaf(static_cast<float>(x.y), y.y, part);
+        part = fmaf(static_cast<float>(x.z), y.z, part);
+        part = fmaf(static_cast<float>(x.w), y.w, part);
+      }
+    }
+    part = warp_sum(part);
+    if (lane == 0) out[static_cast<int64_t>(i) * MB + r] = part;
+  }
+}
+
+__global__ void empty_kernel() {}
+
+// Holds the stream for `ns` nanoseconds of the card's global timer, so that
+// the launches the host queues behind it run back to back on the card.
+__global__ void spin_kernel(unsigned long long ns) {
+  unsigned long long t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  do {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  } while (t - t0 < ns);
+}
+
+int blocks_for(int64_t n, int per_block) {
+  return static_cast<int>((n + per_block - 1) / per_block);
+}
+
+// K10 opts into kMaxSmem of dynamic shared memory once per device, at its
+// first launch there that needs more than the default.
+constexpr int kMaxDevices = 64;
+bool g_take_opted_in[kMaxDevices];
+
+cudaError_t opt_in_take(size_t smem) {
+  if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && g_take_opted_in[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(table_take_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxSmem);
+  if (e == cudaSuccess && dev < kMaxDevices) g_take_opted_in[dev] = true;
+  return e;
+}
+
+}  // namespace
+
+// The wrappers (ops/probe_kernels.py) hold the operands to these limits
+// before a launch: K10's table to kMaxSmem / 4 entries, K12's terms to
+// kMaxTerms, K13's K and K18's V to kDefaultSmem / 4.
+extern "C" {
+
+int seismic_probe_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_spin(unsigned long long ns, cudaStream_t stream) {
+  spin_kernel<<<1, 1, 0, stream>>>(ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_table_take(const float* table, int n_table, const int* idx,
+                             int n, float* out, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n_table) * sizeof(float);
+  const cudaError_t e = opt_in_take(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > 0) {
+    table_take_kernel<<<blocks_for(n, kTakePerBlock), kTakeThreads, smem,
+                        stream>>>(table, n_table, idx, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_row_gather(const float* src, int64_t n_rows, const int* idx,
+                             int R, int W, float* out, cudaStream_t stream) {
+  if (R > 0) {
+    row_gather_kernel<false><<<blocks_for(R, kWarps), kThreads, 0, stream>>>(
+        src, n_rows, idx, R, W, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_flat_row_gather(const float* src, int64_t n_elems,
+                                  const int* idx, int R, int W, float* out,
+                                  cudaStream_t stream) {
+  if (R > 0) {
+    row_gather_kernel<true><<<blocks_for(R, kWarps), kThreads, 0, stream>>>(
+        src, n_elems, idx, R, W, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_compare_intersect(const int* comps, const float* vals,
+                                    const int* qc, const float* qv, int T,
+                                    int W, int Q, float* out,
+                                    cudaStream_t stream) {
+  if (T > 0) {
+    compare_kernel<false><<<blocks_for(T, kWarps), kThreads, 0, stream>>>(
+        comps, vals, qc, qv, T, W, Q, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_compare_term_loop(const int* comps, const float* vals,
+                                    const int* qc, const float* qv, int T,
+                                    int W, int Q, float* out,
+                                    cudaStream_t stream) {
+  if (T > 0) {
+    compare_kernel<true><<<blocks_for(T, kWarps), kThreads, 0, stream>>>(
+        comps, vals, qc, qv, T, W, Q, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_u8_matvec(const uint8_t* tile, const float* q,
+                            const float* scale, int M, int K, float* out,
+                            cudaStream_t stream) {
+  if (M > 0) {
+    u8_matvec_kernel<<<blocks_for(M, kWarps), kThreads, K * sizeof(float),
+                       stream>>>(tile, q, scale, M, K, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_take_along_axis(const float* table, int R, int C,
+                                  const int* idx, int64_t n, float* out,
+                                  cudaStream_t stream) {
+  if (n > 0) {
+    take_along_axis_kernel<<<blocks_for(n, kThreads), kThreads, 0, stream>>>(
+        table, R, C, idx, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_i8_matmul(const int8_t* a, const float* b, int M, int K,
+                            int N, float* out, cudaStream_t stream) {
+  if (M > 0 && N > 0) {
+    const dim3 grid(blocks_for(N, kTN), blocks_for(M, kTM));
+    i8_matmul_kernel<<<grid, kThreads, 0, stream>>>(a, b, M, K, N, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_probe_tile_matvec(const int8_t* dense, int n_tiles,
+                              const int* tidx, const float* qloc, int NS,
+                              int MB, int V, float* out, cudaStream_t stream) {
+  if (NS > 0) {
+    tile_matvec_kernel<<<NS, kThreads, V * sizeof(float), stream>>>(
+        dense, n_tiles, tidx, qloc, MB, V, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

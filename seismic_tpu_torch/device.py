@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 
 def resolve_device(device=None):
     """`None` means the card: returns `torch.device("cuda")`, and raises
@@ -16,3 +18,17 @@ def resolve_device(device=None):
             "PyTorch versions of the kernels on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 matrix products in full f32 (TF32 off) inside the block; the
+    setting before it is restored after it."""
+    import torch
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
