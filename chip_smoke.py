@@ -13,9 +13,10 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build the hand-written CUDA kernels from `seismic_tpu_torch/csrc`
    (one nvcc per source, all started together);
 2. hold K1-K3 against their plain PyTorch versions at the API path's
-   shapes (K1 qloc + quantize: bit-exact; K2 grouped i8 scorer: exact
-   int dots, 1e-6 relative; K3 fused rescore: 1e-5 relative), and time
-   each beside its bound, its plain version and one library call;
+   shapes (K1 qloc + quantize, its f32 output and its row-major entry
+   point: bit-exact; K2 grouped i8 scorer: exact int dots, 1e-6 relative;
+   K3 fused rescore: 1e-5 relative), and time each beside its bound, its
+   plain version and one library call;
 3. drive the API path through the user's entry points:
    `SeismicIndexRaw.build_from_csr` on a 100K-doc synthetic SPLADE-like
    collection at dim 30522 with V=1024 local vocabularies, then
@@ -29,9 +30,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    csub 2; 16,384 distinct queries padded to 64 terms. The derived plan
    must equal the C++ host plan on every batch (and both searches agree);
    at B=4096/M=8 and B=16384/M=16, on the path's own inputs, K1 must equal
-   its plain version bit for bit, K4 exactly in its int dots and to 1e-6
-   relative, and K3 (on the pool's candidates) to 1e-5 relative, each
-   timed beside its bound; then QPS at B=4096/M=8 (`plan_caps` +
+   its plain version bit for bit in all three entry points, K4 exactly in
+   its int dots and to 1e-6 relative (timed beside `torch._int_mm`), and K3
+   (on the pool's candidates) to 1e-5 relative, each timed beside its
+   bound; then QPS at B=4096/M=8 (`plan_caps` +
    `search_grouped_derive` per batch, 5 x 4 batches, one synchronise) and
    at B=16384/M=16 (5 calls), with the launch counts set to 0 before and
    read after (K1, K4, K3 > 0, the other six 0); p50 of a synchronised B=4096
@@ -49,7 +51,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    agree (id sets on >= 98% of queries, scores to 1e-5 relative); one
    batch with `doc_mode="rescore"` through `search_batch` launches K3 and
    every score must be the exact dot (1e-5 relative, against a brute-force
-   product of the index's own forward rows on the card); recall@10 at the
+   product of the index's own forward rows on the card), and K3 on one of
+   its chunks is timed beside its bound there; recall@10 at the
    default budget and at `block_budget=512`; QPS over 5 warm batches, p50,
    and a breakdown with idle share, GC time, enqueue time and the host
    synchronisations of the device program.
@@ -232,56 +235,69 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def check_k1(a1, tag: str, reps: int = 20):
-    """Hold K1 (qloc + quantize) bit-exact against its plain version on
-    a1 = (vocab16, pair_list, top_c, top_v, QC) and time both beside its
-    bound; returns (record, K1's int8 projections)."""
+    """Hold K1's three entry points bit-exact against their plain versions
+    on a1 = (vocab16, pair_list, top_c, top_v, QC): the quantize, the f32
+    output, and the row-major form (K8's entry point) on the pairs' own
+    rows, which must also give the quantize's codes; time the quantize and
+    the f32 output beside the bounds. Returns (record, K1's int8
+    projections)."""
     import torch
 
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT
-    from seismic_tpu_torch.ops import qloc
+    from seismic_tpu_torch.ops import qloc, qloc_rowmajor
 
-    vocab16, pair_list, top_c, _, QC = a1
+    vocab16, pair_list, top_c, top_v, QC = a1
     k_i8, k_sc = qloc.project_qloc_quantize(*a1)
     p_i8, p_sc = qloc.project_qloc_quantize_plain(*a1)
     if not (torch.equal(k_i8, p_i8) and torch.equal(k_sc, p_sc)):
         fail(f"K1 ({tag}) disagrees: {(k_i8 != p_i8).sum().item()} i8 and "
              f"{(k_sc != p_sc).sum().item()} scale mismatches")
+    del p_i8, p_sc
+    if not torch.equal(qloc.project_qloc_f32(*a1),
+                       qloc.project_qloc_plain(*a1)):
+        fail(f"K1's f32 output ({tag}) disagrees with its plain version")
+    a8 = (vocab16[pair_list.long()], top_c.repeat_interleave(QC, dim=0),
+          top_v.repeat_interleave(QC, dim=0))
+    r_i8, r_sc = qloc_rowmajor.project_qloc_rowmajor(*a8)
+    rp_i8, rp_sc = qloc_rowmajor.project_qloc_rowmajor_plain(*a8)
+    if not (torch.equal(r_i8, rp_i8) and torch.equal(r_sc, rp_sc)
+            and torch.equal(r_i8, k_i8) and torch.equal(r_sc, k_sc)):
+        fail(f"K1's row-major entry point ({tag}) disagrees with its plain "
+             "version or with the quantize's codes")
+    del a8, r_i8, r_sc, rp_i8, rp_sc
     P, V = pair_list.numel(), vocab16.shape[1]
     n_terms = (top_c != int(PAD_COMPONENT)).sum(1)  # [B] real terms
+    # bytes: each distinct vocab row once, the pair list, the terms, the
+    # int8 output and the scales; operations: one lookup a slot (the
+    # former design's compare of every slot with every term beside it)
     nbytes = (torch.unique(pair_list).numel() * V * 2 + P * 4
               + top_c.numel() * 8 + P * V + P * 4)
-    nops = 2.0 * V * QC * float(n_terms.sum().item())
-    b, bb = bound(nbytes, nops, PEAK_F32)
+    b, bb = bound(nbytes, float(P * V), PEAK_F32)
+    compare_ops = 2.0 * V * QC * float(n_terms.sum().item())
     rec = dict(
-        max_abs_err=float((k_i8.int() - p_i8.int()).abs().max().item()),
+        max_abs_err=0.0,
         ms=time_ms(lambda: qloc.project_qloc_quantize(*a1), reps),
         plain_ms=time_ms(lambda: qloc.project_qloc_quantize_plain(*a1), 3),
-        bound_ms=b, bound_by=bb, library_ms=None, P=P, V=V)
-    del p_i8, p_sc
+        bound_ms=b, bound_by=bb, library_ms=None,
+        compare_bound_ms=compare_ops / PEAK_F32 * 1e3,
+        f32_output_ms=time_ms(lambda: qloc.project_qloc_f32(*a1), reps),
+        P=P, V=V, bytes=nbytes)
     return rec, k_i8
 
 
-def check_k3(a3, tag: str, reps: int = 20) -> dict:
-    """Hold K3 (fused rescore) against its plain version at 1e-5 relative
-    on a3 = (fwd_fused, ids, qc, qv, n_docs) and time both beside its
-    bound."""
+def k3_bound(a3):
+    """(bound_ms, bound_by) of K3 on a3 = (fwd_fused, ids, qc, qv, n_docs):
+    the bytes the function must move, each distinct row's real entries
+    (4-byte id + 4-byte value, each run rounded up to 32-byte sectors), the
+    ids, the query terms and the output, against its f32 operations."""
     import torch
 
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT
-    from seismic_tpu_torch.ops import rescore
 
     fwd_fused, ids, qc = a3[:3]
-    k3 = rescore.score_docs_rowmajor(*a3)
-    p3 = rescore.score_docs_rowmajor_plain(*a3)
-    rel = ((k3 - p3).abs() / p3.abs().clamp_min(1e-30)).max().item()
-    if not rel <= 1e-5:
-        fail(f"K3 ({tag}) disagrees: max relative error {rel}")
     W2 = fwd_fused.shape[1]
     safe = ids.long().clamp(0, fwd_fused.shape[0] - 1)
     n_terms = (qc != int(PAD_COMPONENT)).sum(1)  # [B] real terms
-    # bytes the function must move: each distinct row's real entries (4-byte
-    # id + 4-byte value, each run rounded up to 32-byte sectors), the ids,
-    # the query terms and the output
     uniq_nnz = (fwd_fused[torch.unique(safe), : W2 // 2]
                 != int(PAD_COMPONENT)).sum(-1)
     nbytes = (2 * int(((uniq_nnz * 4 + 31) // 32 * 32).sum().item())
@@ -289,7 +305,22 @@ def check_k3(a3, tag: str, reps: int = 20) -> dict:
     row_nnz = (fwd_fused[safe, : W2 // 2]
                != int(PAD_COMPONENT)).sum(-1)  # [B, R]
     nops = float((row_nnz * (2 * n_terms[:, None] + 2)).sum().item())
-    b, bb = bound(nbytes, nops, PEAK_F32)
+    return bound(nbytes, nops, PEAK_F32)
+
+
+def check_k3(a3, tag: str, reps: int = 20) -> dict:
+    """Hold K3 (fused rescore) against its plain version at 1e-5 relative
+    on a3 = (fwd_fused, ids, qc, qv, n_docs) and time both beside its
+    bound."""
+    from seismic_tpu_torch.ops import rescore
+
+    ids = a3[1]
+    k3 = rescore.score_docs_rowmajor(*a3)
+    p3 = rescore.score_docs_rowmajor_plain(*a3)
+    rel = ((k3 - p3).abs() / p3.abs().clamp_min(1e-30)).max().item()
+    if not rel <= 1e-5:
+        fail(f"K3 ({tag}) disagrees: max relative error {rel}")
+    b, bb = k3_bound(a3)
     return dict(
         max_abs_err=float((k3 - p3).abs().max().item()), max_rel_err=rel,
         ms=time_ms(lambda: rescore.score_docs_rowmajor(*a3), reps),
@@ -319,7 +350,7 @@ def breakdown(index, qcomps, qvals, dev) -> dict:
     from seismic_tpu_torch.api import DEFAULT_QUERY_PAD, route_params
     from seismic_tpu_torch.data.sparse import pad_queries
     from seismic_tpu_torch.search.grouped import DevicePlan, _grouped_impl
-    from seismic_tpu_torch.search.planner import plan_grouped_numpy
+    from seismic_tpu_torch.search.planner import plan_grouped
 
     dindex = index.device_index()
     params = route_params(K)
@@ -327,8 +358,7 @@ def breakdown(index, qcomps, qvals, dev) -> dict:
     t = [time.perf_counter()]
     q_comps, q_vals = pad_queries(qcomps, qvals, DEFAULT_QUERY_PAD)
     t.append(time.perf_counter())
-    plan = plan_grouped_numpy(q_comps, q_vals, index._grouped_ctx(),
-                              QUERY_CUT)
+    plan = plan_grouped(q_comps, q_vals, index._grouped_ctx(), QUERY_CUT)
     t.append(time.perf_counter())
     args = (dindex, DevicePlan.put(plan, dev),
             torch.from_numpy(q_comps).to(dev),
@@ -1062,8 +1092,10 @@ def modes_path(env, dev, record, kernels) -> list:
     if not (torch.equal(r_i8, q8_pairs) and torch.equal(r_sc, sc8)):
         fail("K8's codes or scales differ from K1's on the same pairs")
     n_terms = (a1[2] != int(PAD_COMPONENT)).sum(1)
-    ops8 = 2.0 * V0 * QC * float(n_terms.sum().item())
-    b8, bb8 = bound(P * V0 * 2 + P * sc * 8 + P * V0 + P * 4, ops8, PEAK_F32)
+    # a lookup a slot (the former compare count beside it)
+    b8, bb8 = bound(P * V0 * 2 + P * sc * 8 + P * V0 + P * 4, float(P * V0),
+                    PEAK_F32)
+    compare8 = 2.0 * V0 * QC * float(n_terms.sum().item())
     rec8 = dict(
         name="qloc_rowmajor", route="cuda",
         source="seismic_tpu_torch/csrc/qloc.cu",
@@ -1072,6 +1104,7 @@ def modes_path(env, dev, record, kernels) -> list:
         plain_ms=time_ms(
             lambda: qloc_rowmajor.project_qloc_rowmajor_plain(*a8), 3),
         bound_ms=b8, bound_by=bb8,
+        compare_bound_ms=compare8 / PEAK_F32 * 1e3,
         # no one PyTorch call compares a slot with a list of terms and
         # quantizes the sum
         library_ms=None,
@@ -1573,16 +1606,24 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     err3 = (k3e - p3e).abs()
     rel3 = (err3 / p3e.abs().clamp_min(1e-30))[p3e != 0].max().item()
     zero3 = err3[p3e == 0].max().item() if (p3e == 0).any() else 0.0
+    b3e, bb3e = k3_bound(a3e)
     at_engine = dict(
         shape=list(a3e[1].shape), terms=a3e[2].shape[1],
         chunks_per_batch=len(k3_calls),
         nonzero_scores=int((p3e != 0).sum().item()),
         max_abs_err=float(err3.max().item()), max_rel_err=rel3,
-        ms=time_ms(lambda: kernel_k3(*a3e), 10))
+        ms=time_ms(lambda: kernel_k3(*a3e), 10),
+        plain_ms=time_ms(lambda: [rescore.score_docs_rowmajor_plain(
+            a3e[0], a3e[1][r0:r0 + 512], a3e[2][r0:r0 + 512],
+            a3e[3][r0:r0 + 512], a3e[4])
+            for r0 in range(0, a3e[1].shape[0], 512)], 2),
+        bound_ms=b3e, bound_by=bb3e, library_ms=None,
+        launches=rcounts["rescore"])
     log(f"phase 5: K3 on the rescore batch's own {at_engine['shape']} "
         f"candidate chunk ({len(k3_calls)} per batch): max rel err "
         f"{rel3:.3g} on {at_engine['nonzero_scores']} nonzero scores, "
-        f"{at_engine['ms']:.4f} ms")
+        f"{at_engine['ms']:.4f} ms (bound {b3e:.4f} ms by {bb3e}, plain "
+        f"{at_engine['plain_ms']:.3f} ms in 512-row slices)")
     if not (rel3 <= 1e-5 and zero3 <= 1e-30):
         fail(f"K3 disagrees with its plain version at the engine's shapes: "
              f"max relative error {rel3}, {zero3} where the plain score is 0")
@@ -1753,7 +1794,7 @@ def api_path(ds, dev, record):
     from seismic_tpu_torch.ops import grouped_scorer
     from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
     from seismic_tpu_torch.search.grouped import DevicePlan, _top_k
-    from seismic_tpu_torch.search.planner import plan_grouped_numpy
+    from seismic_tpu_torch.search.planner import plan_grouped
 
     cfg = Configuration(
         pruning=GlobalThresholdPruning(n_postings=200, max_fraction=2.0),
@@ -1777,8 +1818,7 @@ def api_path(ds, dev, record):
 
     # ---------------- phase 2: kernels against plain versions -------------
     arrays = index.arrays
-    plan = plan_grouped_numpy(q_comps, q_vals, index._grouped_ctx(),
-                              QUERY_CUT)
+    plan = plan_grouped(q_comps, q_vals, index._grouped_ctx(), QUERY_CUT)
     dplan = DevicePlan.put(plan, dev)
     B, QC = plan.pair_slot.shape
     P = B * QC
@@ -1991,10 +2031,14 @@ def main():
     record["kernel_build_s"] = build_s
     log(f"phase 1: built {len(_cuda.KERNELS)} kernel libraries "
         f"({len(COUNTED)} kernels) in {build_s:.2f} s")
+    # each kernel's registers, static shared memory and spills, under the
+    # (mangled) name of its template instance
     for name, rep in _cuda.ptxas_report.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                log(f"  ptxas {name}: {line.split(chr(39))[1][:100]}")
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name}:   {line.strip()}")
 
     # ---------------- set-up of the main paths (host build) ----------------
     t0 = time.time()

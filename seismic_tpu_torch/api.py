@@ -203,11 +203,13 @@ class SeismicIndexRaw:
             and n_knn == 0
         ):
             from .search.grouped import DevicePlan, _grouped_impl
-            from .search.planner import plan_grouped_numpy
+            from .search.planner import plan_grouped
 
             dev = index.device
-            plan = plan_grouped_numpy(q_comps, q_vals, self._grouped_ctx(),
-                                      query_cut)
+            # the C++ planner, as the reference's route; raises when its
+            # library cannot be built
+            plan = plan_grouped(q_comps, q_vals, self._grouped_ctx(),
+                                query_cut, native=True)
             scores, ids = _grouped_impl(
                 index,
                 DevicePlan.put(plan, dev),

@@ -17,9 +17,11 @@
 // Output blocks that no work item covers are left as they are (the caller
 // masks them by list length, as on the TPU).
 //
-// Design: one 256-thread block per work item runs score_item_i8
-// (grouped_i8_tile.cuh: queries in registers, tile rows streamed once,
-// __dp4a) into a [M, ROWS] f32 block in shared memory and stores it with
+// Design: one 256-thread block per work item runs score_item_mma
+// (grouped_i8_mma.cuh: each warp streams its rows in 64-byte k-slices
+// through a cp.async ring and multiplies them on the int8 tensor cores,
+// mma.sync m16n8k32 u8 x s8, against the group's queries staged in shared
+// memory) into a [M, ROWS] f32 block in shared memory and stores it with
 // 16-byte stores, or through store_packed.
 //
 // Bound on an H100: the tile bytes (ROWS*V per distinct super-tile, read
@@ -29,7 +31,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "grouped_i8_tile.cuh"
+#include "grouped_i8_mma.cuh"
 #include "pack_epilogue.cuh"
 
 namespace {
@@ -38,8 +40,8 @@ constexpr int kSub = 128;  // rows per subtile
 
 // kPack: the packed epilogue, a compile-time choice so that the plain
 // store's kernel carries none of its code
-template <int kM, int kRows, int NC, bool kPack>
-__global__ void __launch_bounds__(kI8Threads)
+template <int kM, int kRows, int V, bool kPack>
+__global__ void __launch_bounds__(kMmaThreads, 2)
 score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
                         const float* __restrict__ tile_scale,  // [rows]
                         const int8_t* __restrict__ q,          // [G_cap, kM, V]
@@ -48,15 +50,15 @@ score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
                         const int* __restrict__ work_s,
                         int ll_max, int idx_mask, int pack_window,
                         void* __restrict__ out) {
-  constexpr int V = NC * kI8Chunk;
-  __shared__ __align__(16) float s_out[kM * kRows];
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* s_out = reinterpret_cast<float*>(smem);
 
   const int w = blockIdx.x;
   const int g = work_g[w];
   const int s = work_s[w];
-  score_item_i8<kM, kRows, NC>(
+  score_item_mma<kM, kRows, V>(
       tiles, tile_scale, q + static_cast<int64_t>(g) * kM * V,
-      static_cast<int64_t>(work_region[w]) * kRows, s_out);
+      static_cast<int64_t>(work_region[w]) * kRows, smem, s_out);
 
   if constexpr (kPack) {  // packed int32 [G_cap, kM, ll_max / pack_window]
     const int64_t stride = ll_max / pack_window;
@@ -64,14 +66,47 @@ score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
         s_out,
         static_cast<int*>(out) + static_cast<int64_t>(g) * kM * stride +
             static_cast<int64_t>(s) * (kRows / pack_window),
-        stride, s * kRows, idx_mask, pack_window, threadIdx.x, kI8Threads);
+        stride, s * kRows, idx_mask, pack_window, threadIdx.x, kMmaThreads);
   } else {  // f32 [G_cap, kM, ll_max]
     store_scores<kM, kRows>(
         s_out,
         static_cast<float*>(out) + static_cast<int64_t>(g) * kM * ll_max +
             static_cast<int64_t>(s) * kRows,
-        ll_max, threadIdx.x, kI8Threads);
+        ll_max, threadIdx.x, kMmaThreads);
   }
+}
+
+template <int kM, int kRows, int V, bool kPack>
+int launch_one(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
+               const int* work_region, const int* work_g, const int* work_s,
+               int W_cap, int ll_max, int idx_mask, int pack_window,
+               void* out, cudaStream_t stream) {
+  static bool opted_in[kMaxDevices];
+  constexpr int smem = mma_item_smem<kM, kRows, V>();
+  const cudaError_t e = opt_in_smem(
+      score_grouped_i8_kernel<kM, kRows, V, kPack>, smem, opted_in);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  score_grouped_i8_kernel<kM, kRows, V, kPack>
+      <<<W_cap, kMmaThreads, smem, stream>>>(tiles, tile_scale, q,
+                                             work_region, work_g, work_s,
+                                             ll_max, idx_mask, pack_window,
+                                             out);
+  return 0;
+}
+
+template <int kM, int kRows, int V>
+int launch_v(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
+             const int* work_region, const int* work_g, const int* work_s,
+             int W_cap, int ll_max, int idx_mask, int pack_window, void* out,
+             cudaStream_t stream) {
+  if (pack_window > 0) {
+    return launch_one<kM, kRows, V, true>(tiles, tile_scale, q, work_region,
+                                          work_g, work_s, W_cap, ll_max,
+                                          idx_mask, pack_window, out, stream);
+  }
+  return launch_one<kM, kRows, V, false>(tiles, tile_scale, q, work_region,
+                                         work_g, work_s, W_cap, ll_max,
+                                         idx_mask, pack_window, out, stream);
 }
 
 template <int kM, int kRows>
@@ -79,26 +114,17 @@ int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
            const int* work_region, const int* work_g, const int* work_s,
            int W_cap, int V, int ll_max, int idx_mask, int pack_window,
            void* out, cudaStream_t stream) {
-#define SEISMIC_LAUNCH(NC)                                                 \
-  if (pack_window > 0) {                                                   \
-    score_grouped_i8_kernel<kM, kRows, NC, true><<<W_cap, kI8Threads, 0,   \
-                                                   stream>>>(              \
-        tiles, tile_scale, q, work_region, work_g, work_s, ll_max,         \
-        idx_mask, pack_window, out);                                       \
-  } else {                                                                 \
-    score_grouped_i8_kernel<kM, kRows, NC, false><<<W_cap, kI8Threads, 0,  \
-                                                    stream>>>(             \
-        tiles, tile_scale, q, work_region, work_g, work_s, ll_max,         \
-        idx_mask, pack_window, out);                                       \
-  }                                                                        \
-  return 0
+#define SEISMIC_LAUNCH(VV)                                                 \
+  return launch_v<kM, kRows, VV>(tiles, tile_scale, q, work_region,        \
+                                 work_g, work_s, W_cap, ll_max, idx_mask,  \
+                                 pack_window, out, stream)
   switch (V) {
-    case 256: SEISMIC_LAUNCH(1);
-    case 512: SEISMIC_LAUNCH(2);
-    case 1024: SEISMIC_LAUNCH(4);
+    case 256: SEISMIC_LAUNCH(256);
+    case 512: SEISMIC_LAUNCH(512);
+    case 1024: SEISMIC_LAUNCH(1024);
     case 2048:
       if constexpr (kM == 8) {
-        SEISMIC_LAUNCH(8);
+        SEISMIC_LAUNCH(2048);
       }
       return static_cast<int>(cudaErrorInvalidValue);
     default:

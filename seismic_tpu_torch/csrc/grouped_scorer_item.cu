@@ -25,32 +25,37 @@
 // hardware, so one block per item is the whole design, and U only survives
 // as the caller's W_cap % U == 0 contract.
 //
-// Design: one 256-thread block per work item runs score_item_i8
-// (grouped_i8_tile.cuh: the group's M query rows in registers, 64 of them
-// at M=16, V=512; tile rows streamed once; __dp4a; a transposing butterfly
-// of M - 1 shuffles plus log2(32/M) plain ones). The [M, ROWS] f32 block
-// (16 KB at M=16, csub=2) is staged in shared memory and written with
-// 16-byte stores, or through store_packed.
+// Bound on an H100: the tile bytes (ROWS * V per distinct super-tile, read
+// once; 128 KB an item at csub 2, V 512) over the 3.35 TB/s memory rate,
+// plus the f32 output. The 2 * M * ROWS * V int8 operations of an item are
+// what the int8 tensor cores are for: at the headline plan they take 0.1 ms
+// at 1,979 TOP/s, where the former __dp4a form needed at least 1.67 ms of
+// CUDA-core issue, above the byte bound.
 //
-// Bound on an H100: the tile bytes (ROWS*V per distinct super-tile, read
-// once) over the 3.35 TB/s memory rate; the 2*M*ROWS*V int8 operations per
-// item are far below the tensor-core rate. The design streams each tile
-// once per item and keeps the queries in registers.
+// Design: one 256-thread block per work item runs score_item_mma
+// (grouped_i8_mma.cuh): each warp streams its 16 or 32 rows in 64-byte
+// k-slices through a 4-stage cp.async ring (bank-conflict-free 64-byte
+// pitch) and multiplies them on the tensor cores (mma.sync m16n8k32, u8 x
+// s8 -> s32) against the group's queries, staged once in shared memory;
+// three blocks fit on an SM at csub 2, V 512, so one block's epilogue
+// overlaps the others' loads. The [M, ROWS] f32 block is staged in the
+// freed rings and written with 16-byte stores, or through store_packed
+// (K5, a compile-time variant).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "grouped_i8_tile.cuh"
+#include "grouped_i8_mma.cuh"
 #include "pack_epilogue.cuh"
 
 namespace {
 
 constexpr int kSub = 128;  // rows per subtile
 
-// NC = V / 256 chunks per row; kPack: the packed epilogue, a compile-time
-// choice so that the plain store's kernel carries none of its code
-template <int kM, int kRows, int NC, bool kPack>
-__global__ void __launch_bounds__(kI8Threads)
+// kPack: the packed epilogue, a compile-time choice so that the plain
+// store's kernel carries none of its code
+template <int kM, int kRows, int V, bool kPack>
+__global__ void __launch_bounds__(kMmaThreads, 2)
 score_item_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                   const float* __restrict__ tile_scale,  // [rows]
                   const int8_t* __restrict__ q,          // [G_cap, kM, V]
@@ -59,27 +64,57 @@ score_item_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                   const int* __restrict__ work_s,        // [W_cap] or null
                   int idx_mask, int pack_window,
                   void* __restrict__ out) {
-  constexpr int V = NC * kI8Chunk;
-  __shared__ __align__(16) float s_out[kM * kRows];
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* s_out = reinterpret_cast<float*>(smem);
 
   const int w = blockIdx.x;
   const int col0 = kPack ? work_s[w] * kRows : 0;  // read before the dots
-  score_item_i8<kM, kRows, NC>(
+  score_item_mma<kM, kRows, V>(
       tiles, tile_scale, q + static_cast<int64_t>(work_g[w]) * kM * V,
-      static_cast<int64_t>(work_region[w]) * kRows, s_out);
+      static_cast<int64_t>(work_region[w]) * kRows, smem, s_out);
 
   // the item's block is contiguous in the output
   if constexpr (kPack) {  // packed int32 [W_cap, kM, kRows / pack_window]
     const int step = kRows / pack_window;
     store_packed<kM, kRows>(
         s_out, static_cast<int*>(out) + static_cast<int64_t>(w) * kM * step,
-        step, col0, idx_mask, pack_window, threadIdx.x,
-        kI8Threads);
+        step, col0, idx_mask, pack_window, threadIdx.x, kMmaThreads);
   } else {  // f32 [W_cap, kM, kRows]
     store_scores<kM, kRows>(
         s_out, static_cast<float*>(out) + static_cast<int64_t>(w) * kM * kRows,
-        kRows, threadIdx.x, kI8Threads);
+        kRows, threadIdx.x, kMmaThreads);
   }
+}
+
+template <int kM, int kRows, int V, bool kPack>
+int launch_one(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
+               const int* work_region, const int* work_g, const int* work_s,
+               int W_cap, int idx_mask, int pack_window, void* out,
+               cudaStream_t stream) {
+  static bool opted_in[kMaxDevices];
+  constexpr int smem = mma_item_smem<kM, kRows, V>();
+  const cudaError_t e = opt_in_smem(score_item_kernel<kM, kRows, V, kPack>,
+                                    smem, opted_in);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  score_item_kernel<kM, kRows, V, kPack><<<W_cap, kMmaThreads, smem, stream>>>(
+      tiles, tile_scale, q, work_region, work_g, work_s, idx_mask,
+      pack_window, out);
+  return 0;
+}
+
+template <int kM, int kRows, int V>
+int launch_v(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
+             const int* work_region, const int* work_g, const int* work_s,
+             int W_cap, int idx_mask, int pack_window, void* out,
+             cudaStream_t stream) {
+  if (pack_window > 0) {
+    return launch_one<kM, kRows, V, true>(tiles, tile_scale, q, work_region,
+                                          work_g, work_s, W_cap, idx_mask,
+                                          pack_window, out, stream);
+  }
+  return launch_one<kM, kRows, V, false>(tiles, tile_scale, q, work_region,
+                                         work_g, work_s, W_cap, idx_mask,
+                                         pack_window, out, stream);
 }
 
 template <int kM, int kRows>
@@ -87,27 +122,22 @@ int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
            const int* work_region, const int* work_g, const int* work_s,
            int W_cap, int V, int idx_mask, int pack_window, void* out,
            cudaStream_t stream) {
-#define SEISMIC_LAUNCH(NC)                                                 \
-  if (pack_window > 0) {                                                   \
-    score_item_kernel<kM, kRows, NC, true><<<W_cap, kI8Threads, 0,         \
-                                             stream>>>(                    \
-        tiles, tile_scale, q, work_region, work_g, work_s, idx_mask,       \
-        pack_window, out);                                                 \
-  } else {                                                                 \
-    score_item_kernel<kM, kRows, NC, false><<<W_cap, kI8Threads, 0,        \
-                                              stream>>>(                   \
-        tiles, tile_scale, q, work_region, work_g, work_s, idx_mask,       \
-        pack_window, out);                                                 \
-  }                                                                        \
-  return 0
   switch (V) {
-    case 256: SEISMIC_LAUNCH(1);
-    case 512: SEISMIC_LAUNCH(2);
-    case 1024: SEISMIC_LAUNCH(4);
+    case 256:
+      return launch_v<kM, kRows, 256>(tiles, tile_scale, q, work_region,
+                                      work_g, work_s, W_cap, idx_mask,
+                                      pack_window, out, stream);
+    case 512:
+      return launch_v<kM, kRows, 512>(tiles, tile_scale, q, work_region,
+                                      work_g, work_s, W_cap, idx_mask,
+                                      pack_window, out, stream);
+    case 1024:
+      return launch_v<kM, kRows, 1024>(tiles, tile_scale, q, work_region,
+                                       work_g, work_s, W_cap, idx_mask,
+                                       pack_window, out, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef SEISMIC_LAUNCH
 }
 
 }  // namespace

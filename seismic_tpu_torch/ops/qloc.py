@@ -105,8 +105,7 @@ def _check_cuda(vocab, pair_list, qc, qv):
     req(all(t.is_contiguous() for t in (vocab, pair_list, qc, qv)),
         "operands must be contiguous")
     lib = _lib()
-    req(vocab.shape[1] <= lib.seismic_qloc_max_v(),
-        f"V={vocab.shape[1]} exceeds the kernel's cap")
+    req(vocab.shape[1] % 8 == 0, f"V={vocab.shape[1]} is not a multiple of 8")
     req(qc.shape[1] <= lib.seismic_qloc_max_terms(),
         f"{qc.shape[1]} terms exceed the cap")
     return lib

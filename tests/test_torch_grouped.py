@@ -101,6 +101,37 @@ def test_api_batch_search_matches_jax(setup, jax_result):
     assert {d for _, d in one} == {d for _, d in res[3]}
 
 
+def test_api_route_plans_with_cpp_planner(setup, jax_result, monkeypatch):
+    """The route plans as the reference's does (seismic_tpu/api.py:397):
+    `plan_grouped` with the C++ planner, never the NumPy one; its results
+    equal JAX's `search_grouped`, which plans with the C++ planner too."""
+    from seismic_tpu_torch.search import planner
+
+    calls = []
+    cpp = planner.plan_grouped
+
+    def recording(*a, **kw):
+        calls.append(kw.get("native"))
+        return cpp(*a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("the API route planned with NumPy")
+
+    monkeypatch.setattr(planner, "plan_grouped", recording)
+    monkeypatch.setattr(planner, "plan_grouped_numpy", refuse)
+    _, _, ta, qc, qv = setup
+    res = SeismicIndexRaw(ta).batch_search(qc, qv, k=K, query_cut=QC,
+                                           heap_factor=0.0, device="cpu")
+    assert calls == [True]
+    s_t, i_t = _as_arrays(res, K)
+    s_j, i_j = jax_result
+    fin = np.isfinite(s_j)
+    assert (np.isfinite(s_t) == fin).all()
+    for a, b in zip(i_t, np.where(fin, i_j, -1)):
+        assert set(a[a >= 0].tolist()) == set(b[b >= 0].tolist())
+    np.testing.assert_allclose(np.sort(s_t, 1), np.sort(s_j, 1), rtol=1e-5)
+
+
 def test_search_grouped_matches_jax(setup, jax_result):
     """The module-level entry (plan on host, run on the index's device)."""
     _, _, ta, qc, qv = setup

@@ -12,6 +12,7 @@ only where both versions define them."""
 
 import dataclasses
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -135,17 +136,29 @@ def test_kernel_library_named_by_source_and_flags():
             assert hashed.startswith(f.read())
         want = _cuda.lib_name(name, hashed, _cuda.NVCC_FLAGS)
         assert _cuda.lib_path(name).endswith(want)
-    # a shared header enters the name of every library that includes it,
-    # headers of headers too
-    with open(os.path.join(_cuda.CSRC, "pack_epilogue.cuh"), "rb") as f:
-        pack = f.read()
-    with open(os.path.join(_cuda.CSRC, "warp_sum.cuh"), "rb") as f:
-        warp = f.read()
+    # a shared header enters the name of every library that includes it
+    def header(name):
+        with open(os.path.join(_cuda.CSRC, name), "rb") as f:
+            return f.read()
+
+    pack, mma, warp = (header(h) for h in (
+        "pack_epilogue.cuh", "grouped_i8_mma.cuh", "warp_sum.cuh"))
     for name in ("grouped_scorer", "grouped_scorer_item", "grouped_scorer_f"):
         hashed = _cuda.source_with_headers(_cuda._src(name))
-        assert pack in hashed and warp in hashed, name
+        assert pack in hashed, name
+        assert (mma in hashed) == (name != "grouped_scorer_f"), name
+        assert (warp in hashed) == (name == "grouped_scorer_f"), name
     assert pack not in _cuda.source_with_headers(_cuda._src("rescore"))
     assert "tiles_scorer" in _cuda.KERNELS
+    # headers of headers too, each once
+    with tempfile.TemporaryDirectory() as d:
+        for fname, text in (("k.cu", b'#include "a.cuh"\n#include "b.cuh"\n'),
+                            ("a.cuh", b'#include "b.cuh"\nint a;\n'),
+                            ("b.cuh", b"int b;\n")):
+            with open(os.path.join(d, fname), "wb") as f:
+                f.write(text)
+        hashed = _cuda.source_with_headers(os.path.join(d, "k.cu"))
+        assert hashed.count(b"int a;") == 1 and hashed.count(b"int b;") == 1
 
 
 @pytest.mark.cuda
