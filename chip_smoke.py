@@ -44,9 +44,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    before that index is freed): `SeismicIndexRaw.batch_search` of the
    same 4096 queries with `heap_factor=0.8` (block-pruned tiles mode, the
    API's default block budget), launch counts set to 0 before and read
-   after (K7 once per batch; every other kernel never). K7, the per-pair tile
-   scorer, must equal its plain version to 1e-5 relative on the rows
-   inside each list at the path's own inputs, timed beside its bound;
+   after (K7 once per batch; every other kernel never). K7, the tile
+   scorer (pairs grouped by list), must equal its plain version to 1e-5
+   relative on the rows inside each list at the path's own inputs, timed
+   beside its bounds, with its groups and their subtile reads;
    on 256 queries the program on the kernel and on the plain scorer must
    agree (id sets on >= 98% of queries, scores to 1e-5 relative); one
    batch with `doc_mode="rescore"` through `search_batch` launches K3 and
@@ -55,7 +56,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    its chunks is timed beside its bound there; recall@10 at the
    default budget and at `block_budget=512`; QPS over 5 warm batches, p50,
    and a breakdown with idle share, GC time, enqueue time and the host
-   synchronisations of the device program.
+   synchronisations of the device program (more than one fails).
 
 6. drive the remaining grouped-search modes on phase 4's index (it runs
    inside phase 4, before that index is freed) with B=4096, M=8,
@@ -285,11 +286,15 @@ def check_k1(a1, tag: str, reps: int = 20):
     return rec, k_i8
 
 
-def k3_bound(a3):
-    """(bound_ms, bound_by) of K3 on a3 = (fwd_fused, ids, qc, qv, n_docs):
-    the bytes the function must move, each distinct row's real entries
-    (4-byte id + 4-byte value, each run rounded up to 32-byte sectors), the
-    ids, the query terms and the output, against its f32 operations."""
+def k3_bounds(a3) -> dict:
+    """K3's bounds on a3 = (fwd_fused, ids, qc, qv, n_docs). `bound_ms`:
+    the bytes the function must move (each distinct row's real entries,
+    4-byte id + 4-byte value, each run rounded up to 32-byte sectors; the
+    ids, the query terms and the output) against one lookup and one
+    multiply-add a real entry of every candidate row at the f32 rate;
+    `compare_bound_ms`: the former design's compare of every real entry
+    with every query term; `bound_as_scheduled_ms`: the bytes with every
+    candidate row's real entries read once (no reuse across the L2)."""
     import torch
 
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT
@@ -298,20 +303,29 @@ def k3_bound(a3):
     W2 = fwd_fused.shape[1]
     safe = ids.long().clamp(0, fwd_fused.shape[0] - 1)
     n_terms = (qc != int(PAD_COMPONENT)).sum(1)  # [B] real terms
+
+    def sector_bytes(nnz):  # ids and values, each in 32-byte sectors
+        return 2 * int(((nnz * 4 + 31) // 32 * 32).sum().item())
+
     uniq_nnz = (fwd_fused[torch.unique(safe), : W2 // 2]
                 != int(PAD_COMPONENT)).sum(-1)
-    nbytes = (2 * int(((uniq_nnz * 4 + 31) // 32 * 32).sum().item())
-              + ids.numel() * 4 + qc.numel() * 8 + ids.numel() * 4)
     row_nnz = (fwd_fused[safe, : W2 // 2]
                != int(PAD_COMPONENT)).sum(-1)  # [B, R]
-    nops = float((row_nnz * (2 * n_terms[:, None] + 2)).sum().item())
-    return bound(nbytes, nops, PEAK_F32)
+    other = ids.numel() * 4 + qc.numel() * 8 + ids.numel() * 4
+    nbytes = sector_bytes(uniq_nnz) + other
+    sched = sector_bytes(row_nnz) + other
+    b, bb = bound(nbytes, 2.0 * float(row_nnz.sum().item()), PEAK_F32)
+    compare_ops = float((row_nnz * (2 * n_terms[:, None] + 2)).sum().item())
+    return dict(bound_ms=b, bound_by=bb,
+                compare_bound_ms=compare_ops / PEAK_F32 * 1e3,
+                bound_as_scheduled_ms=sched / PEAK_BYTES * 1e3,
+                bytes=nbytes, bytes_as_scheduled=sched)
 
 
 def check_k3(a3, tag: str, reps: int = 20) -> dict:
     """Hold K3 (fused rescore) against its plain version at 1e-5 relative
     on a3 = (fwd_fused, ids, qc, qv, n_docs) and time both beside its
-    bound."""
+    bounds."""
     from seismic_tpu_torch.ops import rescore
 
     ids = a3[1]
@@ -320,13 +334,11 @@ def check_k3(a3, tag: str, reps: int = 20) -> dict:
     rel = ((k3 - p3).abs() / p3.abs().clamp_min(1e-30)).max().item()
     if not rel <= 1e-5:
         fail(f"K3 ({tag}) disagrees: max relative error {rel}")
-    b, bb = k3_bound(a3)
     return dict(
         max_abs_err=float((k3 - p3).abs().max().item()), max_rel_err=rel,
         ms=time_ms(lambda: rescore.score_docs_rowmajor(*a3), reps),
         plain_ms=time_ms(lambda: rescore.score_docs_rowmajor_plain(*a3), 3),
-        bound_ms=b, bound_by=bb, library_ms=None, B=ids.shape[0],
-        R=ids.shape[1])
+        library_ms=None, B=ids.shape[0], R=ids.shape[1], **k3_bounds(a3))
 
 
 def card_line() -> str:
@@ -631,9 +643,12 @@ def headline_path(ds, dev, record, kernels) -> dict:
         at_headline[1][tag] = rec3
         for name, r in (("K1 qloc_quantize", at_headline[0][tag]),
                         ("K3 rescore_fused", rec3)):
+            sched = ("" if "bound_as_scheduled_ms" not in r else
+                     f", {r['bound_as_scheduled_ms']:.4f} as scheduled")
             log(f"phase 4: {name} ({tag}): ok, max_abs_err "
                 f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (bound "
-                f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}{sched}, compare "
+                f"count {r['compare_bound_ms']:.4f}; plain "
                 f"{r['plain_ms']:.3f} ms)")
 
     k4 = {}
@@ -1388,7 +1403,9 @@ ENGINE_RESCORE_RECALL_FLOOR = 0.828
 
 def count_syncs(fn) -> int:
     """Host synchronisations PyTorch reports while `fn` runs (its sync
-    debug mode, a prototype that may miss some)."""
+    debug mode, a prototype that may miss some). The mode's own notice
+    that it is a prototype, given the first time it is switched on,
+    counts as none."""
     import warnings
 
     import torch
@@ -1402,7 +1419,8 @@ def count_syncs(fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message)
+               and "prototype" not in str(w.message) for w in caught)
 
 
 def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
@@ -1469,9 +1487,23 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     by7 = n_distinct * SUB * (V + 4) + per_pair
     ops7 = 2.0 * n_subtiles * SUB * V
     b7, bb7 = bound(by7, ops7, PEAK_F32)
-    # what the kernel's schedule moves: every pair streams its own copy of
-    # its list's subtiles (pairs that share a list meet in L2 at best)
-    by7s = n_subtiles * SUB * (V + 4) + per_pair
+    # what the kernel's schedule moves: the wrapper's grouping (pairs of
+    # one list, at most GROUP_PAIRS a group) reads each group's subtiles up
+    # to its span once; the former schedule streamed every pair's own copy
+    groups = tiles_scorer.group_pairs_by_region(
+        a7[2], tiles_scorer.GROUP_PAIRS)
+    n_groups = int(groups.count.item())
+    g_sizes = groups.first[1:n_groups + 1] - groups.first[:n_groups]
+    # a group reads its subtiles up to its largest pair_len
+    g_span = torch.zeros(n_groups, dtype=torch.int32, device=dev)
+    g_span.scatter_reduce_(
+        0, torch.repeat_interleave(torch.arange(n_groups, device=dev),
+                                   g_sizes), pl[groups.order], "amax")
+    g_reads = int(((g_span + SUB - 1) // SUB).clamp(max=LL // SUB)
+                  .sum().item())
+    del groups, g_span
+    by7s = g_reads * SUB * (V + 4) + per_pair
+    by7p = n_subtiles * SUB * (V + 4) + per_pair
     rec7 = dict(
         name="score_tiles", route="cuda",
         source="seismic_tpu_torch/csrc/tiles_scorer.cu",
@@ -1484,18 +1516,29 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
         # by f32: the plain version's gather + bmm is the closest
         library_ms=None,
         all_rows_ms=time_ms(lambda: tiles_scorer.score_tiles(*a7_all), 20),
+        # the wrapper's grouping alone (torch operations launched from the
+        # host before the kernel)
+        grouping_ms=time_ms(lambda: tiles_scorer.group_pairs_by_region(
+            a7[2], tiles_scorer.GROUP_PAIRS), 20),
         bound_as_scheduled_ms=by7s / PEAK_BYTES * 1e3,
+        bound_per_pair_schedule_ms=by7p / PEAK_BYTES * 1e3,
+        groups=n_groups, group_pairs=tiles_scorer.GROUP_PAIRS,
+        pairs_per_group_hist=torch.bincount(g_sizes).tolist(),
+        subtile_reads=g_reads, all_rows_subtile_reads=n_groups * (LL // SUB),
         P=P, V=V, ll_pad=LL, subtiles=n_subtiles,
         distinct_subtiles=n_distinct, bytes=by7, bytes_as_scheduled=by7s,
-        ops=ops7)
+        bytes_per_pair_schedule=by7p, ops=ops7)
     log(f"phase 5: K7 score_tiles: ok, max rel err {rel7:.3g} inside the "
-        f"lists, {rec7['ms']:.4f} ms ({rec7['all_rows_ms']:.4f} ms with all "
+        f"lists, {rec7['ms']:.4f} ms (its grouping alone "
+        f"{rec7['grouping_ms']:.4f} ms; {rec7['all_rows_ms']:.4f} ms with all "
         f"{LL} rows of every pair scored; bound {b7:.4f} ms by {bb7} with "
         f"each distinct subtile read once, "
-        f"{rec7['bound_as_scheduled_ms']:.4f} ms for the bytes its "
-        f"per-pair schedule streams; plain {rec7['plain_ms']:.3f} ms; no "
-        f"library call); P {P}, subtiles {n_subtiles}, distinct "
-        f"{n_distinct}")
+        f"{rec7['bound_as_scheduled_ms']:.4f} ms for the subtile reads of "
+        f"its {n_groups} groups, "
+        f"{rec7['bound_per_pair_schedule_ms']:.4f} ms for a per-pair "
+        f"schedule; plain {rec7['plain_ms']:.3f} ms; no library call); P "
+        f"{P}, subtiles {n_subtiles}, distinct {n_distinct}, read "
+        f"{g_reads}; pairs a group {rec7['pairs_per_group_hist']}")
     del k7, p7, err, inside, sub_ids, live, ql, a7, a7_all
     torch.cuda.empty_cache()
 
@@ -1606,7 +1649,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     err3 = (k3e - p3e).abs()
     rel3 = (err3 / p3e.abs().clamp_min(1e-30))[p3e != 0].max().item()
     zero3 = err3[p3e == 0].max().item() if (p3e == 0).any() else 0.0
-    b3e, bb3e = k3_bound(a3e)
+    b3 = k3_bounds(a3e)
     at_engine = dict(
         shape=list(a3e[1].shape), terms=a3e[2].shape[1],
         chunks_per_batch=len(k3_calls),
@@ -1617,12 +1660,13 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
             a3e[0], a3e[1][r0:r0 + 512], a3e[2][r0:r0 + 512],
             a3e[3][r0:r0 + 512], a3e[4])
             for r0 in range(0, a3e[1].shape[0], 512)], 2),
-        bound_ms=b3e, bound_by=bb3e, library_ms=None,
-        launches=rcounts["rescore"])
+        library_ms=None, launches=rcounts["rescore"], **b3)
     log(f"phase 5: K3 on the rescore batch's own {at_engine['shape']} "
         f"candidate chunk ({len(k3_calls)} per batch): max rel err "
         f"{rel3:.3g} on {at_engine['nonzero_scores']} nonzero scores, "
-        f"{at_engine['ms']:.4f} ms (bound {b3e:.4f} ms by {bb3e}, plain "
+        f"{at_engine['ms']:.4f} ms (bound {b3['bound_ms']:.4f} ms by "
+        f"{b3['bound_by']}, {b3['bound_as_scheduled_ms']:.4f} as scheduled, "
+        f"compare count {b3['compare_bound_ms']:.4f}; plain "
         f"{at_engine['plain_ms']:.3f} ms in 512-row slices)")
     if not (rel3 <= 1e-5 and zero3 <= 1e-30):
         fail(f"K3 disagrees with its plain version at the engine's shapes: "
@@ -1699,6 +1743,9 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     brk.update(gc_ms=gc_ms() - g0, device_program=prog)
     prog_fn = lambda: engine._search_impl(dindex, qct2, qvt2, hf32, params)
     brk["host_syncs_in_device_program"] = count_syncs(prog_fn)
+    if brk["host_syncs_in_device_program"] > 1:
+        fail(f"the engine program made {brk['host_syncs_in_device_program']}"
+             " host synchronisations, more than one")
     try:
         busy, kern = profile_device(prog_fn)
         brk.update(device_busy_ms=busy, kernels_ms=kern,
@@ -1722,7 +1769,10 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     return dict({k_: rec7[k_] for k_ in keys},
                 max_rel_err=rel7, all_rows_ms=rec7["all_rows_ms"],
-                bound_as_scheduled_ms=rec7["bound_as_scheduled_ms"])
+                bound_as_scheduled_ms=rec7["bound_as_scheduled_ms"],
+                grouping_ms=rec7["grouping_ms"], groups=n_groups,
+                subtile_reads=g_reads,
+                pairs_per_group_hist=rec7["pairs_per_group_hist"])
 
 
 def probe_path(dev, record) -> list:

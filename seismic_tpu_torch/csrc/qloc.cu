@@ -31,7 +31,8 @@
 // consecutive pairs (one warp for QC = 1, the row-major entry point). Warp
 // 0 stages the row's real terms in shared memory by ballot compaction
 // (qloc_common.cuh); every distinct term id then enters a 512-slot
-// open-addressed hash table in shared memory (8-byte entries of an int32
+// open-addressed hash table in shared memory (term_table.cuh, which the
+// fused rescore, rescore.cu, shares; 8-byte entries of an int32
 // key, PAD the empty key, which no staged term and no int16 code equals,
 // and the f32 sum of the id's values in term order), one atomicCAS a
 // term; only a row with a repeated id takes a second pass, in which the
@@ -47,17 +48,12 @@
 #include <cuda_runtime.h>
 
 #include "qloc_common.cuh"
+#include "term_table.cuh"
 
 namespace {
 
-constexpr int kHashSlots = 512;  // >= 2 * kQlocMaxTerms: load factor <= 1/2
-constexpr int kHashEmpty = kQlocPad;
 constexpr int kMaxWarps = kQlocThreads / 32;
 constexpr int kHeld = 4;  // chunks of 8 codes whose values a lane keeps
-
-__device__ __forceinline__ int hash_slot(int c) {
-  return static_cast<int>((static_cast<unsigned>(c) * 2654435761u) >> 23);
-}
 
 // The values of the 8 int16 codes of a 16-byte chunk: each code's term's
 // summed value, or 0.0f when no term has it. A table entry is (key, value
@@ -74,13 +70,13 @@ __device__ __forceinline__ void lookup8(const int2* s_tab, int4 chunk,
     // code j: the low (j even) or high half of word j / 2, sign-extended
     c[j] = (j & 1) ? (w[j >> 1] >> 16)
                    : static_cast<int>(static_cast<int16_t>(w[j >> 1]));
-    h[j] = hash_slot(c[j]);
+    h[j] = term_slot(c[j]);
     e[j] = s_tab[h[j]];
   }
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    while (e[j].x != c[j] && e[j].x != kHashEmpty) {
-      h[j] = (h[j] + 1) & (kHashSlots - 1);
+    while (e[j].x != c[j] && e[j].x != kTermEmpty) {
+      h[j] = term_next(h[j]);
       e[j] = s_tab[h[j]];
     }
     x[j] = e[j].x == c[j] ? __int_as_float(e[j].y) : 0.0f;
@@ -123,56 +119,16 @@ qloc_kernel(const int16_t* __restrict__ vocab,  // [n_lists, V] or [P, V]
             float* __restrict__ out_f32) {      // [P, V], or null: quantize
   __shared__ int s_qc[kQlocMaxTerms];
   __shared__ float s_qv[kQlocMaxTerms];
-  __shared__ int2 s_tab[kHashSlots];  // (term id, f32 value bits)
+  __shared__ int2 s_tab[kTermSlots];  // (term id, f32 value bits)
   __shared__ int s_n;
   __shared__ int s_dup;  // some id repeats in the row
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int i = tid; i < kHashSlots; i += blockDim.x) {
-    s_tab[i] = make_int2(kHashEmpty, 0);
-  }
-  if (tid == 0) s_dup = 0;
+  term_table_clear(s_tab, &s_dup);
   stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
   __syncthreads();
-  const int n = s_n;
-  // every term enters the table with 0.0f + its value (the compare loop's
-  // sum of one match); a term whose id is there already flags a repeat
-  for (int i = tid; i < n; i += blockDim.x) {
-    const int c = s_qc[i];
-    int h = hash_slot(c);
-    while (true) {
-      const int prev = atomicCAS(&s_tab[h].x, kHashEmpty, c);
-      if (prev == kHashEmpty) {
-        s_tab[h].y = __float_as_int(__fadd_rn(0.0f, s_qv[i]));
-        break;
-      }
-      if (prev == c) {
-        s_dup = 1;
-        break;
-      }
-      h = (h + 1) & (kHashSlots - 1);
-    }
-  }
-  __syncthreads();
-  if (s_dup) {
-    // a repeated id: the first of its terms writes the f32 sum of their
-    // values in term order
-    for (int i = tid; i < n; i += blockDim.x) {
-      const int c = s_qc[i];
-      bool first = true;
-      for (int j = 0; j < i && first; ++j) first = s_qc[j] != c;
-      if (!first) continue;
-      float sum = 0.0f;
-      for (int j = i; j < n; ++j) {
-        if (s_qc[j] == c) sum += s_qv[j];
-      }
-      int h = hash_slot(c);
-      while (s_tab[h].x != c) h = (h + 1) & (kHashSlots - 1);
-      s_tab[h].y = __float_as_int(sum);
-    }
-    __syncthreads();
-  }
+  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);
 
   // a warp per pair; lane l holds the values of chunks l + 32 i (i <
   // kHeld) of 8 codes in registers from the lookup to the store, and looks

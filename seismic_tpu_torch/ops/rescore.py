@@ -9,8 +9,9 @@ doc d = clamp(doc_ids[b, r], 0, n_docs - 1):
 
     score[b, r] = sum_w val[d, w] * sum_i qv[b, i] * [comp[d, w] == qc[b, i]]
 
-`score_docs_rowmajor` launches the kernel for CUDA tensors and uses the
-plain PyTorch version, `score_docs_rowmajor_plain`, for CPU ones.
+`score_docs_rowmajor` launches the kernel, a lookup of each entry in a
+shared-memory hash table of the query's terms, for CUDA tensors and uses
+the plain PyTorch version, `score_docs_rowmajor_plain`, for CPU ones.
 """
 
 from __future__ import annotations
@@ -65,8 +66,10 @@ def _lib():
 
 
 def score_docs_rowmajor(fwd_fused, doc_ids, qc, qv, n_docs: int):
-    """fwd_fused int32 [n_docs, 2W]; doc_ids int32 [B, R]; qc int32 / qv
-    f32 [B, SC] (PAD_COMPONENT / 0 padded). Returns exact f32 [B, R]."""
+    """fwd_fused int32 [n_docs, 2W], each row's padding at its end (as
+    the index builds it: the kernel stops reading a row at its first
+    PAD id); doc_ids int32 [B, R]; qc int32 / qv f32 [B, SC]
+    (PAD_COMPONENT / 0 padded). Returns exact f32 [B, R]."""
     global launches
     req = _cuda.require
     req(fwd_fused.dim() == 2 and fwd_fused.dtype == torch.int32

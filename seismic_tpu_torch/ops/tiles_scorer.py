@@ -13,13 +13,17 @@ pair_len[p] rows, and 0 for the subtiles past them, which are not read
 (the TPU kernel streams all `ll_pad` rows of every pair; its caller masks
 the rows past the length, as this one's does). It reads the port's flat
 `[rows]` scale and takes any number of pairs (the TPU kernel's
-`[*, 8, 128]` scale blocks and its 8-pair groups were Mosaic rules). `score_tiles` launches the kernel for CUDA tensors and uses the
-plain PyTorch version, `score_tiles_plain`, for CPU tensors.
+`[*, 8, 128]` scale blocks and its 8-pair groups were Mosaic rules).
+`score_tiles` launches the kernel for CUDA tensors and uses the plain
+PyTorch version, `score_tiles_plain`, for CPU tensors. On the card it
+first groups the pairs by list (`group_pairs_by_region`), so that the
+kernel reads and converts each subtile once for all the pairs of a group.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +35,44 @@ launches = 0
 _handle = None
 # u8 tile elements the plain version gathers at once (its f32 copy is 4x)
 _PLAIN_ELEMS = 1 << 28
+# pairs a group holds at most (the kernel's kM): the engine cell's 57,344
+# pairs fall on 17,717 lists, 3.2 a list, half of the lists with one pair;
+# 16 cuts the long runs (list 0 holds every unselected slot) into fewer
+# groups than 8 does (18,702 against 20,329) and so fewer subtile reads
+GROUP_PAIRS = 16
+
+
+class PairGroups(NamedTuple):
+    """Pairs grouped by list: group g (g < count[0]) holds the pairs
+    `order[first[g]:first[g + 1]]`, at most M, all with the region start
+    `region[first[g]]`, in their input order; `first` is P from
+    `first[count[0]]` on."""
+
+    order: torch.Tensor   # int64 [P], the pairs stably sorted by region
+    region: torch.Tensor  # int32 [P], their region starts in that order
+    first: torch.Tensor   # int64 [P + 1]
+    count: torch.Tensor   # int64 [1]
+
+
+def group_pairs_by_region(region_start, M: int = GROUP_PAIRS):
+    """Group the pairs of `region_start` int32 [P] (P > 0) into runs of at
+    most M pairs of one list, on the tensors' device and without a host
+    synchronisation: a stable sort by region_start, cut at every change of
+    region and every M pairs of a run. A group spans the subtiles up to
+    the largest pair_len of its pairs, and each pair keeps its own (the
+    kernel reads both from pair_len). Few operations, since on the card
+    each is a launch from the host."""
+    P = region_start.numel()
+    rs, order = torch.sort(region_start, stable=True)
+    idx = torch.arange(P, device=rs.device)
+    # a group starts where a pair's place in its run is a multiple of M
+    starts = (idx - torch.searchsorted(rs, rs)) % M == 0
+    rank = torch.cumsum(starts, 0)  # 1 + the pair's group
+    # every group's first place lands at its number; the rest at P + 1
+    first = torch.full((P + 2,), P, dtype=torch.int64,
+                       device=rs.device).index_put_(
+        (torch.where(starts, rank - 1, P + 1),), idx)
+    return PairGroups(order, rs, first[:P + 1], rank[-1:])
 
 
 def score_tiles_plain(tiles, tile_scale, region_start, qloc, pair_len,
@@ -58,9 +100,11 @@ def _lib():
     if _handle is None:
         lib = _cuda.load("tiles_scorer")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.seismic_score_tiles.argtypes = [p, p, p, p, p, i, i, i, p, p]
+        lib.seismic_score_tiles.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                            i, p, p]
         lib.seismic_score_tiles.restype = ctypes.c_int
         lib.seismic_score_tiles_max_v.restype = ctypes.c_int
+        lib.seismic_score_tiles_group_pairs.restype = ctypes.c_int
         _handle = lib
     return _handle
 
@@ -108,11 +152,16 @@ def score_tiles(tiles, tile_scale, region_start, qloc, pair_len,
     P, V = qloc.shape
     req(V % 16 == 0 and V <= lib.seismic_score_tiles_max_v(),
         f"V={V} must be a multiple of 16 up to the kernel's cap")
-    out = torch.empty((P, ll_pad), dtype=torch.float32, device=dev)
+    out = torch.zeros((P, ll_pad), dtype=torch.float32, device=dev)
+    if P == 0:
+        return out
+    g = group_pairs_by_region(region_start,
+                              lib.seismic_score_tiles_group_pairs())
+    next_group = torch.zeros(1, dtype=torch.int32, device=dev)
     p = _cuda.ptr
     rc = lib.seismic_score_tiles(
-        p(tiles), p(tile_scale), p(region_start), p(pair_len), p(qloc), P,
-        V, ll_pad // SUB, p(out),
+        p(tiles), p(tile_scale), p(qloc), p(pair_len), *(p(t) for t in g),
+        p(next_group), P, V, ll_pad // SUB, p(out),
         ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "score_tiles")
     launches += 1
