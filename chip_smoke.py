@@ -70,7 +70,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    `pool_mode="window"` on bf16 (K6 + K5) with rescore 64, every score the
    exact dot; `qloc_mode="rowmajor"` (K8 once, K1 never, results equal to
    the lane-major run's); a second upload with `vocab_residue=8` (K9 once,
-   K1 never, recall@10 within 0.03 of the unpermuted run). K5 inside K2,
+   K1 never, recall@10 within 0.03 of the unpermuted run). K6's route per
+   mode is read from the SASS of its kernels (`cuobjdump -sass`: the run
+   fails if the bf16 kernel holds no bf16 HMMA), with their ptxas lines,
+   and its f32 mode's bound follows that route. K5 inside K2,
    K4 and K6, K6 (bf16 / f32, centred / fixup), K8 and K9 are held against
    their plain versions at these shapes and timed beside their bounds;
    recall@10 floors per mode; one breakdown (idle share, enqueue, syncs)
@@ -103,6 +106,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -161,6 +165,53 @@ def bound(nbytes: float, nops: float, op_peak: float):
     """(bound_ms, bound_by): the larger of the bytes and the ops times."""
     tb, to = nbytes / PEAK_BYTES, nops / op_peak
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def ptxas_of(lib: str, needle: str) -> dict:
+    """{kernel instance: its `-Xptxas -v` lines (spills, registers, shared
+    memory)} of the entry functions of kernel library `lib` whose mangled
+    names hold `needle`, from phase 1's build."""
+    from seismic_tpu_torch.ops import _cuda
+
+    out, fn = {}, None
+    for line in _cuda.ptxas_report.get(lib, "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            fn = fn if needle in fn else None
+            if fn:
+                out[fn] = []
+        elif fn and ("registers" in line or "spill" in line):
+            out[fn].append(line.split(":", 1)[-1].strip())
+    return out
+
+
+# one SASS instruction line of `cuobjdump -sass`: its opcode, after an
+# optional predicate
+SASS_OP = re.compile(
+    r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_of(lib: str):
+    """{kernel function: {opcode: static count}} of kernel library `lib`
+    as phase 1 built it, from `cuobjdump -sass`; None where the toolkit
+    has no cuobjdump."""
+    from seismic_tpu_torch.ops import _cuda
+
+    exe = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", _cuda.lib_path(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, ops = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            ops = out.setdefault(line.split("Function : ")[1].strip(), {})
+            continue
+        m = SASS_OP.match(line)
+        if m and ops is not None:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return out
 
 
 # the eighteen kernel wrappers, in the order of the `kernels` line: K1-K9
@@ -970,12 +1021,48 @@ def modes_path(env, dev, record, kernels) -> list:
         """The slot-major output blocks the W real items wrote."""
         return out.view(G_cap, M, LLMAX // ROWS, step)[wgl, :, wsl, :]
 
+    # ---- K6's route per mode: the SASS of its kernels at these shapes ----
+    sass6 = sass_of("grouped_scorer_f")
+    routes6, mix6 = {}, None
+    for dt, terms in (("bf16", 1), ("f32", 3)):
+        if sass6 is None:
+            routes6[dt] = dict(route="tensor cores", hmma_bf16=None,
+                               sass="not read (no cuobjdump)")
+            continue
+        key = f"score_grouped_f_kernelILi{M}ELi{ROWS}ELi{terms}ELb0E"
+        ops = [o for f_, o in sass6.items() if key in f_]
+        if len(ops) != 1:
+            fail(f"K6's SASS has {len(ops)} kernels named {key}")
+        n_hmma = sum(c for o, c in ops[0].items()
+                     if o.startswith("HMMA") and "BF16" in o)
+        routes6[dt] = dict(
+            route="tensor cores" if n_hmma else "cuda cores",
+            hmma_bf16=n_hmma)
+        if dt == "bf16":
+            mix6 = dict(sorted(ops[0].items(), key=lambda kv: -kv[1])[:16])
+    if routes6["bf16"]["route"] != "tensor cores":
+        fail(f"K6's bf16 kernel has no bf16 HMMA in its SASS: {routes6}")
+    ptx6 = ptxas_of("grouped_scorer_f", "score_grouped_f_kernel")
+    for dt, terms in (("bf16", 1), ("f32", 3)):
+        key = f"score_grouped_f_kernelILi{M}ELi{ROWS}ELi{terms}ELb0E"
+        routes6[dt]["ptxas"] = [ln for f_, lns in ptx6.items() if key in f_
+                                for ln in lns]
+        log(f"phase 6: K6 {dt} (M {M}, {ROWS} rows, unpacked) runs on the "
+            f"{routes6[dt]['route']} ({routes6[dt]['hmma_bf16']} bf16 HMMA "
+            f"in its SASS); ptxas: {'; '.join(routes6[dt]['ptxas'])}")
+    log(f"phase 6: K6 bf16 kernel's static instruction mix: {mix6}")
+
     # ---- K6 against its plain version: bf16 / f32, centred / fixup ----
     mag = (qsum[wgl][:, :, None]
            * tscale[wr[:W].long()[:, None] * ROWS
                     + torch.arange(ROWS, device=dev)][:, None, :])
     k6 = {}
     for dt in ("bf16", "f32"):
+        # the bound follows the route: on the tensor cores f32 mode does
+        # three bf16 products (its split), on the CUDA cores one f32 one
+        on_tc = routes6[dt]["route"] == "tensor cores"
+        n_prod = 3 if (dt == "f32" and on_tc) else 1
+        peak6 = PEAK_BF16 if on_tc else PEAK_F32
         for qs in (qsum, None):
             a6 = (tiles, tscale, qf, qs, wr, wg, ws, LLMAX, CSUB, dt)
             k = covered(grouped_scorer_f.score_grouped_f(*a6), ROWS)
@@ -991,10 +1078,10 @@ def modes_path(env, dev, record, kernels) -> list:
             by6 = (tile_bytes + G * M * V0 * 4 + (G * M * 4 if qs is not None
                                                   else 0)
                    + W * 12 + W * M * ROWS * 4)
-            ops6 = 2.0 * W * M * ROWS * V0
-            b6, bb6 = bound(by6, ops6, PEAK_BF16 if dt == "bf16"
-                            else PEAK_F32)
+            ops6 = 2.0 * W * M * ROWS * V0 * n_prod
+            b6, bb6 = bound(by6, ops6, peak6)
             k6[tag] = dict(
+                route=routes6[dt]["route"],
                 max_abs_err=float(err.max().item()),
                 max_err_over_tol=float((err / tol.clamp_min(1e-30)).max()
                                        .item()),
@@ -1003,10 +1090,11 @@ def modes_path(env, dev, record, kernels) -> list:
                     lambda: grouped_scorer_f.score_grouped_f_plain(*a6), 2),
                 bound_ms=b6, bound_by=bb6, bytes=by6, ops=ops6)
             r6 = k6[tag]
-            log(f"phase 6: K6 score_grouped_f ({tag}): ok, max abs err "
-                f"{r6['max_abs_err']:.3g} ({r6['max_err_over_tol']:.3g} of "
-                f"its tolerance), {r6['ms']:.4f} ms (bound {b6:.4f} ms by "
-                f"{bb6}, plain {r6['plain_ms']:.3f} ms)")
+            log(f"phase 6: K6 score_grouped_f ({tag}, {r6['route']}): ok, "
+                f"max abs err {r6['max_abs_err']:.3g} "
+                f"({r6['max_err_over_tol']:.3g} of its tolerance), "
+                f"{r6['ms']:.4f} ms (bound {b6:.4f} ms by {bb6}, plain "
+                f"{r6['plain_ms']:.3f} ms)")
             del k, p, err, tol
     # library yardstick: one bf16 tensor-core product with the same
     # operation count over the same gathered tile rows (one [V, M] query
@@ -1385,7 +1473,8 @@ def modes_path(env, dev, record, kernels) -> list:
         replaces="seismic_tpu/ops/pallas_grouped.py:32",
         max_abs_err=main6["max_abs_err"], ms=main6["ms"],
         plain_ms=main6["plain_ms"], bound_ms=main6["bound_ms"],
-        bound_by=main6["bound_by"], library_ms=lib6, cases=k6)
+        bound_by=main6["bound_by"], library_ms=lib6, cases=k6,
+        routes=routes6, sass_mix_bf16=mix6, bytes_converted=W * ROWS * V0)
     return [rec5, rec6, rec8, rec9]
 
 
@@ -1798,6 +1887,9 @@ def probe_path(dev, record) -> list:
     record["launch_windows"]["probe"] = hold_launches(
         "the device probe", counts,
         exact={r["name"]: sum(r["calls"].values()) for r in kernels})
+    k10 = kernels[PROBE_KERNELS.index("table_take")]
+    k10["ptxas"] = ptxas_of("device_probe", "table_take")
+    log(f"phase 7: K10 table_take ptxas: {k10['ptxas']}")
     for r in kernels:
         r.update(launch_floor_us=floor_us,
                  launch_floor_device_us=floor_device_us)
@@ -2079,6 +2171,7 @@ def main():
     except Exception as e:  # noqa: BLE001 - reported, then fail
         fail(f"kernel build: {e}")
     record["kernel_build_s"] = build_s
+    record["ptxas"] = {name: ptxas_of(name, "") for name in _cuda.KERNELS}
     log(f"phase 1: built {len(_cuda.KERNELS)} kernel libraries "
         f"({len(COUNTED)} kernels) in {build_s:.2f} s")
     # each kernel's registers, static shared memory and spills, under the

@@ -22,8 +22,9 @@
 // bounds under 1 us, K11 / K15 2.5 us (4096 rows of 1 KB), K17 1.0 us of
 // f32 FMAs, K18 about 14 us of int8 tiles; a launch costs more than most.
 // The designs are the simple right ones: a warp per output row with 16-byte
-// loads where rows are long, tables a block reads many times staged in
-// shared memory, f32 FMAs on the CUDA cores (no wgmma, TMA or cp.async).
+// loads where rows are long, short operands every row of a block reads
+// staged in shared memory, K10's table read through the caches, f32 FMAs
+// on the CUDA cores (no wgmma, TMA or cp.async).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -32,10 +33,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// dynamic shared memory a block may opt into on an H100 (227 KB)
-constexpr int kMaxSmem = 232448;
-// dynamic shared memory a block gets without opting in
-constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxTerms = 1024;  // K12 stages at most this many query terms
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -46,29 +43,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- K10: out[e] = table[idx[e]] from a table staged in shared memory ----
-// The TPU kernel holds the table in VMEM; here each block copies it into
-// dynamic shared memory (122,880 bytes at the probe's 30,720 entries, over
-// the 48 KB default: the launch opts in) and serves its share of the
-// lookups from there.
-constexpr int kTakeThreads = 1024;
-constexpr int kTakePerBlock = 4 * kTakeThreads;
+// ---- K10: out[e] = table[idx[e]], the table read through the caches ----
+// The TPU kernel holds the table in VMEM. On this card a table that many
+// lookups share stays in the 50 MB L2 and in each SM's L1 anyway, so the
+// kernel stages nothing: each thread serves 4 lookups from one 16-byte
+// load of idx (or 4 scalar loads where idx is not 16-byte aligned, and
+// for the n % 4 tail), reads table[j] through the read-only path (__ldg:
+// L1, then L2) and stores a float4. The grid is sized to the lookups, so
+// even a few thousand of them spread over many SMs; the table is bounded
+// only by int indexing. Staging the table in every block's shared memory
+// would read more table bytes than the lookups need.
+constexpr int kTakeThreads = 128;
 
+__device__ __forceinline__ float take_one(const float* __restrict__ table,
+                                          int n_table, int j) {
+  return static_cast<unsigned>(j) < static_cast<unsigned>(n_table)
+             ? __ldg(table + j)
+             : 0.0f;
+}
+
+template <bool kVec>
 __global__ void __launch_bounds__(kTakeThreads)
 table_take_kernel(const float* __restrict__ table, int n_table,
                   const int* __restrict__ idx, int n,
                   float* __restrict__ out) {
-  extern __shared__ float s_table[];
-  for (int i = threadIdx.x; i < n_table; i += blockDim.x) {
-    s_table[i] = table[i];
+  const int64_t e0 =
+      4 * (static_cast<int64_t>(blockIdx.x) * kTakeThreads + threadIdx.x);
+  if (e0 >= n) return;
+  if (kVec && e0 + 4 <= n) {
+    const int4 j = reinterpret_cast<const int4*>(idx)[e0 / 4];
+    reinterpret_cast<float4*>(out)[e0 / 4] = make_float4(
+        take_one(table, n_table, j.x), take_one(table, n_table, j.y),
+        take_one(table, n_table, j.z), take_one(table, n_table, j.w));
+    return;
   }
-  __syncthreads();
-  const int first = static_cast<int>(blockIdx.x) * kTakePerBlock;
-  const int end = min(n, first + kTakePerBlock);
-  for (int e = first + static_cast<int>(threadIdx.x); e < end;
-       e += blockDim.x) {
-    const int j = idx[e];
-    out[e] = (j >= 0 && j < n_table) ? s_table[j] : 0.0f;
+  const int64_t end = e0 + 4 < n ? e0 + 4 : n;
+  for (int64_t e = e0; e < end; ++e) {
+    out[e] = take_one(table, n_table, idx[e]);
   }
 }
 
@@ -322,29 +333,11 @@ int blocks_for(int64_t n, int per_block) {
   return static_cast<int>((n + per_block - 1) / per_block);
 }
 
-// K10 opts into kMaxSmem of dynamic shared memory once per device, at its
-// first launch there that needs more than the default.
-constexpr int kMaxDevices = 64;
-bool g_take_opted_in[kMaxDevices];
-
-cudaError_t opt_in_take(size_t smem) {
-  if (smem <= static_cast<size_t>(kDefaultSmem)) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && g_take_opted_in[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(table_take_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kMaxSmem);
-  if (e == cudaSuccess && dev < kMaxDevices) g_take_opted_in[dev] = true;
-  return e;
-}
-
 }  // namespace
 
 // The wrappers (ops/probe_kernels.py) hold the operands to these limits
-// before a launch: K10's table to kMaxSmem / 4 entries, K12's terms to
-// kMaxTerms, K13's K and K18's V to kDefaultSmem / 4.
+// before a launch: K12's terms to kMaxTerms, K13's K and K18's V to the
+// 48 KB of dynamic shared memory a block gets without opting in, / 4.
 extern "C" {
 
 int seismic_probe_empty(cudaStream_t stream) {
@@ -359,12 +352,19 @@ int seismic_probe_spin(unsigned long long ns, cudaStream_t stream) {
 
 int seismic_probe_table_take(const float* table, int n_table, const int* idx,
                              int n, float* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n_table) * sizeof(float);
-  const cudaError_t e = opt_in_take(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
   if (n > 0) {
-    table_take_kernel<<<blocks_for(n, kTakePerBlock), kTakeThreads, smem,
-                        stream>>>(table, n_table, idx, n, out);
+    // 16-byte loads of idx and stores of out where both are aligned
+    const bool vec = reinterpret_cast<uintptr_t>(idx) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const int blocks =
+        blocks_for((static_cast<int64_t>(n) + 3) / 4, kTakeThreads);
+    if (vec) {
+      table_take_kernel<true><<<blocks, kTakeThreads, 0, stream>>>(
+          table, n_table, idx, n, out);
+    } else {
+      table_take_kernel<false><<<blocks, kTakeThreads, 0, stream>>>(
+          table, n_table, idx, n, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,55 +18,49 @@
 // where qc is the f32 query projection, rounded to bf16 (nearest even) in
 // bf16 mode and kept as it is in f32 mode. The caller sums qsum =
 // 128 * sum_v q from the unrounded f32 projection, as the JAX program does,
-// so the centred form is not q . u8 in bf16 mode. Products and sums are f32
-// FMAs on the CUDA cores (never TF32): a bf16 value times an integer below
-// 256 is exact in f32, so only the order of the f32 sum differs from the
-// TPU's. With pack_idx the block goes through the packed epilogue instead
-// and lands in out[g, m, s*STEP + c], STEP = ROWS / pack_window, as int32.
-// Output blocks that no work item covers are left as they are.
+// so the centred form is not q . u8 in bf16 mode. With pack_idx the block
+// goes through the packed epilogue instead and lands in
+// out[g, m, s*STEP + c], STEP = ROWS / pack_window, as int32. Output blocks
+// that no work item covers are left as they are.
 //
-// Design: one 256-thread block per work item. The block stages the group's
-// [M, V] queries in shared memory as f32 (rounded there in bf16 mode). A
-// warp scores 32/M tile rows at a time: per 256-byte chunk each lane loads
-// two 4-byte words of every row (bytes [4l, +4) and [128 + 4l, +4): both
-// coalesced) and converts them once, then reads each query's matching 8
-// values from shared memory (two conflict-free 16-byte loads) and reuses
-// them for all its rows. The 32 lane partials (rows x queries) are reduced
-// by one transposing butterfly of 31 shuffles (warp_sum.cuh), which leaves
-// value l in lane l. The [M, ROWS] block is staged in shared memory and
-// stored with 16-byte stores, or through store_packed.
-//
-// Bound on an H100: the tile bytes (ROWS*V per distinct super-tile, read
+// Bound on an H100: the tile bytes (ROWS * V per distinct super-tile, read
 // once) plus the f32 queries and the output over the 3.35 TB/s memory
-// rate; the 2*M*ROWS*V operations per item sit below the tensor cores'
-// bf16 rate, but this first version spends them on the CUDA cores, whose
-// f32 rate (67 TFLOP/s) is what it runs against.
+// rate. The 2 * M * ROWS * V operations of an item are what the bf16
+// tensor cores are for (989 TFLOP/s; three times as many in f32 mode): on
+// the CUDA cores' f32 FMAs (67 TFLOP/s) they and the byte conversions
+// cost more than the bytes.
+//
+// Design: one 256-thread block per work item runs score_item_ring
+// (grouped_i8_mma.cuh, the tile body of K4 and K2) with the bf16 policy:
+// each warp streams its 16 or 32 rows, 128 bytes of each a stage, through
+// a 2-stage cp.async ring and multiplies them on the bf16 tensor cores
+// (mma.sync m16n8k16, f32 accumulators) against the group's queries,
+// staged once a block as bf16 in the rings' k order. Tile bytes are
+// converted to bf16 in registers, once per byte and block (u8 - 128 in the
+// centred form, u8 in the fixup form: integers below 256, exact). In f32
+// mode the queries are staged as three bf16 terms whose sum is q exactly,
+// and each A fragment meets all three: every product is exact in f32 and
+// only the order of the f32 sum differs from the plain version. The
+// epilogue adds qsum (__fadd_rn), scales (__fmul_rn) and stores the
+// [M, ROWS] block from the freed rings with 16-byte stores, or through
+// store_packed (K5, a compile-time variant).
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "grouped_i8_mma.cuh"
 #include "pack_epilogue.cuh"
-#include "warp_sum.cuh"
 
 namespace {
 
-constexpr int kSub = 128;  // rows per subtile
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 256;  // bytes of a row one warp covers per step
+constexpr int kSub = 128;     // rows per subtile
+constexpr int kVAlign = 256;  // V is a multiple of this
+constexpr float kTwo23 = 8388608.0f;
 
-__device__ __forceinline__ void unpack4(uint32_t w, float off, float* t) {
-  t[0] = static_cast<float>(w & 0xffu) - off;
-  t[1] = static_cast<float>((w >> 8) & 0xffu) - off;
-  t[2] = static_cast<float>((w >> 16) & 0xffu) - off;
-  t[3] = static_cast<float>(w >> 24) - off;
-}
-
-// kPack: the packed epilogue, a compile-time choice so that the plain
-// store's kernel carries none of its code
-template <int kM, int kRows, bool kPack>
-__global__ void __launch_bounds__(kThreads)
+// kTerms: 1 in bf16 mode, 3 in f32 mode. kPack: the packed epilogue. Both
+// compile-time, so that each kernel carries only its own code.
+template <int kM, int kRows, int kTerms, bool kPack>
+__global__ void __launch_bounds__(kMmaThreads, 2)
 score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                        const float* __restrict__ tile_scale,  // [rows]
                        const float* __restrict__ q,           // [G_cap, kM, V]
@@ -74,84 +68,20 @@ score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                        const int* __restrict__ work_region,   // [W_cap]
                        const int* __restrict__ work_g,
                        const int* __restrict__ work_s,
-                       int V, int ll_max, int round_bf16, int idx_mask,
-                       int pack_window, void* __restrict__ out) {
-  constexpr int kRpw = 32 / kM;  // tile rows a warp scores at a time
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;             // [kM, V]
-  float* s_out = smem + kM * V;  // [kM, kRows]
+                       int V, int ll_max, int idx_mask, int pack_window,
+                       void* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* s_out = reinterpret_cast<float*>(smem);
 
   const int w = blockIdx.x;
   const int g = work_g[w];
   const int s = work_s[w];
-  const int64_t row0 = static_cast<int64_t>(work_region[w]) * kRows;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const bool centred = qsum != nullptr;
-
-  {
-    const float4* src = reinterpret_cast<const float4*>(
-        q + static_cast<int64_t>(g) * kM * V);
-    float4* dst = reinterpret_cast<float4*>(s_q);
-    for (int i = tid; i < kM * V / 4; i += kThreads) {
-      float4 x = src[i];
-      if (round_bf16) {
-        x.x = __bfloat162float(__float2bfloat16_rn(x.x));
-        x.y = __bfloat162float(__float2bfloat16_rn(x.y));
-        x.z = __bfloat162float(__float2bfloat16_rn(x.z));
-        x.w = __bfloat162float(__float2bfloat16_rn(x.w));
-      }
-      dst[i] = x;
-    }
-  }
-  __syncthreads();
-
-  const float off = centred ? 128.0f : 0.0f;
-  const float qs = centred ? qsum[static_cast<int64_t>(g) * kM + lane % kM]
-                           : 0.0f;
-  const int n_chunks = V / kChunk;
-  for (int r0 = warp * kRpw; r0 < kRows; r0 += kWarps * kRpw) {
-    float acc[32];  // [kRpw, kM]
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-    const uint8_t* trow = tiles + (row0 + r0) * V;
-    for (int c = 0; c < n_chunks; ++c) {
-      float t[kRpw][8];
-#pragma unroll
-      for (int rr = 0; rr < kRpw; ++rr) {
-        const uint32_t* p = reinterpret_cast<const uint32_t*>(
-            trow + static_cast<int64_t>(rr) * V + c * kChunk);
-        unpack4(p[lane], off, t[rr]);
-        unpack4(p[32 + lane], off, t[rr] + 4);
-      }
-#pragma unroll
-      for (int m = 0; m < kM; ++m) {
-        const float* qrow = s_q + m * V + c * kChunk;
-        const float4 qa = reinterpret_cast<const float4*>(qrow)[lane];
-        const float4 qb = reinterpret_cast<const float4*>(qrow + 128)[lane];
-#pragma unroll
-        for (int rr = 0; rr < kRpw; ++rr) {
-          float a = acc[rr * kM + m];
-          a = fmaf(qa.x, t[rr][0], a);
-          a = fmaf(qa.y, t[rr][1], a);
-          a = fmaf(qa.z, t[rr][2], a);
-          a = fmaf(qa.w, t[rr][3], a);
-          a = fmaf(qb.x, t[rr][4], a);
-          a = fmaf(qb.y, t[rr][5], a);
-          a = fmaf(qb.z, t[rr][6], a);
-          a = fmaf(qb.w, t[rr][7], a);
-          acc[rr * kM + m] = a;
-        }
-      }
-    }
-    // lane l ends with the total of acc[l]: row r0 + l / kM, query l % kM
-    const float dot = warp_transpose_sum<float, 32>(acc, lane);
-    const int r = r0 + lane / kM;
-    const float v = centred ? __fadd_rn(dot, qs) : dot;
-    s_out[(lane % kM) * kRows + r] = __fmul_rn(v, tile_scale[row0 + r]);
-  }
-  __syncthreads();
+  const MmaBf16<kTerms> op{centred ? kTwo23 + 128.0f : kTwo23};
+  score_item_ring<kM, kRows>(
+      op, tiles, tile_scale, q + static_cast<int64_t>(g) * kM * V,
+      centred ? qsum + static_cast<int64_t>(g) * kM : nullptr, V,
+      static_cast<int64_t>(work_region[w]) * kRows, smem, s_out);
 
   if constexpr (kPack) {  // packed int32 [G_cap, kM, ll_max / pack_window]
     const int64_t stride = ll_max / pack_window;
@@ -159,33 +89,57 @@ score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
         s_out,
         static_cast<int*>(out) + static_cast<int64_t>(g) * kM * stride +
             static_cast<int64_t>(s) * (kRows / pack_window),
-        stride, s * kRows, idx_mask, pack_window, tid, kThreads);
+        stride, s * kRows, idx_mask, pack_window, threadIdx.x, kMmaThreads);
   } else {  // f32 [G_cap, kM, ll_max]
     store_scores<kM, kRows>(
         s_out,
         static_cast<float*>(out) + static_cast<int64_t>(g) * kM * ll_max +
             static_cast<int64_t>(s) * kRows,
-        ll_max, tid, kThreads);
+        ll_max, threadIdx.x, kMmaThreads);
   }
 }
 
-template <int kM, int kRows, bool kPack>
-int launch_packed(const uint8_t* tiles, const float* tile_scale,
-                  const float* q, const float* qsum, const int* work_region,
-                  const int* work_g, const int* work_s, int W_cap, int V,
-                  int ll_max, int round_bf16, int idx_mask, int pack_window,
-                  void* out, cudaStream_t stream) {
-  const int smem = (kM * V + kM * kRows) * static_cast<int>(sizeof(float));
-  auto kernel = score_grouped_f_kernel<kM, kRows, kPack>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<W_cap, kThreads, smem, stream>>>(
+int max_v(int M, int csub, int terms) {
+  if (M <= 0 || csub <= 0) return 0;
+  const int v = (kMaxSmemBytes - mma_ring_smem(0, csub * kSub, 0, 0)) /
+                (M * 2 * terms);  // 2 * terms: MmaBf16<terms>::kParts
+  return v / kVAlign * kVAlign;
+}
+
+template <int kM, int kRows, int kTerms, bool kPack>
+int launch_one(const uint8_t* tiles, const float* tile_scale, const float* q,
+               const float* qsum, const int* work_region, const int* work_g,
+               const int* work_s, int W_cap, int V, int ll_max, int idx_mask,
+               int pack_window, void* out, cudaStream_t stream) {
+  static bool opted_in[kMaxDevices];
+  constexpr int kQBytes = MmaBf16<kTerms>::kParts;  // bytes a query value
+  auto kernel = score_grouped_f_kernel<kM, kRows, kTerms, kPack>;
+  // the opt-in is for the widest V, so one call per device covers all
+  const cudaError_t e = opt_in_smem(
+      kernel,
+      mma_ring_smem(kM, kRows, max_v(kM, kRows / kSub, kTerms), kQBytes),
+      opted_in);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int smem = mma_ring_smem(kM, kRows, V, kQBytes);
+  kernel<<<W_cap, kMmaThreads, smem, stream>>>(
       tiles, tile_scale, q, qsum, work_region, work_g, work_s, V, ll_max,
-      round_bf16, idx_mask, pack_window, out);
+      idx_mask, pack_window, out);
   return 0;
+}
+
+template <int kM, int kRows, int kTerms>
+int launch_terms(const uint8_t* tiles, const float* tile_scale,
+                 const float* q, const float* qsum, const int* work_region,
+                 const int* work_g, const int* work_s, int W_cap, int V,
+                 int ll_max, int idx_mask, int pack_window, void* out,
+                 cudaStream_t stream) {
+  return pack_window > 0
+             ? launch_one<kM, kRows, kTerms, true>(
+                   tiles, tile_scale, q, qsum, work_region, work_g, work_s,
+                   W_cap, V, ll_max, idx_mask, pack_window, out, stream)
+             : launch_one<kM, kRows, kTerms, false>(
+                   tiles, tile_scale, q, qsum, work_region, work_g, work_s,
+                   W_cap, V, ll_max, idx_mask, pack_window, out, stream);
 }
 
 template <int kM, int kRows>
@@ -193,33 +147,34 @@ int launch(const uint8_t* tiles, const float* tile_scale, const float* q,
            const float* qsum, const int* work_region, const int* work_g,
            const int* work_s, int W_cap, int V, int ll_max, int round_bf16,
            int idx_mask, int pack_window, void* out, cudaStream_t stream) {
-  return pack_window > 0
-             ? launch_packed<kM, kRows, true>(
-                   tiles, tile_scale, q, qsum, work_region, work_g, work_s,
-                   W_cap, V, ll_max, round_bf16, idx_mask, pack_window, out,
-                   stream)
-             : launch_packed<kM, kRows, false>(
-                   tiles, tile_scale, q, qsum, work_region, work_g, work_s,
-                   W_cap, V, ll_max, round_bf16, idx_mask, pack_window, out,
-                   stream);
+  return round_bf16
+             ? launch_terms<kM, kRows, 1>(tiles, tile_scale, q, qsum,
+                                          work_region, work_g, work_s, W_cap,
+                                          V, ll_max, idx_mask, pack_window,
+                                          out, stream)
+             : launch_terms<kM, kRows, 3>(tiles, tile_scale, q, qsum,
+                                          work_region, work_g, work_s, W_cap,
+                                          V, ll_max, idx_mask, pack_window,
+                                          out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// the widest V at M query slots: [M, V] f32 queries plus the [M, 256]
-// output block within 227 KB of shared memory, V a multiple of 256
-int seismic_score_grouped_f_max_v(int M) {
-  const int v = (227 * 1024 / 4 - M * 2 * kSub) / M;
-  return v / kChunk * kChunk;
+// The widest V at M query slots and csub: the warps' rings plus the [M, V]
+// queries (bf16, or three bf16 terms in f32 mode) within 227 KB of shared
+// memory, V a multiple of 256.
+int seismic_score_grouped_f_max_v(int M, int csub, int round_bf16) {
+  return max_v(M, csub, round_bf16 ? 1 : 3);
 }
 
 // M 8 or 16; csub 1 or 2; V a multiple of 256 up to the cap above; ll_max a
 // multiple of csub * 128; qsum f32 [G_cap, M] or null (the fixup form).
-// round_bf16 != 0 rounds the queries to bf16. pack_window 0 writes f32
-// [G_cap, M, ll_max]; pack_window >= 1 writes the packed int32
-// [G_cap, M, ll_max / pack_window] with idx_mask = 2^idx_bits - 1.
+// round_bf16 != 0 rounds the queries to bf16, 0 splits them into three bf16
+// terms (f32 mode). pack_window 0 writes f32 [G_cap, M, ll_max];
+// pack_window >= 1 writes the packed int32 [G_cap, M, ll_max / pack_window]
+// with idx_mask = 2^idx_bits - 1.
 int seismic_score_grouped_f(const uint8_t* tiles, const float* tile_scale,
                             const float* q, const float* qsum,
                             const int* work_region, const int* work_g,
@@ -229,7 +184,8 @@ int seismic_score_grouped_f(const uint8_t* tiles, const float* tile_scale,
                             cudaStream_t stream) {
   if (W_cap > 0) {
     int rc;
-    if (V % kChunk != 0 || V > seismic_score_grouped_f_max_v(M)) {
+    if (V <= 0 || V % kVAlign != 0 ||
+        V > seismic_score_grouped_f_max_v(M, csub, round_bf16)) {
       rc = static_cast<int>(cudaErrorInvalidValue);
     } else if (M == 8 && csub == 1) {
       rc = launch<8, kSub>(tiles, tile_scale, q, qsum, work_region, work_g,

@@ -196,7 +196,7 @@ def vmem_table_take_inputs():
 
 @probe
 def vmem_table_take(dev, reps, inputs=None):
-    """K10: element gather from a table held on chip (shared memory)."""
+    """K10: element gather from a table read through the L1 / L2 caches."""
     a = inputs or vmem_table_take_inputs()
     table, idx = _t(a["table"], dev), _t(a["idx"], dev)
     out = pk.table_take(table, idx)

@@ -14,7 +14,10 @@ bf16 (nearest even) in bf16 mode, q itself in f32 mode:
                                 * tile_scale[R0 + r]
 
 Products and sums are f32 (a bf16 value times an integer below 256 is exact
-in f32); the caller computes `qsum = 128 * sum_v q` from the UNROUNDED
+in f32). The kernel multiplies on the bf16 tensor cores: in bf16 mode the
+rounded queries, in f32 mode the three bf16 terms of `split_bf16x3`, whose
+sum is q exactly, so in both only the order of the f32 sum differs from the
+plain version. The caller computes `qsum = 128 * sum_v q` from the UNROUNDED
 projection, so the centred form differs from `qc . u8` in bf16 mode, as in
 the JAX program. With `pack_window` >= 1 the block goes through the packed
 epilogue (K5, `ops/pack_epilogue.py`). Output blocks no work item covers are
@@ -66,6 +69,19 @@ def item_scores_f_plain(tiles, tile_scale, q, qsum, work_region, work_g,
     return out
 
 
+def split_bf16x3(q):
+    """(hi, mid, lo), bf16 tensors of q's shape: hi = bf16(q), mid =
+    bf16(q - hi), lo = bf16(q - hi - mid), each rounded to nearest even,
+    the remainders exact in f32; hi + mid + lo == q for f32 q in bf16's
+    range. The query operand of the kernel's f32 mode (the tests hold it
+    to that; the plain version multiplies q itself)."""
+    hi = q.to(torch.bfloat16)
+    r = q - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 def score_grouped_f_plain(tiles, tile_scale, q, qsum, work_region, work_g,
                           work_s, ll_max: int, csub: int = 1,
                           compute_dtype: str = "bf16", pack_window: int = 0):
@@ -85,10 +101,18 @@ def _lib():
         lib.seismic_score_grouped_f.argtypes = [
             p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, p]
         lib.seismic_score_grouped_f.restype = ctypes.c_int
-        lib.seismic_score_grouped_f_max_v.argtypes = [i]
+        lib.seismic_score_grouped_f_max_v.argtypes = [i, i, i]
         lib.seismic_score_grouped_f_max_v.restype = ctypes.c_int
         _handle = lib
     return _handle
+
+
+def max_v(M: int, csub: int, compute_dtype: str) -> int:
+    """The widest V the kernel takes (its shared memory holds the warps'
+    rings and the group's bf16 queries, three terms of them in f32
+    mode). Builds the kernel library if needed."""
+    return _lib().seismic_score_grouped_f_max_v(
+        M, csub, int(compute_dtype == "bf16"))
 
 
 def score_grouped_f(tiles, tile_scale, q, qsum, work_region, work_g, work_s,
@@ -136,14 +160,14 @@ def score_grouped_f(tiles, tile_scale, q, qsum, work_region, work_g, work_s,
     G_cap, M, V = q.shape
     req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
     req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
-    lib = _lib()
-    req(V % 256 == 0 and V <= lib.seismic_score_grouped_f_max_v(M),
-        f"V={V} is not a multiple of 256 within the kernel's cap at M={M}")
+    req(V % 256 == 0 and V <= max_v(M, csub, compute_dtype),
+        f"V={V} is not a multiple of 256 within the kernel's cap at M={M}, "
+        f"csub={csub}, {compute_dtype}")
     out = torch.empty(
         (G_cap, M, ll_max // pack_window if pack_window else ll_max),
         dtype=torch.int32 if pack_window else torch.float32, device=dev)
     p = _cuda.ptr
-    rc = lib.seismic_score_grouped_f(
+    rc = _lib().seismic_score_grouped_f(
         p(tiles), p(tile_scale), p(q), None if qsum is None else p(qsum),
         p(work_region), p(work_g), p(work_s), work_region.shape[0], V, M,
         csub, ll_max, int(compute_dtype == "bf16"),

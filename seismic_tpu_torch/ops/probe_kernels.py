@@ -36,10 +36,9 @@ NAMES = ("table_take", "row_gather", "compare_intersect", "u8_matvec",
 # kernel launches since the counts were last set to 0, one per wrapper
 launches = dict.fromkeys(NAMES, 0)
 _handle = None
-# the limits of csrc/device_probe.cu: K10 stages at most kMaxSmem / 4 table
-# entries, K12 at most kMaxTerms terms, K13 / K18 at most kDefaultSmem / 4
-# floats of q / qloc
-TAKE_MAX = 232448 // 4
+# the limits of csrc/device_probe.cu: K12 stages at most kMaxTerms terms,
+# K13 / K18 at most 48 KB / 4 floats of q / qloc (the dynamic shared
+# memory a block gets without opting in)
 MAX_TERMS = 1024
 MAX_STAGE = 48 * 1024 // 4
 
@@ -139,10 +138,10 @@ def _lib():
     return _handle
 
 
-def _on_card(name: str, tensors) -> bool:
+def _on_card(name: str, tensors, aligned: bool = True) -> bool:
     """False for CPU operands (the plain version runs); True for CUDA
-    operands, after checking they share one card, are contiguous and
-    16-byte aligned (the kernels' vector loads)."""
+    operands, after checking they share one card, are contiguous and,
+    with `aligned`, 16-byte aligned (the kernels' vector loads)."""
     req = _cuda.require
     dev = tensors[0].device
     req(all(t.device == dev for t in tensors),
@@ -152,7 +151,7 @@ def _on_card(name: str, tensors) -> bool:
     req(dev.type == "cuda", f"{name}: unsupported device {dev}")
     req(all(t.is_contiguous() for t in tensors),
         f"{name}: operands must be contiguous")
-    req(all(t.data_ptr() % 16 == 0 for t in tensors),
+    req(not aligned or all(t.data_ptr() % 16 == 0 for t in tensors),
         f"{name}: operands must be 16-byte aligned")
     return True
 
@@ -181,16 +180,17 @@ def spin(device, ns: int) -> None:
 
 def table_take(table, idx):
     """table f32 [n]; idx int32 [...]. Returns f32 of idx's shape. On the
-    card the table is staged in one block's shared memory (at most
-    `TAKE_MAX` entries)."""
+    card each lookup reads the table through the L1 / L2 caches (nothing
+    is staged, so the table is bounded only by int indexing), 4 lookups a
+    thread from one 16-byte load of idx where idx is 16-byte aligned,
+    scalar loads where it is not."""
     req = _cuda.require
     req(table.dim() == 1 and table.dtype == torch.float32
-        and table.shape[0] > 0, "table must be f32 [n], n > 0")
+        and 0 < table.shape[0] < 2 ** 31,
+        "table must be f32 [n], 0 < n < 2^31")
     req(idx.dtype == torch.int32, "idx must be int32")
-    if not _on_card("table_take", (table, idx)):
+    if not _on_card("table_take", (table, idx), aligned=False):
         return table_take_plain(table, idx)
-    req(table.shape[0] <= TAKE_MAX,
-        f"table of {table.shape[0]} entries exceeds shared memory")
     req(idx.numel() < 2 ** 31, "too many indices")
     out = torch.empty(idx.shape, dtype=torch.float32, device=table.device)
     p = _cuda.ptr

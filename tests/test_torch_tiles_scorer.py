@@ -141,13 +141,13 @@ def test_kernel_library_named_by_source_and_flags():
         with open(os.path.join(_cuda.CSRC, name), "rb") as f:
             return f.read()
 
-    pack, mma, warp = (header(h) for h in (
-        "pack_epilogue.cuh", "grouped_i8_mma.cuh", "warp_sum.cuh"))
+    pack, mma = (header(h) for h in (
+        "pack_epilogue.cuh", "grouped_i8_mma.cuh"))
     for name in ("grouped_scorer", "grouped_scorer_item", "grouped_scorer_f"):
         hashed = _cuda.source_with_headers(_cuda._src(name))
         assert pack in hashed, name
-        assert (mma in hashed) == (name != "grouped_scorer_f"), name
-        assert (warp in hashed) == (name == "grouped_scorer_f"), name
+        assert mma in hashed, name
+    assert mma in _cuda.source_with_headers(_cuda._src("tiles_scorer"))
     assert pack not in _cuda.source_with_headers(_cuda._src("rescore"))
     assert "tiles_scorer" in _cuda.KERNELS
     # headers of headers too, each once
