@@ -70,8 +70,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    `pool_mode="window"` on bf16 (K6 + K5) with rescore 64, every score the
    exact dot; `qloc_mode="rowmajor"` (K8 once, K1 never, results equal to
    the lane-major run's); a second upload with `vocab_residue=8` (K9 once,
-   K1 never, recall@10 within 0.03 of the unpermuted run). K6's route per
-   mode is read from the SASS of its kernels (`cuobjdump -sass`: the run
+   K1 never, recall@10 within 0.03 of the unpermuted run; K9's time beside
+   K1's on the same pairs, its bound the bytes, its ptxas lines, the
+   batch's device time by kernel). K6's route per mode is read from the
+   SASS of its kernels (`cuobjdump -sass`: the run
    fails if the bf16 kernel holds no bf16 HMMA), with their ptxas lines,
    and its f32 mode's bound follows that route. K5 inside K2,
    K4 and K6, K6 (bf16 / f32, centred / fixup), K8 and K9 are held against
@@ -89,7 +91,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    flushed); the launch counts set to 0 before and read after (each of
    K10-K18 exactly once per check, timed and device-timed call, every
    other kernel never); the launch floor (an empty kernel, timed both
-   ways); then the microbench once (`harness/microbench.py`).
+   ways); K17's route from the SASS of its kernel (the run fails if it
+   holds no HMMA.16816.F32.BF16), with its ptxas lines and its error as a
+   share of the tolerance; then the microbench once
+   (`harness/microbench.py`).
 
 Every one of these windows sets the launch counts of all eighteen wrappers
 to 0 and reads all eighteen, and fails on a kernel that launched where it
@@ -448,7 +453,7 @@ def breakdown(index, qcomps, qvals, dev) -> dict:
         out.update(device_busy_ms=busy, kernels_ms=kern,
                    device_idle_share=max(
                        0.0, 1.0 - busy / out["device_program_ms"]))
-    except Exception as e:  # noqa: BLE001 - informational only
+    except NoProfile as e:  # informational only
         out["profile"] = f"not measured: {e}"
     return out
 
@@ -496,16 +501,30 @@ def padded_queries(n: int):
             np.concatenate([p[1] for p in parts]))
 
 
+class NoProfile(RuntimeError):
+    """The profiler did not start, or saw no device time. Only this is
+    caught around a profiled call: an error of the call itself fails its
+    phase."""
+
+
 def profile_device(fn):
     """(device busy ms, {kernel: ms}) of one call of `fn` from a
-    torch.profiler window; raises when the profiler saw no device time."""
+    torch.profiler window; raises NoProfile when the profiler could not
+    start or saw no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:  # noqa: BLE001 - the profiler alone
+        raise NoProfile(f"the profiler did not start: {e}") from e
+    try:
         fn()
         torch.cuda.synchronize()
+    finally:
+        prof.stop()
     kern = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
@@ -513,7 +532,7 @@ def profile_device(fn):
             kern[e.key[:80]] = kern.get(e.key[:80], 0.0) + us / 1e3
     busy = sum(kern.values())
     if busy <= 0:
-        raise RuntimeError("the profiler recorded no device time")
+        raise NoProfile("the profiler recorded no device time")
     return busy, dict(sorted(kern.items(), key=lambda kv: -kv[1])[:12])
 
 
@@ -906,7 +925,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
             lambda: search_grouped_derive(dindex, qcd[0], qvd[0], params,
                                           QUERY_CUT, 8, gc0, wc0,
                                           ctx.zero_region))[0]
-    except Exception as e:  # noqa: BLE001 - informational only
+    except NoProfile as e:  # informational only
         brk["profile"] = f"not measured: {e}"
     log(f"phase 4 breakdown of one B={N_QUERIES} call: {json.dumps(brk)}")
 
@@ -1385,7 +1404,7 @@ def modes_path(env, dev, record, kernels) -> list:
         brk.update(device_busy_ms=busy, kernels_ms=kern,
                    device_idle_share=max(
                        0.0, 1.0 - busy / brk["device_program_ms"]))
-    except Exception as e:  # noqa: BLE001 - informational only
+    except NoProfile as e:  # informational only
         brk["profile"] = f"not measured: {e}"
     log(f"phase 6 breakdown of one default-configuration batch: "
         f"{json.dumps(brk)}")
@@ -1412,35 +1431,56 @@ def modes_path(env, dev, record, kernels) -> list:
         fail("K9 disagrees with its plain version")
     VRS = (V0 - V0 // 8) // RES // 8 * 8
     bucket_terms = (qcb >= 0).sum(1)
+    # the former design's compare count: each group slot against its
+    # bucket, each spill slot against every term
     ops9 = 2.0 * QC * float((VRS * RES * SCB * torch.ones_like(n_terms)
                              + (V0 - RES * VRS) * n_terms).sum().item())
     by9 = (torch.unique(a1[1]).numel() * V0 * 2 + P * 4 + a1[2].numel() * 8
            + qcb.numel() * 8 + P * V0 + P * 4)
-    b9, bb9 = bound(by9, ops9, PEAK_F32)
+    ptx9 = [ln for lns in ptxas_of("qloc", "qloc_residue_kernel")
+            .values() for ln in lns]
     rec9 = dict(
         name="qloc_residue", route="cuda",
-        source="seismic_tpu_torch/csrc/qloc_residue.cu",
+        source="seismic_tpu_torch/csrc/qloc.cu",
         replaces="seismic_tpu/ops/pallas_qloc.py:152", max_abs_err=0.0,
         ms=time_ms(lambda: qloc_residue.project_qloc_residue(
             *a9, quantize=True), 20),
         plain_ms=time_ms(lambda: qloc_residue.project_qloc_residue_plain(
             *a9, quantize=True), 3),
-        bound_ms=b9, bound_by=bb9,
+        # the bytes: each distinct vocab row once, the pair list, the
+        # terms, the buckets, the int8 output and the scales
+        bound_ms=by9 / PEAK_BYTES * 1e3, bound_by="bytes",
+        compare_bound_ms=ops9 / PEAK_F32 * 1e3,
         library_ms=None,  # as K8: no one PyTorch call does this
         f32_output_ms=time_ms(
             lambda: qloc_residue.project_qloc_residue(*a9), 20),
+        k1_ms=rec8["k1_ms"], ptxas=ptx9,
         terms_kept_by_buckets=float(bucket_terms.sum().item()
                                     / max(n_terms.sum().item(), 1)))
+    rec9["k1_ratio"] = rec9["ms"] / rec9["k1_ms"]
     log(f"phase 6: K9 qloc_residue (R {RES}, scb {SCB}, VRS {VRS}): "
         f"bit-equal, {rec9['ms']:.4f} ms quantized, "
-        f"{rec9['f32_output_ms']:.4f} ms f32 (K1 {rec8['k1_ms']:.4f} ms; "
-        f"bound {b9:.4f} ms by {bb9}, plain {rec9['plain_ms']:.3f} ms); the "
-        f"buckets keep {rec9['terms_kept_by_buckets']:.4f} of the terms")
+        f"{rec9['f32_output_ms']:.4f} ms f32 (K1 {rec8['k1_ms']:.4f} ms, "
+        f"ratio {rec9['k1_ratio']:.3f}; bound {rec9['bound_ms']:.4f} ms by "
+        f"bytes, the former compare count "
+        f"{rec9['compare_bound_ms']:.4f} ms; plain "
+        f"{rec9['plain_ms']:.3f} ms); the buckets keep "
+        f"{rec9['terms_kept_by_buckets']:.4f} of the terms; ptxas: "
+        f"{'; '.join(ptx9)}")
     del k9, p9
-    _, i_res = run_mode("residue",
-                        dataclasses.replace(head, residue_scb=SCB),
+    res_params = dataclasses.replace(head, residue_scb=SCB)
+    _, i_res = run_mode("residue", res_params,
                         ("qloc_residue", "score_grouped_i8_item", "rescore"),
                         index=rindex, exact_scores=True)
+    try:  # the residue batch's device time, by kernel
+        busy, kern = profile_device(lambda: search_grouped_derive(
+            rindex, qc_t, qv_t, res_params, QC, M, caps[0], caps[1],
+            ctx.zero_region))
+        modes["residue"].update(device_busy_ms=busy, kernels_ms=kern)
+        log(f"phase 6: one residue batch keeps the card busy {busy:.3f} ms: "
+            f"{json.dumps(kern)}")
+    except NoProfile as e:  # informational only
+        modes["residue"]["profile"] = f"not measured: {e}"
     r_res = modes["residue"]["recall_at_10"]
     log(f"phase 6: residue recall@10 {r_res:.4f} against {r_head:.4f} "
         "unpermuted")
@@ -1840,7 +1880,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
         brk.update(device_busy_ms=busy, kernels_ms=kern,
                    device_idle_share=max(
                        0.0, 1.0 - busy / brk["device_program_ms"]))
-    except Exception as e:  # noqa: BLE001 - informational only
+    except NoProfile as e:  # informational only
         brk["profile"] = f"not measured: {e}"
     log(f"phase 5 breakdown of one batch: {json.dumps(brk)}")
 
@@ -1890,6 +1930,25 @@ def probe_path(dev, record) -> list:
     k10 = kernels[PROBE_KERNELS.index("table_take")]
     k10["ptxas"] = ptxas_of("device_probe", "table_take")
     log(f"phase 7: K10 table_take ptxas: {k10['ptxas']}")
+    # K17's route, from the SASS of its kernel: the bf16 tensor cores
+    k17 = kernels[PROBE_KERNELS.index("i8_matmul")]
+    sass = sass_of("device_probe")
+    if sass is None:
+        fail("phase 7: no cuobjdump to read K17's route from its SASS")
+    ops17 = [o for f_, o in sass.items() if "i8_matmul_kernel" in f_]
+    if len(ops17) != 1:
+        fail(f"phase 7: the SASS has {len(ops17)} K17 kernels")
+    k17["hmma_bf16"] = ops17[0].get("HMMA.16816.F32.BF16", 0)
+    if not k17["hmma_bf16"]:
+        fail("phase 7: K17's kernel holds no HMMA.16816.F32.BF16: "
+             f"{sorted(ops17[0])}")
+    k17["ptxas"] = [ln for lns in ptxas_of(
+        "device_probe", "i8_matmul_kernel").values() for ln in lns]
+    log(f"phase 7: K17 i8_matmul on the bf16 tensor cores "
+        f"({k17['hmma_bf16']} HMMA.16816.F32.BF16 in its SASS); ptxas: "
+        f"{'; '.join(k17['ptxas'])}; error {k17['tolerance_share']:.4f} of "
+        f"the tolerance; bound by its route (f32 operations on the CUDA "
+        f"cores would take {k17['f32_ops_bound_ms'] * 1e3:.3f} us)")
     for r in kernels:
         r.update(launch_floor_us=floor_us,
                  launch_floor_device_us=floor_device_us)

@@ -18,16 +18,20 @@
 // (seismic_tpu_torch/ops/probe_kernels.py): the TPU kernels would fault.
 //
 // Bounds on an H100 (80 GB HBM3 at 3.35 TB/s, 67 TFLOP/s f32 on the CUDA
-// cores): every one of them moves under 50 MB, so K10, K12-K14, K16 have
-// bounds under 1 us, K11 / K15 2.5 us (4096 rows of 1 KB), K17 1.0 us of
-// f32 FMAs, K18 about 14 us of int8 tiles; a launch costs more than most.
-// The designs are the simple right ones: a warp per output row with 16-byte
-// loads where rows are long, short operands every row of a block reads
-// staged in shared memory, K10's table read through the caches, f32 FMAs
-// on the CUDA cores (no wgmma, TMA or cp.async).
+// cores, 989 TFLOP/s bf16 on the tensor cores): every one of them moves
+// under 50 MB, so K10, K12-K14, K16 and K17 have bounds under 1 us, K11 /
+// K15 2.5 us (4096 rows of 1 KB), K18 about 14 us of int8 tiles; a launch
+// costs more than most. The designs are the simple right ones: a warp per
+// output row with 16-byte loads where rows are long, short operands every
+// row of a block reads staged in shared memory, K10's table read through
+// the caches, f32 FMAs on the CUDA cores, except K17, whose product runs
+// on the bf16 tensor cores (mma.sync) over a grid that fills the card.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "grouped_i8_mma.cuh"  // mma_bf16, int4_word, MmaBf16 (K17)
 
 namespace {
 
@@ -225,56 +229,186 @@ take_along_axis_kernel(const float* __restrict__ table, int R, int C,
 }
 
 // ---- K17: out[M, N] = f32(tile[M, K]) @ q[K, N] ----
-// A shared-memory-tiled GEMM on the CUDA cores: 32 x 32 output tiles, a
-// 32-deep K step, each of 256 threads accumulates 2 x 2 outputs with f32
-// FMAs; the int8 tile is cast to f32 as it is staged.
-constexpr int kTM = 32, kTN = 32, kTK = 32;
+// On the bf16 tensor cores (mma.sync m16n8k16, f32 accumulators) with the
+// operands K6's f32 mode proved (grouped_i8_mma.cuh): every int8 is exact
+// in bf16, and q is split into three bf16 terms whose sum is q exactly (hi
+// = bf16(q), mid = bf16(q - hi), lo = bf16(q - hi - mid)), each multiplied
+// by the same A fragment. So every product is exact and only the f32 sums
+// round: each 32-deep k-slice of the three terms is summed by the tensor
+// cores in a fresh fragment (lo first), and one rounded FADD adds it to
+// the lane's running sum, so the tensor cores' own accumulation, which
+// need not round to nearest, never spans more than 32 columns.
+//
+// Filling the card: a block's output tile is 32 x 16, so the probe's
+// [512, 128] output is 16 x 8 = 128 blocks, one an SM. The block's 8 warps
+// split K: warp w takes the 64-column slices w, w + 8, ...; the 8 partial
+// tiles meet in shared memory and are summed in warp order (rounded f32
+// adds), so the result does not depend on scheduling. Nothing is staged:
+// each operand element is read by exactly one lane of its block, so the
+// loads go straight to registers (16 bytes of A a row and a slice, 4-byte
+// loads of q, a warp's 32 lanes reading 4 full 32-byte sectors a load).
+// A lane's k order inside a slice is permuted alike for A and B, as in
+// K6: lane (g, t) holds columns t * 16 .. + 15 of its rows g, g + 8 and of
+// its q columns g (of each n8 tile), and k16 step s reads their columns
+// 4s .. 4s + 3. The int8 -> bf16 conversion is K6's, on a sign-flipped
+// byte: x ^ 0x80 = x + 128 goes into the mantissa of 2^23 (PRMT), one FADD
+// of -(2^23 + 128) leaves x, a PRMT packs two. Rows past M, columns past N
+// and K read nothing and give 0; a tile whose rows are not 16-byte aligned
+// (K % 16 != 0) reads its bytes one at a time.
+//
+// Bound on an H100: the bytes (M K + 4 K N + 4 M N) or three bf16 products
+// at 989 TFLOP/s, about 0.2 us each at the probe's shape; the launch (2-3
+// us of device time) is more than either.
+constexpr int kMmM = 32, kMmN = 16;  // a block's output tile
+constexpr int kMmSlice = 64;         // k of a warp's loads a round
+constexpr int kMmSum = 32;           // k summed in a fresh fragment
+constexpr int kMmPitch = kMmN + 8;   // floats a row of a partial tile
+constexpr float kFlip = 8388736.0f;  // 2^23 + 128
+
+// 16 bytes of `row` (null: a row past M) from column k; columns at or past
+// K give 0
+__device__ __forceinline__ int4 row16(const int8_t* __restrict__ row, int k,
+                                      int K, bool vec) {
+  if (row == nullptr) return make_int4(0, 0, 0, 0);
+  if (vec && k + 16 <= K) {
+    return __ldg(reinterpret_cast<const int4*>(row + k));
+  }
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (k + j < K) {
+      w[j >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(row[k + j]))
+                   << (8 * (j & 3));
+    }
+  }
+  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
+                   static_cast<int>(w[2]), static_cast<int>(w[3]));
+}
+
+// the three bf16 terms of (x0, x1), each a bf16x2 with x0 low
+__device__ __forceinline__ void split3(float x0, float x1,
+                                       unsigned (&w)[3]) {
+#pragma unroll
+  for (int term = 0; term < 3; ++term) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    w[term] = *reinterpret_cast<const unsigned*>(&h);
+    // the remainders, exact in f32, for the next term
+    x0 = __fsub_rn(x0, __low2float(h));
+    x1 = __fsub_rn(x1, __high2float(h));
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 i8_matmul_kernel(const int8_t* __restrict__ a, const float* __restrict__ b,
                  int M, int K, int N, float* __restrict__ out) {
-  __shared__ float sa[kTK][kTM + 1];
-  __shared__ float sb[kTK][kTN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-  for (int k0 = 0; k0 < K; k0 += kTK) {
+  __shared__ __align__(16) float s_part[kWarps][kMmM * kMmPitch];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.x * kMmM, n0 = blockIdx.y * kMmN;
+  const bool vec =
+      K % 16 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  const int8_t* rows[2][2];  // [m16 tile][g, g + 8]
 #pragma unroll
-    for (int i = 0; i < (kTM * kTK) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int mm = e / kTK, kk = e % kTK;
-      const int gm = m0 + mm, gk = k0 + kk;
-      sa[kk][mm] = (gm < M && gk < K)
-                       ? static_cast<float>(a[static_cast<int64_t>(gm) * K + gk])
-                       : 0.0f;
-    }
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int i = 0; i < (kTK * kTN) / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int kk = e / kTN, nn = e % kTN;
-      const int gk = k0 + kk, gn = n0 + nn;
-      sb[kk][nn] = (gk < K && gn < N) ? b[static_cast<int64_t>(gk) * N + gn]
-                                      : 0.0f;
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + mt * 16 + h * 8 + g;
+      rows[mt][h] = r < M ? a + static_cast<int64_t>(r) * K : nullptr;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTK; ++kk) {
-      const float a0 = sa[kk][ty * 2], a1 = sa[kk][ty * 2 + 1];
-      const float b0 = sb[kk][tx * 2], b1 = sb[kk][tx * 2 + 1];
-      acc[0][0] = fmaf(a0, b0, acc[0][0]);
-      acc[0][1] = fmaf(a0, b1, acc[0][1]);
-      acc[1][0] = fmaf(a1, b0, acc[1][0]);
-      acc[1][1] = fmaf(a1, b1, acc[1][1]);
-    }
-    __syncthreads();
   }
+  const MmaBf16<3> cvt{kFlip};
+  float acc[2][2][4] = {};  // [m16 tile][n8 tile][D fragment]
+  for (int k0 = warp * kMmSlice; k0 < K; k0 += kWarps * kMmSlice) {
+    const int kl = k0 + t * 16;  // the lane's 16 columns of the slice
+    int4 av[2][2];
+    float qv[2][16];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int gm = m0 + ty * 2 + i, gn = n0 + tx * 2 + j;
-      if (gm < M && gn < N) out[static_cast<int64_t>(gm) * N + gn] = acc[i][j];
+      for (int h = 0; h < 2; ++h) av[mt][h] = row16(rows[mt][h], kl, K, vec);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int n = n0 + nt * 8 + g;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        qv[nt][j] = n < N && kl + j < K
+                        ? __ldg(b + static_cast<int64_t>(kl + j) * N + n)
+                        : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < kMmSlice / kMmSum; ++half) {
+      float part[2][2][4] = {};
+#pragma unroll
+      for (int ss = 0; ss < kMmSum / 16; ++ss) {
+        const int s = half * (kMmSum / 16) + ss;  // k16 step of the slice
+        unsigned af[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const unsigned wl = int4_word(av[mt][0], s) ^ 0x80808080u;
+          const unsigned wh = int4_word(av[mt][1], s) ^ 0x80808080u;
+          af[mt][0] = cvt.a_pair<0>(wl);
+          af[mt][1] = cvt.a_pair<0>(wh);
+          af[mt][2] = cvt.a_pair<2>(wl);
+          af[mt][3] = cvt.a_pair<2>(wh);
+        }
+        unsigned b0[2][3], b1[2][3];  // [n8 tile][term]
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          split3(qv[nt][4 * s], qv[nt][4 * s + 1], b0[nt]);
+          split3(qv[nt][4 * s + 2], qv[nt][4 * s + 3], b1[nt]);
+        }
+#pragma unroll
+        for (int term = 2; term >= 0; --term) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              mma_bf16(part[mt][nt], af[mt][0], af[mt][1], af[mt][2],
+                       af[mt][3], b0[nt][term], b1[nt][term]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[mt][nt][i] = __fadd_rn(acc[mt][nt][i], part[mt][nt][i]);
+          }
+        }
+      }
+    }
+  }
+  // D fragment: acc[mt][nt][i] is row mt * 16 + g + 8 (i / 2), column
+  // nt * 8 + 2t + i % 2
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int r = mt * 16 + g + 8 * hi;
+        *reinterpret_cast<float2*>(
+            &s_part[warp][r * kMmPitch + nt * 8 + 2 * t]) =
+            make_float2(acc[mt][nt][2 * hi], acc[mt][nt][2 * hi + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < kMmM * kMmN; e += kThreads) {
+    const int r = e / kMmN, c = e % kMmN;
+    float v = s_part[0][r * kMmPitch + c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      v = __fadd_rn(v, s_part[w][r * kMmPitch + c]);
+    }
+    if (m0 + r < M && n0 + c < N) {
+      out[static_cast<int64_t>(m0 + r) * N + n0 + c] = v;
     }
   }
 }
@@ -433,7 +567,8 @@ int seismic_probe_take_along_axis(const float* table, int R, int C,
 int seismic_probe_i8_matmul(const int8_t* a, const float* b, int M, int K,
                             int N, float* out, cudaStream_t stream) {
   if (M > 0 && N > 0) {
-    const dim3 grid(blocks_for(N, kTN), blocks_for(M, kTM));
+    const dim3 grid(blocks_for(M, kMmM), blocks_for(N, kMmN));
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
     i8_matmul_kernel<<<grid, kThreads, 0, stream>>>(a, b, M, K, N, out);
   }
   return static_cast<int>(cudaGetLastError());

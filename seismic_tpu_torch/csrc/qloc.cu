@@ -1,14 +1,16 @@
 // Per-pair query projection onto list vocabularies, fused with the per-pair
-// int8 quantize; three entry points over one kernel.
+// int8 quantize; four entry points over one kernel.
 //
 // Replaces: seismic_tpu/ops/pallas_qloc.py::project_qloc_pallas (the
 // pallas_call at :56), with the XLA quantize that follows it in
 // seismic_tpu/search/grouped.py:763-771 (seismic_qloc_quantize) or without
-// it, for the bf16/f32 scorer (seismic_qloc_f32, grouped.py:772-773); and
+// it, for the bf16/f32 scorer (seismic_qloc_f32, grouped.py:772-773);
 // seismic_tpu/ops/pallas_qloc.py::project_qloc_rowmajor (the pallas_call at
 // :127), the row-major projection with its in-kernel quantize
 // (seismic_qloc_rowmajor: every pair brings its own vocab row and its own
-// term row).
+// term row); and seismic_tpu/ops/pallas_qloc.py::project_qloc_residue (the
+// pallas_call at :210), the residue-bucketed projection, quantized or not
+// (seismic_qloc_residue, K9).
 //
 // Computes, for every (query, list) pair p,
 //   qloc[p, v] = sum_i qv[t(p), i] * [vocab[l(p), v] == qc[t(p), i]]
@@ -21,11 +23,20 @@
 // adding the 0.0f of a non-matching term changes no partial sum. So the
 // int8 result equals the JAX chain bit for bit.
 //
-// Bound on an H100: the bytes, each distinct vocab row once, the terms,
-// the int8 [P, V] output and the scales (~0.05 ms at B=16384, P=229,376,
-// V=512). A compare of every slot with every term (P * V * n_terms
-// compare-adds, 0.136 ms of f32 operations there) is above that bound;
-// a lookup does V per pair.
+// K9 reads an index uploaded with vocab_residue = R: every list's
+// vocabulary is R groups of VRS slots (group r holds the list's terms with
+// term % R == r) and a spill region of V - R * VRS slots
+// (ops/tiles_prep.py::residue_layout). A group slot v < R * VRS sums only
+// the entries of bucket r = v / VRS of the row's residue buckets (qcb, qvb:
+// R buckets of scb slots, -2 padded, search/grouped.py::_residue_buckets)
+// whose id equals the code, in slot order; a spill slot sums the plain
+// terms as above. Bucket ids below 0 are padding and never match.
+//
+// Bound on an H100: the bytes, each distinct vocab row once, the terms
+// (and K9's buckets), the int8 [P, V] output and the scales (~0.05 ms at
+// B=16384, P=229,376, V=512). A compare of every slot with every term
+// (P * V * n_terms compare-adds, 0.136 ms of f32 operations there) is
+// above that bound; a lookup does V per pair.
 //
 // Design: one block per query row of terms, serving that row's QC
 // consecutive pairs (one warp for QC = 1, the row-major entry point). Warp
@@ -43,6 +54,34 @@
 // for 64 terms), keeps up to 1024 values in registers while it reduces
 // the amax with shuffles, then quantizes and stores 8 codes a store.
 // Wider rows look their remaining chunks up twice.
+//
+// K9 is the same body over one table of two kinds of key
+// (qloc_residue_kernel). Warp 0 stages the row's plain terms and then its
+// real bucket entries (id >= 0, so the -2 padding stays out), each in
+// order, into one array under the key key(id, t) = id * 2048 + t: t = r
+// for an entry of bucket r, t = R for a plain term (an id outside int16
+// equals no code and stays out). R <= 1024, so no two (id, t) share a key,
+// and a plain key never equals a bucket key. One table of all those keys
+// (dynamic shared memory, 2^bits slots, 512 to 4096, a load factor <= 1/4
+// for SC + R * scb keys where 4096 slots allow it, <= 5/16 for the most)
+// is built from the array: most codes miss, and a miss walks on past
+// every key in its way, so the table is kept sparse. VRS and V are multiples of
+// 8, so a chunk of 8 codes lies wholly in one group r or wholly in the
+// spill region: its lane looks up key(code, r), or key(code, R). A key
+// holds its entries' values summed in order from 0.0f, which is the
+// per-bucket compare loop's sum bit for bit, on any input.
+//
+// Why the R buckets' keys can stand for R compare loops: the key carries
+// the bucket, and the upload and the buckets make it redundant.
+// residue_permute_arrays puts code c only in group c % R (-1 padding the
+// rest, which no bucket key equals), and _residue_buckets puts term c only
+// in bucket c % R, in value order, position order kept within a residue.
+// So a code of group r can only find entries of bucket r, and a repeated
+// id sums in bucket order, its term order. A term that a full bucket
+// dropped is in no bucket, so it gives 0 in the group slots; it is still
+// a plain key, so it matches in the spill slots, as the plain version
+// does. Keying by bucket costs one IMAD a code and keeps the kernel equal
+// to the plain version on buckets that break that layout.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -54,34 +93,6 @@ namespace {
 
 constexpr int kMaxWarps = kQlocThreads / 32;
 constexpr int kHeld = 4;  // chunks of 8 codes whose values a lane keeps
-
-// The values of the 8 int16 codes of a 16-byte chunk: each code's term's
-// summed value, or 0.0f when no term has it. A table entry is (key, value
-// bits), one 8-byte shared load a probe; the first probes of all 8 codes
-// are issued together, and a collision walks on (rare at a load factor
-// <= 1/2).
-__device__ __forceinline__ void lookup8(const int2* s_tab, int4 chunk,
-                                        float (&x)[8]) {
-  const int w[4] = {chunk.x, chunk.y, chunk.z, chunk.w};
-  int c[8], h[8];
-  int2 e[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    // code j: the low (j even) or high half of word j / 2, sign-extended
-    c[j] = (j & 1) ? (w[j >> 1] >> 16)
-                   : static_cast<int>(static_cast<int16_t>(w[j >> 1]));
-    h[j] = term_slot(c[j]);
-    e[j] = s_tab[h[j]];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    while (e[j].x != c[j] && e[j].x != kTermEmpty) {
-      h[j] = term_next(h[j]);
-      e[j] = s_tab[h[j]];
-    }
-    x[j] = e[j].x == c[j] ? __int_as_float(e[j].y) : 0.0f;
-  }
-}
 
 __device__ __forceinline__ float amax8(const float (&x)[8], float m) {
 #pragma unroll
@@ -108,58 +119,129 @@ __device__ __forceinline__ void store8(const float (&x)[8], float sc,
   reinterpret_cast<uint2*>(orow)[c] = make_uint2(u[0], u[1]);
 }
 
-__global__ void __launch_bounds__(kQlocThreads)
-qloc_kernel(const int16_t* __restrict__ vocab,  // [n_lists, V] or [P, V]
-            const int* __restrict__ pair_list,  // [P], or null: row p
-            const int* __restrict__ qc,         // [B, SC] or [P, SC]
-            const float* __restrict__ qv,       // same shape as qc
-            int V, int SC, int QC,              // QC 1: one term row a pair
-            int8_t* __restrict__ out,           // [P, V]
-            float* __restrict__ scale,          // [P]
-            float* __restrict__ out_f32) {      // [P, V], or null: quantize
-  __shared__ int s_qc[kQlocMaxTerms];
-  __shared__ float s_qv[kQlocMaxTerms];
-  __shared__ int2 s_tab[kTermSlots];  // (term id, f32 value bits)
+// K9's operands: the query rows' residue buckets and the vocabulary's
+// group layout (R groups of VRS slots, then the spill region)
+struct Buckets {
+  const int* qcb;    // [B, R * scb], -2 padded
+  const float* qvb;  // [B, R * scb]
+  int R, scb, VRS;
+  int bits;          // the table has 2^bits slots
+};
+
+constexpr int kMaxBucketSlots = 1024;  // R * scb
+constexpr int kResidueMaxBits = 12;     // 32 KB of table at most
+constexpr int kMinCode = -32768, kMaxCode = 32767;  // the int16 codes
+
+// K9's keys: an int16 id c with a tag t <= 1024 (a bucket r < R, or R for
+// the plain terms), distinct for every (c, t) and never kTermEmpty
+__device__ __forceinline__ int key_of(int c, int t) {
+  return c * (2 * kMaxBucketSlots) + t;
+}
+
+// The kernels' body: a block per query row; lane l of a pair's warp holds
+// chunks l + 32 i, i < kHeldN.
+template <bool kResidue, int kHeldN>
+__device__ __forceinline__ void qloc_body(
+    const int16_t* __restrict__ vocab,  // [n_lists, V] or [P, V]
+    const int* __restrict__ pair_list,  // [P], or null: row p
+    const int* __restrict__ qc,         // [B, SC] or [P, SC]
+    const float* __restrict__ qv,       // same shape as qc
+    int V, int SC, int QC,              // QC 1: one term row a pair
+    int8_t* __restrict__ out,           // [P, V]
+    float* __restrict__ scale,          // [P]
+    float* __restrict__ out_f32,        // [P, V], or null: quantize
+    const Buckets& bk) {                // K9 only
+  // K1: the staged terms and the 512-slot table, static; K9: the table of
+  // 2^bits slots, then its SC + R * scb staged keys and values, dynamic
+  __shared__ int s_qc1[kResidue ? 1 : kQlocMaxTerms];
+  __shared__ float s_qv1[kResidue ? 1 : kQlocMaxTerms];
+  __shared__ int2 s_tab1[kResidue ? 1 : kTermSlots];
   __shared__ int s_n;
-  __shared__ int s_dup;  // some id repeats in the row
+  __shared__ int s_dup;  // some key repeats in the row
+  extern __shared__ int2 s_dyn[];
+  const int bits = kResidue ? bk.bits : kTermBits;
+  const int n_keys = SC + bk.R * bk.scb;
+  int2* s_tab = kResidue ? s_dyn : s_tab1;  // (key, f32 value bits)
+  int* s_qc = kResidue ? reinterpret_cast<int*>(s_dyn + (1 << bits)) : s_qc1;
+  float* s_qv = kResidue ? reinterpret_cast<float*>(s_qc + n_keys) : s_qv1;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  term_table_clear(s_tab, &s_dup);
-  stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
+  term_table_clear(s_tab, &s_dup, bits);
+  if constexpr (kResidue) {
+    // the plain terms under key(id, R), then the bucket entries under
+    // key(id, r); ids outside int16 equal no code and stay out
+    if (tid < 32) {
+      const int R = bk.R, scb = bk.scb;
+      const int n = stage_row(
+          qc, qv, b, SC,
+          [R](int, int c) {
+            return c >= kMinCode && c <= kMaxCode ? key_of(c, R) : kQlocPad;
+          },
+          s_qc, s_qv);
+      const int nb = stage_row(
+          bk.qcb, bk.qvb, b, R * scb,
+          [scb](int i, int c) {
+            return c >= 0 && c <= kMaxCode ? key_of(c, i / scb) : kQlocPad;
+          },
+          s_qc + n, s_qv + n);
+      if (tid == 0) s_n = n + nb;
+    }
+  } else {
+    stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
+  }
   __syncthreads();
-  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);
+  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup, bits);
+
+  // chunk c's tag: its group r, or R in the spill region
+  const int n_group = kResidue ? bk.R * bk.VRS : 0;
+  auto tag_of = [&](int c) {
+    return 8 * c < n_group ? 8 * c / bk.VRS : bk.R;
+  };
+  // chunk c's 8 values: its codes' keys looked up, key(code, tag) for K9
+  auto find8 = [&](int tag, int4 chunk, float (&x)[8]) {
+    int k[8];
+    decode8(chunk, k);
+    if constexpr (kResidue) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) k[j] = key_of(k[j], tag);
+    }
+    lookup8(s_tab, k, x, bits);
+  };
 
   // a warp per pair; lane l holds the values of chunks l + 32 i (i <
-  // kHeld) of 8 codes in registers from the lookup to the store, and looks
-  // up any chunk past them (V > 1024) again for the store
+  // kHeldN) of 8 codes in registers from the lookup to the store, and looks
+  // up any chunk past them (V > 256 kHeldN) again for the store
   const int lane = tid & 31;
   const int nch = V / 8;
+  int tags[kHeldN];  // the same chunks for every pair of the row (K9)
+#pragma unroll
+  for (int i = 0; i < kHeldN; ++i) tags[i] = tag_of(lane + 32 * i);
   for (int j = tid >> 5; j < QC; j += blockDim.x >> 5) {
     const int64_t p = static_cast<int64_t>(b) * QC + j;
     const int64_t vr = pair_list != nullptr ? pair_list[p] : p;
     const int4* vrow = reinterpret_cast<const int4*>(vocab + vr * V);
     int8_t* orow = out_f32 == nullptr ? out + p * V : nullptr;
     float* frow = out_f32 == nullptr ? nullptr : out_f32 + p * V;
-    int4 held[kHeld];
+    int4 held[kHeldN];
 #pragma unroll
-    for (int i = 0; i < kHeld; ++i) {
+    for (int i = 0; i < kHeldN; ++i) {
       const int c = lane + 32 * i;
       held[i] = c < nch ? vrow[c] : make_int4(0, 0, 0, 0);
     }
-    float xs[kHeld][8];
+    float xs[kHeldN][8];
     float amax = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kHeld; ++i) {
+    for (int i = 0; i < kHeldN; ++i) {
       if (lane + 32 * i < nch) {
-        lookup8(s_tab, held[i], xs[i]);
+        find8(tags[i], held[i], xs[i]);
         amax = amax8(xs[i], amax);
         if (frow != nullptr) store8(xs[i], 0.0f, orow, frow, lane + 32 * i);
       }
     }
-    for (int c = lane + 32 * kHeld; c < nch; c += 32) {
+    for (int c = lane + 32 * kHeldN; c < nch; c += 32) {
       float x[8];
-      lookup8(s_tab, vrow[c], x);
+      find8(tag_of(c), vrow[c], x);
       amax = amax8(x, amax);
       if (frow != nullptr) store8(x, 0.0f, orow, frow, c);
     }
@@ -171,63 +253,122 @@ qloc_kernel(const int16_t* __restrict__ vocab,  // [n_lists, V] or [P, V]
     const float sc = quant_scale(amax);
     if (lane == 0) scale[p] = sc;
 #pragma unroll
-    for (int i = 0; i < kHeld; ++i) {
+    for (int i = 0; i < kHeldN; ++i) {
       if (lane + 32 * i < nch) store8(xs[i], sc, orow, frow, lane + 32 * i);
     }
-    for (int c = lane + 32 * kHeld; c < nch; c += 32) {
+    for (int c = lane + 32 * kHeldN; c < nch; c += 32) {
       float x[8];
-      lookup8(s_tab, vrow[c], x);
+      find8(tag_of(c), vrow[c], x);
       store8(x, sc, orow, frow, c);
     }
   }
 }
 
+#define QLOC_PARAMS                                                     \
+  const int16_t* __restrict__ vocab, const int* __restrict__ pair_list,  \
+      const int* __restrict__ qc, const float* __restrict__ qv, int V,  \
+      int SC, int QC, int8_t* __restrict__ out, float* __restrict__ scale, \
+      float* __restrict__ out_f32, Buckets bk
+#define QLOC_ARGS vocab, pair_list, qc, qv, V, SC, QC, out, scale, out_f32, bk
+
+__global__ void __launch_bounds__(kQlocThreads) qloc_kernel(QLOC_PARAMS) {
+  qloc_body<false, kHeld>(QLOC_ARGS);
+}
+
+// K9 keeps more in registers than K1 (its chunks' tags, the key
+// arithmetic): left to itself ptxas gives it more than 64 registers;
+// capped for 4 blocks of 8 warps an SM, a lane holds 2 chunks (all that a
+// row of V <= 512 has) and looks the rest of a wider row up again.
+constexpr int kResidueBlocks = 4;
+constexpr int kResidueHeld = 2;
+
+__global__ void __launch_bounds__(kQlocThreads, kResidueBlocks)
+    qloc_residue_kernel(QLOC_PARAMS) {
+  qloc_body<true, kResidueHeld>(QLOC_ARGS);
+}
+
+template <bool kResidue>
 int launch(const int16_t* vocab, const int* pair_list, const int* qc,
            const float* qv, int P, int V, int SC, int QC, int8_t* out,
-           float* scale, float* out_f32, cudaStream_t stream) {
-  if (V % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+           float* scale, float* out_f32, const Buckets& bk,
+           cudaStream_t stream) {
+  if (V % 8 != 0 || SC > kQlocMaxTerms) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (P > 0) {
     // QC pairs on as few rounds of at most 8 warps as they need
     const int rounds = (QC + kMaxWarps - 1) / kMaxWarps;
     const int warps = (QC + rounds - 1) / rounds;
-    qloc_kernel<<<P / QC, warps * 32, 0, stream>>>(
-        vocab, pair_list, qc, qv, V, SC, QC, out, scale, out_f32);
+    const dim3 grid(P / QC), block(warps * 32);
+    if constexpr (kResidue) {
+      // the table, then the staged keys and values
+      const size_t smem = (sizeof(int2) << bk.bits) +
+                          static_cast<size_t>(SC + bk.R * bk.scb) * 8;
+      qloc_residue_kernel<<<grid, block, smem, stream>>>(QLOC_ARGS);
+    } else {
+      qloc_kernel<<<grid, block, 0, stream>>>(QLOC_ARGS);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+constexpr Buckets kNoBuckets = {nullptr, nullptr, 0, 0, 0, 0};
+
+#undef QLOC_PARAMS
+#undef QLOC_ARGS
 
 }  // namespace
 
 extern "C" {
 
-// the cap of the block-held projection epilogue (qloc_common.cuh) that
-// qloc_residue.cu keeps; this file's kernel takes any V % 8 == 0
-int seismic_qloc_max_v() { return kQlocThreads * kQlocMaxSlotsPerThread; }
 int seismic_qloc_max_terms() { return kQlocMaxTerms; }
+int seismic_qloc_residue_max_bucket_slots() { return kMaxBucketSlots; }
 
 // vocab int16 [n_lists, V] (-1 padded); qc / qv [B, SC], P = B * QC
 int seismic_qloc_quantize(const int16_t* vocab, const int* pair_list,
                           const int* qc, const float* qv, int P, int V,
                           int SC, int QC, int8_t* out, float* scale,
                           cudaStream_t stream) {
-  return launch(vocab, pair_list, qc, qv, P, V, SC, QC, out, scale, nullptr,
-                stream);
+  return launch<false>(vocab, pair_list, qc, qv, P, V, SC, QC, out, scale,
+                       nullptr, kNoBuckets, stream);
 }
 
 // the same projection, unquantized: out f32 [P, V]
 int seismic_qloc_f32(const int16_t* vocab, const int* pair_list,
                      const int* qc, const float* qv, int P, int V, int SC,
                      int QC, float* out, cudaStream_t stream) {
-  return launch(vocab, pair_list, qc, qv, P, V, SC, QC, nullptr, nullptr,
-                out, stream);
+  return launch<false>(vocab, pair_list, qc, qv, P, V, SC, QC, nullptr,
+                       nullptr, out, kNoBuckets, stream);
 }
 
 // row-major: vocab_rows int16 [P, V], qc / qv [P, SC], one row each a pair
 int seismic_qloc_rowmajor(const int16_t* vocab_rows, const int* qc,
                           const float* qv, int P, int V, int SC, int8_t* out,
                           float* scale, cudaStream_t stream) {
-  return launch(vocab_rows, nullptr, qc, qv, P, V, SC, 1, out, scale,
-                nullptr, stream);
+  return launch<false>(vocab_rows, nullptr, qc, qv, P, V, SC, 1, out, scale,
+                       nullptr, kNoBuckets, stream);
+}
+
+// K9: vocab residue-ordered (R groups of VRS slots, then the spill);
+// qcb / qvb [B, R * scb]. out_f32 null: int8 out [P, V] + scale [P]; else
+// the f32 projection. V % 8 == 0, VRS % 8 == 0, R * VRS <= V, SC <= 256,
+// R * scb <= 1024.
+int seismic_qloc_residue(const int16_t* vocab, const int* pair_list,
+                         const int* qcb, const float* qvb, const int* qc,
+                         const float* qv, int P, int V, int SC, int QC,
+                         int R, int scb, int VRS, int8_t* out, float* scale,
+                         float* out_f32, cudaStream_t stream) {
+  if (R <= 0 || scb <= 0 || R * scb > kMaxBucketSlots || VRS < 0 ||
+      VRS % 8 != 0 || R * VRS > V) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // a load factor <= 1/4 for SC plain terms and R * scb bucket entries,
+  // in at most 2^12 slots (<= 5/16 for the most keys, 256 + 1024)
+  int bits = kTermBits;
+  while (bits < kResidueMaxBits && (1 << bits) < 4 * (SC + R * scb)) ++bits;
+  const Buckets bk = {qcb, qvb, R, scb, VRS, bits};
+  return launch<true>(vocab, pair_list, qc, qv, P, V, SC, QC, out, scale,
+                      out_f32, bk, stream);
 }
 
 }  // extern "C"

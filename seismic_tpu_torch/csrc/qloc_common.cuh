@@ -1,8 +1,6 @@
-// What the query-projection kernels (qloc.cu, qloc_residue.cu) share: the
-// staging of a query's terms, the quantize's constants, and (for
-// qloc_residue.cu) the block-wide amax and per-pair int8 quantize of a
-// projection a block holds in registers (thread tid owns slots tid + j *
-// 256).
+// What the query-projection kernels (qloc.cu: K1, K8, K9) and the fused
+// rescore (rescore.cu, K3) share: the staging of a query row's terms in
+// shared memory and the per-pair quantize.
 #pragma once
 
 #include <cstdint>
@@ -10,33 +8,45 @@
 
 constexpr int kQlocThreads = 256;
 constexpr int kQlocMaxTerms = 256;
-constexpr int kQlocMaxSlotsPerThread = 16;  // V <= 4096 (K9)
 constexpr int kQlocPad = 0x7fffffff;        // PAD_COMPONENT
 
-// Order-keeping compaction of query row `row`'s real terms (PAD ids
-// dropped: they can never match, since the vocab pads with -1) into shared
-// memory, by warp 0 with one ballot per 32 terms; the other warps return
-// at once (the caller synchronises). Returns the count in *s_n.
+// Order-keeping compaction, by the one warp that calls it, with one ballot
+// per 32 entries, of the entries i < n of row `row` of (ids, vals) whose
+// key key_of(i, id) is not kQlocPad: their keys and values land in s_key /
+// s_val in entry order. Returns their count in every lane.
+template <class KeyOf>
+__device__ __forceinline__ int stage_row(const int* __restrict__ ids,
+                                         const float* __restrict__ vals,
+                                         int64_t row, int n, KeyOf key_of,
+                                         int* s_key, float* s_val) {
+  const int lane = threadIdx.x & 31;
+  int cnt = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const int key = i < n ? key_of(i, ids[row * n + i]) : kQlocPad;
+    const bool real = key != kQlocPad;
+    const unsigned mask = __ballot_sync(0xffffffffu, real);
+    if (real) {
+      const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
+      s_key[pos] = key;
+      s_val[pos] = vals[row * n + i];
+    }
+    cnt += __popc(mask);
+  }
+  return cnt;
+}
+
+// Query row `row`'s real terms (PAD ids dropped: they can never match,
+// since the vocab pads with -1), staged by warp 0, their count in *s_n;
+// the other warps return at once (the caller synchronises).
 __device__ __forceinline__ void stage_terms(const int* __restrict__ qc,
                                             const float* __restrict__ qv,
                                             int64_t row, int SC, int* s_qc,
                                             float* s_qv, int* s_n) {
   if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  int n = 0;
-  for (int i0 = 0; i0 < SC; i0 += 32) {
-    const int i = i0 + lane;
-    const int c = i < SC ? qc[row * SC + i] : kQlocPad;
-    const bool real = c != kQlocPad;
-    const unsigned mask = __ballot_sync(0xffffffffu, real);
-    if (real) {
-      const int pos = n + __popc(mask & ((1u << lane) - 1u));
-      s_qc[pos] = c;
-      s_qv[pos] = qv[row * SC + i];
-    }
-    n += __popc(mask);
-  }
-  if (lane == 0) *s_n = n;
+  const int n = stage_row(qc, qv, row, SC, [](int, int c) { return c; },
+                          s_qc, s_qv);
+  if (threadIdx.x == 0) *s_n = n;
 }
 
 // The per-pair quantize, the same f32 ops as the XLA chain and as the
@@ -49,51 +59,4 @@ __device__ __forceinline__ float quant_scale(float amax) {
 
 __device__ __forceinline__ int8_t quantize(float x, float sc) {
   return static_cast<int8_t>(__float2int_rn(__fdiv_rn(x, sc)));
-}
-
-// Store the pair's projection acc (thread tid owns slots tid + j * 256):
-// as f32 when out_f32 is given, else quantized,
-//   scale = max(max_v |acc|, 1e-20) * f32(1 / 127)
-//   q_i8[v] = round_half_even(acc[v] / scale)
-// (quant_scale, quantize). s_red: shared float[8].
-__device__ __forceinline__ void store_projection(
-    const float (&acc)[kQlocMaxSlotsPerThread], float amax, int V,
-    float* s_red, int8_t* __restrict__ out_i8, float* __restrict__ scale,
-    float* __restrict__ out_f32, int64_t p) {
-  const int tid = threadIdx.x;
-  if (out_f32 != nullptr) {
-    float* orow = out_f32 + p * V;
-#pragma unroll
-    for (int j = 0; j < kQlocMaxSlotsPerThread; ++j) {
-      const int v = tid + j * kQlocThreads;
-      if (v < V) orow[v] = acc[j];
-    }
-    return;
-  }
-  // block max of |qloc| over the V slots
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  }
-  if ((tid & 31) == 0) s_red[tid >> 5] = amax;
-  __syncthreads();
-  if (tid < 32) {
-    float m = tid < kQlocThreads / 32 ? s_red[tid] : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    if (tid == 0) s_red[0] = m;
-  }
-  __syncthreads();
-  const float sc = quant_scale(s_red[0]);
-  int8_t* orow = out_i8 + p * V;
-#pragma unroll
-  for (int j = 0; j < kQlocMaxSlotsPerThread; ++j) {
-    const int v = tid + j * kQlocThreads;
-    if (v < V) {
-      orow[v] = quantize(acc[j], sc);
-    }
-  }
-  if (tid == 0) scale[p] = sc;
 }

@@ -41,9 +41,11 @@ import torch
 from ..device import full_f32, resolve_device
 from ..ops import probe_kernels as pk
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 CUDA-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 CUDA-core and
+# dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
 SOURCE = "seismic_tpu_torch/csrc/device_probe.cu"
 JAX_PROBE = "seismic_tpu/harness/device_probe.py"
 PROBES = []
@@ -110,6 +112,7 @@ def device_ms(fn, dev, n: int = 50, flush=None):
     fn()
     if flush is None:
         return window(fn)
+    flush.zero_()  # its first launch outside the window (lazy loading)
 
     def flushed():
         flush.zero_()
@@ -129,10 +132,11 @@ def launch_floor_us(dev, reps: int = 1000):
             device_ms(empty, dev) * 1e3)
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, op_peak: float = PEAK_F32):
     """(bound_ms, bound_by): the larger of the bytes at the memory rate and
-    the operations at the f32 CUDA-core rate."""
-    tb, to = nbytes / PEAK_BYTES, nops / PEAK_F32
+    the operations at the rate of their route (`op_peak`: the f32
+    CUDA-core rate unless a kernel runs on the tensor cores)."""
+    tb, to = nbytes / PEAK_BYTES, nops / op_peak
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
@@ -145,15 +149,16 @@ def _host(x):
 
 
 def _kernel_record(probe_name, kernel, line, dev, reps, ok, err, run, plain,
-                   library, nbytes, nops, **extra):
+                   library, nbytes, nops, op_peak=PEAK_F32, **extra):
     """The record of a kernel probe: times of the kernel, its plain version
     and the library call (`library` = (description, fn) or (reason, None)),
     each the mean of back-to-back calls; the device time per call of the
     kernel (`device_ms`, its operands left in L2 by the call before, and
     `device_cold_ms`, L2 flushed before each call) and of the library call
     (`library_device_ms`, `library_device_cold_ms`); the bound; the calls
-    made to the kernel's wrapper."""
-    b, bb = bound(nbytes, nops)
+    made to the kernel's wrapper. `nops` counts the operations of the
+    kernel's route, at `op_peak`."""
+    b, bb = bound(nbytes, nops, op_peak)
     lib_name, lib_fn = library
     n_dev = 50
     flush = (torch.empty(1 << 26, dtype=torch.float32, device=dev)
@@ -473,18 +478,26 @@ def int8_cast_matmul(dev, reps, inputs=None):
     out = pk.i8_matmul(tile, q)
     plain = pk.i8_matmul_plain(tile, q)
     t64, q64 = a["tile"].astype(np.float64), a["q"].astype(np.float64)
-    ok, err = _product_check(out, plain, t64 @ q64,
-                             np.abs(t64) @ np.abs(q64))
+    ref, absum = t64 @ q64, np.abs(t64) @ np.abs(q64)
+    ok, err = _product_check(out, plain, ref, absum)
     (M, K), N = a["tile"].shape, a["q"].shape[1]
     tile_f = tile.to(torch.float32)
+    f32_ops = 2.0 * M * K * N
     rec = _kernel_record(
         "int8_cast_matmul", "i8_matmul", 411, dev, reps, ok, err,
         lambda: pk.i8_matmul(tile, q), lambda: pk.i8_matmul_plain(tile, q),
         ("torch.matmul(tile_f32, q) (tile cast outside the timing)",
          lambda: torch.matmul(tile_f, q)),
-        nbytes=M * K + K * N * 4 + M * N * 4, nops=2.0 * M * K * N,
-        tolerance="1e-6 * sum_k |tile * q| of the f64 product")
-    print(f"[int8_cast_matmul] ok={ok} {rec['ms']*1e3:.1f} us")
+        # three bf16 products on the tensor cores (q split into 3 terms)
+        nbytes=M * K + K * N * 4 + M * N * 4, nops=3 * f32_ops,
+        op_peak=PEAK_BF16, tolerance="1e-6 * sum_k |tile * q| of the f64 "
+        "product",
+        f32_ops_bound_ms=bound(0, f32_ops)[0],
+        tolerance_share=float(
+            (np.abs(_host(out).astype(np.float64) - ref)
+             / (1e-6 * absum)).max()))
+    print(f"[int8_cast_matmul] ok={ok} {rec['ms']*1e3:.1f} us, error "
+          f"{rec['tolerance_share']:.3f} of the tolerance")
     return rec
 
 

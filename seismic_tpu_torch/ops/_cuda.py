@@ -27,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 KERNELS = ("qloc", "grouped_scorer", "grouped_scorer_item", "rescore",
-           "tiles_scorer", "grouped_scorer_f", "qloc_residue", "device_probe")
+           "tiles_scorer", "grouped_scorer_f", "device_probe")
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

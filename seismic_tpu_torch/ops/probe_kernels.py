@@ -321,14 +321,21 @@ def take_along_axis(table, idx):
 
 
 def i8_matmul(tile, q):
-    """tile int8 [M, K]; q f32 [K, N]. Returns f32 [M, N] = f32(tile) @ q."""
+    """tile int8 [M, K]; q f32 [K, N], any M, K, N >= 0. Returns f32 [M, N]
+    = f32(tile) @ q. The kernel runs on the bf16 tensor cores: the int8
+    values are exact in bf16 and q is split into three bf16 terms that sum
+    to it exactly, so every product is exact and only the f32 sums round
+    (within 1e-6 * sum_k |tile * q| of an f64 product); a block computes a
+    32 x 16 tile, its 8 warps splitting K, so [512, 512] @ [512, 128]
+    spreads over 128 blocks."""
     req = _cuda.require
     req(tile.dim() == 2 and tile.dtype == torch.int8, "tile must be int8")
     req(q.dim() == 2 and q.dtype == torch.float32
         and q.shape[0] == tile.shape[1], "q must be f32 [K, N]")
-    if not _on_card("i8_matmul", (tile, q)):
+    if not _on_card("i8_matmul", (tile, q), aligned=False):
         return i8_matmul_plain(tile, q)
     (M, K), N = tile.shape, q.shape[1]
+    req(N <= 65535 * 16, f"N={N} exceeds the kernel's grid")
     out = torch.empty((M, N), dtype=torch.float32, device=tile.device)
     p = _cuda.ptr
     _launch("i8_matmul", _lib().seismic_probe_i8_matmul, p(tile), p(q), M,

@@ -2,11 +2,11 @@
 
 Counterpart of `seismic_tpu/ops/pallas_qloc.py::project_qloc_residue` (and
 of the per-pair quantize after it, `seismic_tpu/search/grouped.py:763-771`,
-when the scorer is int8), in `csrc/qloc_residue.cu`. The index was uploaded
-with `vocab_residue=R`: every list's vocabulary is R groups of VRS slots
-(group r holds the list's terms with term % R == r) plus a spill region
-(`ops/tiles_prep.py::residue_layout`). For pair p of query b = p // QC over
-list l = pair_list[p]:
+when the scorer is int8), the entry point `seismic_qloc_residue` of
+`csrc/qloc.cu`. The index was uploaded with `vocab_residue=R`: every list's
+vocabulary is R groups of VRS slots (group r holds the list's terms with
+term % R == r) plus a spill region (`ops/tiles_prep.py::residue_layout`).
+For pair p of query b = p // QC over list l = pair_list[p]:
 
     v <  R*VRS: qloc[p, v] = sum_{i<scb} qvb[b, r*scb+i]
                              * [vocab[l, v] == qcb[b, r*scb+i]],  r = v // VRS
@@ -17,6 +17,14 @@ list l = pair_list[p]:
 f32 projection, or with `quantize=True` (q_i8, scale) as K1 does; it
 launches the kernel for CUDA tensors and uses the plain PyTorch version,
 `project_qloc_residue_plain`, for CPU tensors.
+
+The kernel is K1's term lookup (one block a query row, a warp a pair, a
+lookup a code) over one hash table of two kinds of key: the row's real
+bucket entries, each keyed by its id and its bucket, serve the group
+slots, and its plain terms, keyed by their id and R, the spill slots. So a
+slot costs one lookup instead of a compare with every term of its bucket,
+and the sums are the plain version's bit for bit. Operands it takes: V % 8 == 0, at most 256
+plain terms, R * scb <= 1024; bucket ids below 0 are padding.
 """
 
 from __future__ import annotations
@@ -26,12 +34,11 @@ import ctypes
 import torch
 
 from . import _cuda
-from .qloc import quantize_plain
+from .qloc import _lib, quantize_plain
 from .tiles_prep import residue_layout
 
 # kernel launches since the count was last set to 0
 launches = 0
-_handle = None
 
 
 def project_qloc_residue_plain(vocab, pair_list, qcb, qvb, qc, qv, QC: int,
@@ -61,19 +68,6 @@ def project_qloc_residue_plain(vocab, pair_list, qcb, qvb, qc, qv, QC: int,
                                     zero)
     acc = torch.cat([acc_g.reshape(P, R * VRS), acc_s], dim=1)
     return quantize_plain(acc) if quantize else acc
-
-
-def _lib():
-    global _handle
-    if _handle is None:
-        lib = _cuda.load("qloc_residue")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.seismic_qloc_residue.argtypes = [
-            p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
-        lib.seismic_qloc_residue.restype = ctypes.c_int
-        lib.seismic_qloc_residue_max_bucket_slots.restype = ctypes.c_int
-        _handle = lib
-    return _handle
 
 
 def project_qloc_residue(vocab, pair_list, qcb, qvb, qc, qv, QC: int, R: int,
@@ -109,13 +103,9 @@ def project_qloc_residue(vocab, pair_list, qcb, qvb, qc, qv, QC: int, R: int,
     req(dev.type == "cuda", f"unsupported device {dev}")
     req(all(t.is_contiguous() for t in (vocab, pair_list, qcb, qvb, qc, qv)),
         "operands must be contiguous")
-    from .qloc import _lib as qloc_lib  # the caps the two kernels share
-
-    caps = qloc_lib()
     lib = _lib()
     P, SC = pair_list.shape[0], qc.shape[1]
-    req(V <= caps.seismic_qloc_max_v(), f"V={V} exceeds the kernel's cap")
-    req(SC <= caps.seismic_qloc_max_terms(), f"{SC} terms exceed the cap")
+    req(SC <= lib.seismic_qloc_max_terms(), f"{SC} terms exceed the cap")
     req(R * scb <= lib.seismic_qloc_residue_max_bucket_slots(),
         f"{R * scb} bucket slots exceed the cap")
     p = _cuda.ptr

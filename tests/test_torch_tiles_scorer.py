@@ -150,6 +150,12 @@ def test_kernel_library_named_by_source_and_flags():
     assert mma in _cuda.source_with_headers(_cuda._src("tiles_scorer"))
     assert pack not in _cuda.source_with_headers(_cuda._src("rescore"))
     assert "tiles_scorer" in _cuda.KERNELS
+    # K9 is a variant of K1's kernel, in K1's library with its term table;
+    # K17 (the probe library) takes the tile body's bf16 mma
+    assert "qloc_residue" not in _cuda.KERNELS
+    assert header("term_table.cuh") in _cuda.source_with_headers(
+        _cuda._src("qloc"))
+    assert mma in _cuda.source_with_headers(_cuda._src("device_probe"))
     # headers of headers too, each once
     with tempfile.TemporaryDirectory() as d:
         for fname, text in (("k.cu", b'#include "a.cuh"\n#include "b.cuh"\n'),
