@@ -93,7 +93,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    other kernel never); the launch floor (an empty kernel, timed both
    ways); K17's route from the SASS of its kernel (the run fails if it
    holds no HMMA.16816.F32.BF16), with its ptxas lines and its error as a
-   share of the tolerance; then the microbench once
+   share of the tolerance; the ptxas lines of K10 and of K12 / K16's one
+   kernel (`compare_lookup_kernel`); then the microbench once
    (`harness/microbench.py`).
 
 Every one of these windows sets the launch counts of all eighteen wrappers
@@ -1930,6 +1931,13 @@ def probe_path(dev, record) -> list:
     k10 = kernels[PROBE_KERNELS.index("table_take")]
     k10["ptxas"] = ptxas_of("device_probe", "table_take")
     log(f"phase 7: K10 table_take ptxas: {k10['ptxas']}")
+    # K12 and K16 launch one kernel, a term lookup
+    ptx12 = ptxas_of("device_probe", "compare_lookup_kernel")
+    if not ptx12:
+        fail("phase 7: no ptxas line of K12 / K16's compare_lookup_kernel")
+    for n_ in ("compare_intersect", "compare_term_loop"):
+        kernels[PROBE_KERNELS.index(n_)]["ptxas"] = ptx12
+    log(f"phase 7: K12 / K16 compare_lookup_kernel ptxas: {ptx12}")
     # K17's route, from the SASS of its kernel: the bf16 tensor cores
     k17 = kernels[PROBE_KERNELS.index("i8_matmul")]
     sass = sass_of("device_probe")

@@ -24,20 +24,24 @@
 // costs more than most. The designs are the simple right ones: a warp per
 // output row with 16-byte loads where rows are long, short operands every
 // row of a block reads staged in shared memory, K10's table read through
-// the caches, f32 FMAs on the CUDA cores, except K17, whose product runs
-// on the bf16 tensor cores (mma.sync) over a grid that fills the card.
+// the caches, f32 FMAs on the CUDA cores; K12 and K16 are one kernel that
+// looks each element up in a shared-memory hash table of the query's
+// terms (term_table.cuh, as K1, K3, K8 and K9), over 4-warp blocks that
+// fill the card; K17's product runs on the bf16 tensor cores (mma.sync)
+// over a grid that fills the card.
 
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "grouped_i8_mma.cuh"  // mma_bf16, int4_word, MmaBf16 (K17)
+#include "term_table.cuh"      // the term lookup (K12, K16)
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTerms = 1024;  // K12 stages at most this many query terms
+constexpr int kMaxTerms = 1024;  // K12 / K16 take at most this many terms
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -115,72 +119,253 @@ row_gather_kernel(const float* __restrict__ src, int64_t n,
   }
 }
 
-// ---- K12 / K16: compare-intersection scoring ----
+// ---- K12 / K16: compare-intersection scoring, as a term lookup ----
 //   out[t] = sum_w vals[t, w] * sum_q qv[q] * [comps[t, w] == qc[q]]
-// A warp per row t. K12 keeps its TPU body's broadcast form: each element
-// meets every term (terms staged in shared memory, broadcast reads). K16
-// keeps its terms-outer loop: each lane holds its kPer elements' partial
-// matches in registers and walks the terms, read as scalars (one address
-// for the whole warp) from device memory. Every match adds: duplicate ids
-// among the terms add their values.
-constexpr int kPer = 8;
+//          = sum_w vals[t, w] * qd[comps[t, w]]
+// where qd[c] is the f32 sum, in term order from 0.0f, of the values of
+// the terms whose id is c: the compare loop's own sum (term_table.cuh).
+// The two TPU bodies differ only in loop form (K12's broadcast compare,
+// K16's loop over the terms outside), so both entry points launch this
+// one kernel. Bound on an H100: the bytes (T W 8 + Q 8 + T 4, 0.63 us at
+// the probe's [1024, 256] x 64 terms), under a launch; where a compare
+// loop runs Q dependent compare-selects an element, the lookup does one
+// shared-memory probe and one FMA.
+//
+// A block of kCmpWarps warps, a warp a row, so the probe's 1024 rows fill
+// 256 blocks (about 2 an SM). Each thread issues its terms' loads, then
+// its warp's row's first pass of loads (16-byte loads of comps and vals
+// where W % 4 == 0 and both are 16-byte aligned, scalar loads otherwise)
+// before the table is built, so the build runs under the row's latency.
+// The block stages the terms in shared memory and enters them into
+// term_table.cuh's table (build_terms: an atomicCAS a term, a repeated id
+// summed in term order by a warp). The table's empty key kTermEmpty
+// cannot be entered: the values of the terms equal to it are summed in
+// term order into one shared scalar, which an element equal to it reads.
+// Most elements miss, and a miss walks past every key in its way, so the
+// table is sparse: 2^bits >= 16 Q slots, from 1024 (8 KB) up to 4096 (32
+// KB, a load 1/4 at kMaxTerms), in dynamic shared memory. Each lane then
+// looks its kCmpPer elements of a pass up, all walks stepping together
+// (lookup_together), and adds vals * qd with fmaf; a warp sum gives the
+// row. A row wider than a pass loops.
+constexpr int kCmpWarps = 4;
+constexpr int kCmpThreads = kCmpWarps * 32;
+constexpr int kCmpPer = 8;              // elements of a lane a pass
+constexpr int kCmpPass = 32 * kCmpPer;  // elements of a row a pass
+constexpr int kCmpMinBits = 10;
+constexpr int kCmpMaxBits = 12;
 
-template <bool kTermsOuter>
-__global__ void __launch_bounds__(kThreads)
-compare_kernel(const int* __restrict__ comps, const float* __restrict__ vals,
-               const int* __restrict__ qc, const float* __restrict__ qv,
-               int T, int W, int Q, float* __restrict__ out) {
-  __shared__ int s_qc[kTermsOuter ? 1 : kMaxTerms];
-  __shared__ float s_qv[kTermsOuter ? 1 : kMaxTerms];
-  if constexpr (!kTermsOuter) {
-    for (int i = threadIdx.x; i < Q; i += blockDim.x) {
-      s_qc[i] = qc[i];
-      s_qv[i] = qv[i];
+// The summed values of a lane's kCmpPer ids (0.0f for an id no term has,
+// and for kTermEmpty, which is not probed): the first probes of all of
+// them are issued together, then every id still on another id's slot
+// steps on at once, so a lane waits for its longest walk, not for the
+// sum of its walks (lookup8 walks one id after the other).
+__device__ __forceinline__ void lookup_together(const int2* s_tab,
+                                                const int (&c)[kCmpPer],
+                                                float (&x)[kCmpPer],
+                                                int bits) {
+  int h[kCmpPer];
+  int2 e[kCmpPer];
+#pragma unroll
+  for (int k = 0; k < kCmpPer; ++k) {
+    h[k] = term_slot(c[k], bits);
+    e[k] = c[k] != kTermEmpty ? s_tab[h[k]] : make_int2(kTermEmpty, 0);
+  }
+  for (bool walk = true; walk;) {
+    walk = false;
+#pragma unroll
+    for (int k = 0; k < kCmpPer; ++k) {
+      if (e[k].x != c[k] && e[k].x != kTermEmpty) {
+        h[k] = term_next(h[k], bits);
+        e[k] = s_tab[h[k]];
+        walk = true;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCmpPer; ++k) {
+    x[k] = e[k].x == c[k] ? __int_as_float(e[k].y) : 0.0f;
+  }
+}
+
+// A lane's kCmpPer elements of the pass from w0: with kVec those at w0 +
+// 4 (lane + 32 h) + j (two 16-byte loads of each operand), else those at
+// w0 + lane + 32 k. Elements past W read nothing: in[k] is false.
+template <bool kVec>
+__device__ __forceinline__ void load_pass(const int* __restrict__ crow,
+                                          const float* __restrict__ vrow,
+                                          int w0, int W, int lane,
+                                          int (&c)[kCmpPer],
+                                          float (&v)[kCmpPer],
+                                          bool (&in)[kCmpPer]) {
+  if constexpr (kVec) {
+#pragma unroll
+    for (int h = 0; h < kCmpPer / 4; ++h) {
+      const int w = w0 + 4 * (lane + 32 * h);
+      const bool ok = w < W;  // W % 4 == 0: all four or none
+      const int4 ci = ok ? *reinterpret_cast<const int4*>(crow + w)
+                         : make_int4(kTermEmpty, kTermEmpty, kTermEmpty,
+                                     kTermEmpty);
+      const float4 vi = ok ? *reinterpret_cast<const float4*>(vrow + w)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const int cs[4] = {ci.x, ci.y, ci.z, ci.w};
+      const float vs[4] = {vi.x, vi.y, vi.z, vi.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[4 * h + j] = cs[j];
+        v[4 * h + j] = vs[j];
+        in[4 * h + j] = ok;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kCmpPer; ++k) {
+      const int w = w0 + lane + 32 * k;
+      in[k] = w < W;
+      c[k] = in[k] ? crow[w] : kTermEmpty;
+      v[k] = in[k] ? vrow[w] : 0.0f;
+    }
+  }
+}
+
+// The f32 sum, in term order from 0.0f, of the values of the staged terms
+// whose id is c, by one warp, 32 terms a step (a ballot of the matches,
+// their values added lane by lane); every lane returns it.
+__device__ __forceinline__ float sum_in_order(const int* s_qc,
+                                              const float* s_qv, int Q,
+                                              int c) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float sum = 0.0f;
+  for (int j0 = 0; j0 < Q; j0 += 32) {
+    const int j = j0 + lane;
+    const bool hit = j < Q && s_qc[j] == c;
+    const float v = hit ? s_qv[j] : 0.0f;
+    for (unsigned m = __ballot_sync(all, hit); m; m &= m - 1u) {
+      sum += __shfl_sync(all, v, __ffs(m) - 1);
+    }
+  }
+  return sum;
+}
+
+// Enter the Q staged terms (s_qc / s_qv, in term order) into the cleared
+// table, as term_table_build does (one atomicCAS a term, each id's values
+// summed in term order from 0.0f), except that a kTermEmpty term is left
+// out and that a repeated id is summed by a warp (sum_in_order), where
+// term_table_build has the first of its terms walk the terms alone. Every
+// thread of the block calls it (Q <= 32 * kCmpThreads); it returns after
+// the block's last __syncthreads, the table complete.
+__device__ __forceinline__ void build_terms(int2* s_tab, const int* s_qc,
+                                            const float* s_qv, int Q,
+                                            int* s_dup, int bits) {
+  const unsigned all = 0xffffffffu;
+  const int tid = threadIdx.x, lane = tid & 31;
+  unsigned rep = 0u;  // bit k: the thread's k-th term found its id entered
+  for (int i = tid, k = 0; i < Q; i += kCmpThreads, ++k) {
+    const int c = s_qc[i];
+    if (c == kTermEmpty) continue;
+    int h = term_slot(c, bits);
+    int prev;
+    while ((prev = atomicCAS(&s_tab[h].x, kTermEmpty, c)) != kTermEmpty &&
+           prev != c) {
+      h = term_next(h, bits);
+    }
+    if (prev == kTermEmpty) {
+      s_tab[h].y = __float_as_int(__fadd_rn(0.0f, s_qv[i]));
+    } else {
+      rep |= 1u << k;
+      *s_dup = 1;
+    }
+  }
+  __syncthreads();
+  if (!*s_dup) return;
+  // each warp takes the repeated terms its lanes found, one at a time; the
+  // lane that found one writes the id's sum (another term of the id may
+  // write the same sum)
+  for (unsigned who; (who = __ballot_sync(all, rep != 0u));) {
+    const int src = __ffs(who) - 1;
+    const int k = __ffs(__shfl_sync(all, rep, src)) - 1;
+    const int c = s_qc[tid - lane + src + k * kCmpThreads];
+    const float sum = sum_in_order(s_qc, s_qv, Q, c);
+    if (lane == src) {
+      rep &= rep - 1u;
+      int h = term_slot(c, bits);
+      while (s_tab[h].x != c) h = term_next(h, bits);
+      s_tab[h].y = __float_as_int(sum);
+    }
+  }
+  __syncthreads();
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kCmpThreads)
+compare_lookup_kernel(const int* __restrict__ comps,
+                      const float* __restrict__ vals,
+                      const int* __restrict__ qc, const float* __restrict__ qv,
+                      int T, int W, int Q, int bits,
+                      float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  int2* s_tab = reinterpret_cast<int2*>(s_raw);
+  int* s_qc = reinterpret_cast<int*>(s_tab + (1 << bits));
+  float* s_qv = reinterpret_cast<float*>(s_qc + Q);
+  __shared__ int s_dup;
+  __shared__ float s_empty;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = blockIdx.x * kCmpWarps + warp;
+  const bool row_ok = t < T;
+  const int* crow = comps + static_cast<int64_t>(row_ok ? t : 0) * W;
+  const float* vrow = vals + static_cast<int64_t>(row_ok ? t : 0) * W;
+  // every thread stages its terms in place (term order kept), their loads
+  // issued first: the table waits for them, the lookups for the row's
+  if (threadIdx.x == 0) s_empty = 0.0f;
+  int has_empty = 0;
+  for (int i = threadIdx.x; i < Q; i += kCmpThreads) {
+    const int cq = qc[i];
+    s_qc[i] = cq;
+    s_qv[i] = qv[i];
+    has_empty |= cq == kTermEmpty;
+  }
+  int c[kCmpPer];
+  float v[kCmpPer];
+  bool in[kCmpPer];
+  if (row_ok) load_pass<kVec>(crow, vrow, 0, W, lane, c, v, in);
+  term_table_clear(s_tab, &s_dup, bits);
+  has_empty = __syncthreads_or(has_empty);
+  build_terms(s_tab, s_qc, s_qv, Q, &s_dup, bits);
+  if (has_empty) {
+    // the values of the terms equal to the empty key, summed by warp 0
+    if (warp == 0) {
+      const float empty = sum_in_order(s_qc, s_qv, Q, kTermEmpty);
+      if (lane == 0) s_empty = empty;
     }
     __syncthreads();
   }
-  const int lane = threadIdx.x & 31;
-  const int t = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (t >= T) return;
-  const int* crow = comps + static_cast<int64_t>(t) * W;
-  const float* vrow = vals + static_cast<int64_t>(t) * W;
+  if (!row_ok) return;
+
+  const float empty = s_empty;
   float part = 0.0f;
-  if constexpr (!kTermsOuter) {
-    for (int w = lane; w < W; w += 32) {
-      const int c = crow[w];
-      float m = 0.0f;
-      for (int q = 0; q < Q; ++q) {
-        m += (c == s_qc[q]) ? s_qv[q] : 0.0f;
-      }
-      part = fmaf(vrow[w], m, part);
+  for (int w0 = 0;;) {
+    float x[kCmpPer];
+    lookup_together(s_tab, c, x, bits);
+#pragma unroll
+    for (int k = 0; k < kCmpPer; ++k) {
+      const float qd = c[k] == kTermEmpty ? empty : x[k];
+      if (in[k]) part = fmaf(v[k], qd, part);
     }
-  } else {
-    for (int w0 = 0; w0 < W; w0 += 32 * kPer) {
-      int c[kPer];
-      float v[kPer], m[kPer];
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int w = w0 + lane + 32 * k;
-        c[k] = w < W ? crow[w] : 0;
-        v[k] = w < W ? vrow[w] : 0.0f;
-        m[k] = 0.0f;
-      }
-      for (int q = 0; q < Q; ++q) {
-        const int cq = qc[q];
-        const float vq = qv[q];
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          m[k] += (c[k] == cq) ? vq : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        if (w0 + lane + 32 * k < W) part = fmaf(v[k], m[k], part);
-      }
-    }
+    w0 += kCmpPass;
+    if (w0 >= W) break;
+    load_pass<kVec>(crow, vrow, w0, W, lane, c, v, in);
   }
   part = warp_sum(part);
   if (lane == 0) out[t] = part;
+}
+
+// The table's bits for Q <= kMaxTerms terms: 2^bits >= 16 Q, within
+// [kCmpMinBits, kCmpMaxBits].
+int compare_bits(int Q) {
+  int bits = kCmpMinBits;
+  while ((1 << bits) < 16 * Q && bits < kCmpMaxBits) ++bits;
+  return bits;
 }
 
 // ---- K13: out[m] = (sum_k f32(tile[m, k]) * q[k]) * scale[m] ----
@@ -467,11 +652,37 @@ int blocks_for(int64_t n, int per_block) {
   return static_cast<int>((n + per_block - 1) / per_block);
 }
 
+// K12 and K16: one launch of compare_lookup_kernel, 16-byte loads where
+// W % 4 == 0 and comps and vals are 16-byte aligned
+int compare_launch(const int* comps, const float* vals, const int* qc,
+                   const float* qv, int T, int W, int Q, float* out,
+                   cudaStream_t stream) {
+  if (Q < 0 || Q > kMaxTerms) return static_cast<int>(cudaErrorInvalidValue);
+  if (T > 0) {
+    const int bits = compare_bits(Q);
+    const size_t smem = (sizeof(int2) << bits) + Q * (sizeof(int) +
+                                                      sizeof(float));
+    const bool vec = W % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(comps) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+    const int blocks = blocks_for(T, kCmpWarps);
+    if (vec) {
+      compare_lookup_kernel<true><<<blocks, kCmpThreads, smem, stream>>>(
+          comps, vals, qc, qv, T, W, Q, bits, out);
+    } else {
+      compare_lookup_kernel<false><<<blocks, kCmpThreads, smem, stream>>>(
+          comps, vals, qc, qv, T, W, Q, bits, out);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The wrappers (ops/probe_kernels.py) hold the operands to these limits
-// before a launch: K12's terms to kMaxTerms, K13's K and K18's V to the
-// 48 KB of dynamic shared memory a block gets without opting in, / 4.
+// before a launch: K12's and K16's terms to kMaxTerms (their entry points
+// refuse more too), K13's K and K18's V to the 48 KB of dynamic shared
+// memory a block gets without opting in, / 4.
 extern "C" {
 
 int seismic_probe_empty(cudaStream_t stream) {
@@ -526,22 +737,14 @@ int seismic_probe_compare_intersect(const int* comps, const float* vals,
                                     const int* qc, const float* qv, int T,
                                     int W, int Q, float* out,
                                     cudaStream_t stream) {
-  if (T > 0) {
-    compare_kernel<false><<<blocks_for(T, kWarps), kThreads, 0, stream>>>(
-        comps, vals, qc, qv, T, W, Q, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return compare_launch(comps, vals, qc, qv, T, W, Q, out, stream);
 }
 
 int seismic_probe_compare_term_loop(const int* comps, const float* vals,
                                     const int* qc, const float* qv, int T,
                                     int W, int Q, float* out,
                                     cudaStream_t stream) {
-  if (T > 0) {
-    compare_kernel<true><<<blocks_for(T, kWarps), kThreads, 0, stream>>>(
-        comps, vals, qc, qv, T, W, Q, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return compare_launch(comps, vals, qc, qv, T, W, Q, out, stream);
 }
 
 int seismic_probe_u8_matvec(const uint8_t* tile, const float* q,

@@ -292,6 +292,16 @@ _COMPARE_LIBRARY = ("none: no single PyTorch call compares elements with a "
                     "term list and sums the matches", None)
 
 
+def _compare_counts(T, W, Q):
+    """The bytes and operations of K12 / K16 (a lookup and an FMA of 2
+    operations an element: 3 T W), and the former compare loop's count
+    beside them (`compare_ops`, `compare_bound_ms`: 2 Q + 2 an element)."""
+    compare_ops = 2.0 * T * W * Q + 2.0 * T * W
+    return dict(nbytes=T * W * 8 + Q * 8 + T * 4, nops=3.0 * T * W,
+                compare_ops=compare_ops,
+                compare_bound_ms=compare_ops / PEAK_F32 * 1e3)
+
+
 @probe
 def compare_intersect_kernel(dev, reps, inputs=None):
     """K12: score [T, W] doc tiles against a [Q]-term query by equality."""
@@ -305,12 +315,12 @@ def compare_intersect_kernel(dev, reps, inputs=None):
         "compare_intersect_kernel", "compare_intersect", 170, dev, reps, ok,
         err, lambda: pk.compare_intersect(*args),
         lambda: pk.compare_intersect_plain(*args), _COMPARE_LIBRARY,
-        nbytes=T * W * 8 + Q * 8 + T * 4, nops=2.0 * T * W * Q + 2.0 * T * W,
+        **_compare_counts(T, W, Q),
         tolerance="1e-5 * sum_w |vals * qmatch| + 1e-6 per row")
     t = rec["ms"] * 1e-3
     rec["tops_s"] = T * W * Q / t / 1e12
     print(f"[compare_intersect_kernel] ok={ok} {t*1e6:.1f} us "
-          f"({rec['tops_s']:.2f} Tops/s)")
+          f"({rec['tops_s']:.2f} Tops/s of compare-equivalents)")
     return rec
 
 
@@ -452,13 +462,13 @@ def compare_term_loop(dev, reps, inputs=None):
         "compare_term_loop", "compare_term_loop", 358, dev, reps, ok, err,
         lambda: pk.compare_term_loop(*args),
         lambda: pk.compare_term_loop_plain(*args), _COMPARE_LIBRARY,
-        nbytes=T * W * 8 + Q * 8 + T * 4, nops=2.0 * T * W * Q + 2.0 * T * W,
+        **_compare_counts(T, W, Q),
         tolerance="1e-5 * sum_w |vals * qmatch| + 1e-6 per row")
     t = rec["ms"] * 1e-3
     rec.update(tcmp_s=T * W * Q / t / 1e12, mdocs_s=T / t / 1e6)
     print(f"[compare_term_loop] ok={ok} {t*1e6:.1f} us "
-          f"({rec['tcmp_s']:.2f} Tcmp/s, {rec['mdocs_s']:.1f} "
-          f"Mdocs/s/query)")
+          f"({rec['tcmp_s']:.2f} Tcmp/s of compare-equivalents, "
+          f"{rec['mdocs_s']:.1f} Mdocs/s/query)")
     return rec
 
 

@@ -14,12 +14,13 @@ device_probe.py`, written for the H100 in `csrc/device_probe.cu`:
     tile_matvec        out[i] = f32(dense[tidx[i] * MB : + MB]) @ qloc[i]
                                                                (K18, :554)
 
-with qmatch[t, w] = sum_q qv[q] * [comps[t, w] == qc[q]]. An index outside
-its table reads nothing and gives 0 (a row of zeros), in the kernels and
-in the plain versions alike. Each wrapper checks its operands, runs its
-plain version (`<name>_plain`) for tensors on the CPU, and launches its
-kernel for CUDA tensors, adding one to `launches[<name>]`; a kernel that
-fails to build or launch raises.
+with qmatch[t, w] = sum_q qv[q] * [comps[t, w] == qc[q]] (on the card K12
+and K16 are one kernel that looks each element up in a table of the
+terms). An index outside its table reads nothing and gives 0 (a row of
+zeros), in the kernels and in the plain versions alike. Each wrapper
+checks its operands, runs its plain version (`<name>_plain`) for tensors
+on the CPU, and launches its kernel for CUDA tensors, adding one to
+`launches[<name>]`; a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -36,9 +37,10 @@ NAMES = ("table_take", "row_gather", "compare_intersect", "u8_matvec",
 # kernel launches since the counts were last set to 0, one per wrapper
 launches = dict.fromkeys(NAMES, 0)
 _handle = None
-# the limits of csrc/device_probe.cu: K12 stages at most kMaxTerms terms,
-# K13 / K18 at most 48 KB / 4 floats of q / qloc (the dynamic shared
-# memory a block gets without opting in)
+# the limits of csrc/device_probe.cu: K12 and K16 (one kernel) take at
+# most kMaxTerms terms, on both entry points; K13 / K18 stage at most 48 KB
+# / 4 floats of q / qloc (the dynamic shared memory a block gets without
+# opting in)
 MAX_TERMS = 1024
 MAX_STAGE = 48 * 1024 // 4
 
@@ -252,6 +254,8 @@ def _compare_checks(comps, vals, qc, qv, row: bool):
 
 
 def _compare(name, entry, comps, vals, qc, qv):
+    _cuda.require(qc.shape[-1] <= MAX_TERMS,
+                  f"{qc.shape[-1]} terms exceed the kernel's cap {MAX_TERMS}")
     T, W = comps.shape
     out = torch.empty((T, 1), dtype=torch.float32, device=comps.device)
     p = _cuda.ptr
@@ -262,19 +266,22 @@ def _compare(name, entry, comps, vals, qc, qv):
 
 def compare_intersect(comps, vals, qc, qv):
     """comps int32 / vals f32 [T, W]; qc int32 / qv f32 [Q]. Returns f32
-    [T, 1]: each element meets every term (the broadcast form)."""
+    [T, 1]. The plain version is the TPU body's broadcast form; the kernel
+    (K12 and K16's one kernel, Q <= MAX_TERMS on the card) looks each
+    element up in a shared-memory hash table of the terms, their values
+    summed by id in term order."""
     _compare_checks(comps, vals, qc, qv, row=False)
     if not _on_card("compare_intersect", (comps, vals, qc, qv)):
         return compare_intersect_plain(comps, vals, qc, qv)
-    _cuda.require(qc.shape[0] <= MAX_TERMS,
-                  f"{qc.shape[0]} terms exceed the kernel's cap")
     return _compare("compare_intersect", "seismic_probe_compare_intersect",
                     comps, vals, qc, qv)
 
 
 def compare_term_loop(comps, vals, qc, qv):
     """comps int32 / vals f32 [T, W]; qc int32 / qv f32 [1, Q]. Returns f32
-    [T, 1]: the loop over the terms outside, as the TPU body."""
+    [T, 1]. The plain version is the TPU body's loop over the terms; the
+    kernel is compare_intersect's (Q <= MAX_TERMS on the card: more
+    raise)."""
     _compare_checks(comps, vals, qc, qv, row=True)
     if not _on_card("compare_term_loop", (comps, vals, qc, qv)):
         return compare_term_loop_plain(comps, vals, qc, qv)
