@@ -87,14 +87,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    of sum_w |vals * qmatch| + 1e-6 a row; products 1e-6 of sum_k |a * b|
    of an f64 product), timed as the mean of 200 back-to-back calls beside
    its bound, its plain version and its library call, with its device
-   time per call (calls queued behind a held stream, with L2 warm and
-   flushed); the launch counts set to 0 before and read after (each of
-   K10-K18 exactly once per check, timed and device-timed call, every
-   other kernel never); the launch floor (an empty kernel, timed both
+   time per call (calls queued behind a held stream, with L2 warm, flushed
+   by a write and flushed by a read); the launch counts set to 0 before
+   and read after (each of K10-K18 exactly once per check, timed and
+   device-timed call, every other kernel never); the launch floor (an empty kernel, timed both
    ways); K17's route from the SASS of its kernel (the run fails if it
    holds no HMMA.16816.F32.BF16), with its ptxas lines and its error as a
-   share of the tolerance; the ptxas lines of K10 and of K12 / K16's one
-   kernel (`compare_lookup_kernel`); then the microbench once
+   share of the tolerance; the ptxas lines of K10, of K12 / K16's one
+   kernel (`compare_lookup_kernel`) and of K13's and K14's kernels (the
+   run fails if either is missing or spills); the run fails if any device
+   time of K10-K18 or of its library call reads under the empty kernel's
+   device time; then the microbench once
    (`harness/microbench.py`).
 
 Every one of these windows sets the launch counts of all eighteen wrappers
@@ -1924,6 +1927,12 @@ def probe_path(dev, record) -> list:
     kernels = [r for r in records if "name" in r]
     if tuple(r["name"] for r in kernels) != PROBE_KERNELS:
         fail(f"phase 7: probe kernels {[r['name'] for r in kernels]}")
+    # no device time, warm or flushed, under an empty kernel's
+    for r in kernels:
+        low = device_probe.below_floor(r, floor_device_us * 1e-3)
+        if low:
+            fail(f"phase 7: {r['name']} device times under the launch "
+                 f"floor ({floor_device_us:.2f} us): {low}")
     # each of K10-K18: once per check, timed and device-timed call
     record["launch_windows"]["probe"] = hold_launches(
         "the device probe", counts,
@@ -1938,6 +1947,18 @@ def probe_path(dev, record) -> list:
     for n_ in ("compare_intersect", "compare_term_loop"):
         kernels[PROBE_KERNELS.index(n_)]["ptxas"] = ptx12
     log(f"phase 7: K12 / K16 compare_lookup_kernel ptxas: {ptx12}")
+    # K13 and K14: one round of loads each, no shared memory, no spill
+    for n_, fn_ in (("u8_matvec", "u8_matvec_kernel"),
+                    ("take_along_axis", "take_along_axis_kernel")):
+        ptx = ptxas_of("device_probe", fn_)
+        if not ptx or not all(ptx.values()):
+            fail(f"phase 7: no ptxas line of {n_}'s {fn_}")
+        spills = [ln for lns in ptx.values() for ln in lns
+                  if re.search(r"[1-9]\d* bytes spill", ln)]
+        if spills:
+            fail(f"phase 7: {fn_} spills: {spills}")
+        kernels[PROBE_KERNELS.index(n_)]["ptxas"] = ptx
+        log(f"phase 7: {n_} {fn_} ptxas: {ptx}")
     # K17's route, from the SASS of its kernel: the bf16 tensor cores
     k17 = kernels[PROBE_KERNELS.index("i8_matmul")]
     sass = sass_of("device_probe")
@@ -1962,12 +1983,14 @@ def probe_path(dev, record) -> list:
                  launch_floor_device_us=floor_device_us)
         log(f"phase 7: {r['name']} ({r['probe']}): ok, max_abs_err "
             f"{r['max_abs_err']:.3g}, {r['ms'] * 1e3:.2f} us a call, device "
-            f"{r['device_ms'] * 1e3:.2f} us, with L2 flushed "
-            f"{r['device_cold_ms'] * 1e3:.2f} us (bound "
+            f"{r['device_ms'] * 1e3:.2f} us, with L2 flushed by a write "
+            f"{r['device_cold_ms'] * 1e3:.2f} us, by a read "
+            f"{r['device_cold_read_ms'] * 1e3:.2f} us (bound "
             f"{r['bound_ms'] * 1e3:.3f} "
             f"us by {r['bound_by']}, plain {r['plain_ms'] * 1e3:.2f} us, "
             f"library {r['library_ms']} ms, on the card "
-            f"{r['library_device_ms']} / {r['library_device_cold_ms']} ms)")
+            f"{r['library_device_ms']} / {r['library_device_cold_ms']} / "
+            f"{r['library_device_cold_read_ms']} ms)")
     probe_s = time.time() - t0
     log(f"phase 7: launch floor {floor_us:.2f} us a call, "
         f"{floor_device_us:.2f} us on the card; probes {probe_s:.1f} s, "

@@ -7,8 +7,9 @@ exhaustive-list requests and on the engine path (`search.engine`) for
 everything else (`heap_factor > 0`, block budgets, kNN refinement), and
 the JAX package's bench headline path (`search.grouped.plan_caps` on the
 host, then `search.grouped.search_grouped_derive`, with the plan derived
-on the device). Its five kernels are written by hand in CUDA C++ for
-sm_90a (`csrc/`), each beside its plain PyTorch version.
+on the device). Its eighteen kernels (K1-K18; K5 is an epilogue compiled
+into K2, K4 and K6) are written by hand in CUDA C++ for sm_90a (`csrc/`),
+each beside its plain PyTorch version.
 """
 
 from .api import SeismicIndexRaw

@@ -22,13 +22,15 @@
 // under 50 MB, so K10, K12-K14, K16 and K17 have bounds under 1 us, K11 /
 // K15 2.5 us (4096 rows of 1 KB), K18 about 14 us of int8 tiles; a launch
 // costs more than most. The designs are the simple right ones: a warp per
-// output row with 16-byte loads where rows are long, short operands every
-// row of a block reads staged in shared memory, K10's table read through
-// the caches, f32 FMAs on the CUDA cores; K12 and K16 are one kernel that
-// looks each element up in a shared-memory hash table of the query's
-// terms (term_table.cuh, as K1, K3, K8 and K9), over 4-warp blocks that
-// fill the card; K17's product runs on the bf16 tensor cores (mma.sync)
-// over a grid that fills the card.
+// output row with 16-byte loads where rows are long, K18's query row
+// staged in shared memory, K10's and K14's tables read through the
+// caches, f32 FMAs on the CUDA cores; K13 and K14 are one round of loads
+// each, issued before any arithmetic, with no shared memory and no
+// barrier, over 4-warp blocks that fill the card; K12 and K16 are one
+// kernel that looks each element up in a shared-memory hash table of the
+// query's terms (term_table.cuh, as K1, K3, K8 and K9), over 4-warp
+// blocks that fill the card; K17's product runs on the bf16 tensor cores
+// (mma.sync) over a grid that fills the card.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -369,48 +371,119 @@ int compare_bits(int Q) {
 }
 
 // ---- K13: out[m] = (sum_k f32(tile[m, k]) * q[k]) * scale[m] ----
-// A warp per row; the u8 row is read 4 bytes a lane (K % 4 == 0), cast to
-// f32 in registers, and multiplied with q staged in shared memory.
-__global__ void __launch_bounds__(kThreads)
+// Bound on an H100: the bytes (M K + 4 K + 8 M, 0.08 us at the probe's
+// [512, 512]), far under a launch, so the kernel is one round of loads
+// over a grid that fills the card. A warp a row, 4 warps a block (the
+// probe's 512 rows are 128 blocks, about one an SM). Lane l takes the 16
+// columns 16 l .. 16 l + 15 of each 512-column pass and issues, before its
+// first FMA, its 16 bytes of the row (one 16-byte load where K % 16 == 0
+// and tile and q are 16-byte aligned, four 4-byte loads otherwise), its
+// 16 values of q (four float4 loads through the read-only path: every
+// warp reads the same q, and L1 / L2 serve the repeats; scalar loads in
+// the 4-byte variant) and, on lane 0, scale[m]. No shared memory, no
+// barrier. A lane adds its 16 products in column order with fmaf, pass
+// after pass; the warp's xor tree sums the lanes and lane 0 multiplies by
+// scale[m]. Columns past K read nothing (K % 4 == 0, so a lane's columns
+// end on a whole group of 4).
+constexpr int kMvWarps = 4;
+constexpr int kMvThreads = kMvWarps * 32;
+constexpr int kMvPass = 32 * 16;  // columns of a row a pass
+
+template <bool kVec>
+__global__ void __launch_bounds__(kMvThreads)
 u8_matvec_kernel(const uint8_t* __restrict__ tile, const float* __restrict__ q,
                  const float* __restrict__ scale, int M, int K,
                  float* __restrict__ out) {
-  extern __shared__ float s_q[];
-  for (int i = threadIdx.x; i < K; i += blockDim.x) s_q[i] = q[i];
-  __syncthreads();
   const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int m = blockIdx.x * kMvWarps + (threadIdx.x >> 5);
   if (m >= M) return;
-  const uchar4* row =
-      reinterpret_cast<const uchar4*>(tile + static_cast<int64_t>(m) * K);
-  const float4* q4 = reinterpret_cast<const float4*>(s_q);
+  const uint8_t* row = tile + static_cast<int64_t>(m) * K;
+  const float s = lane == 0 ? __ldg(scale + m) : 0.0f;
   float part = 0.0f;
-  for (int c = lane; c < K / 4; c += 32) {
-    const uchar4 x = row[c];
-    const float4 y = q4[c];
-    part = fmaf(static_cast<float>(x.x), y.x, part);
-    part = fmaf(static_cast<float>(x.y), y.y, part);
-    part = fmaf(static_cast<float>(x.z), y.z, part);
-    part = fmaf(static_cast<float>(x.w), y.w, part);
+  for (int k = 16 * lane; k < K; k += kMvPass) {
+    unsigned x[4];  // 4 bytes of the row each, column k + 4 g first
+    float y[16];
+    bool in[4];     // group g of 4 columns inside the row
+    if constexpr (kVec) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(row + k));
+      x[0] = w.x, x[1] = w.y, x[2] = w.z, x[3] = w.w;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(q + k) + g);
+        y[4 * g] = v.x, y[4 * g + 1] = v.y, y[4 * g + 2] = v.z,
+        y[4 * g + 3] = v.w;
+        in[g] = true;  // K % 16 == 0: all 16 columns or none
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        in[g] = k + 4 * g < K;
+        x[g] = in[g] ? __ldg(reinterpret_cast<const unsigned*>(row + k) + g)
+                     : 0u;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          y[4 * g + b] = in[g] ? __ldg(q + k + 4 * g + b) : 0.0f;
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float t = static_cast<float>((x[g] >> (8 * b)) & 0xffu);
+        if (in[g]) part = fmaf(t, y[4 * g + b], part);
+      }
+    }
   }
   part = warp_sum(part);
-  if (lane == 0) out[m] = part * scale[m];
+  if (lane == 0) out[m] = part * s;
 }
 
 // ---- K14: out[m, c] = table[idx[m, c], c] ----
-// The table (R x C f32, 128 KB at the probe's sizes) is read many times per
-// column; one thread per output element reads it through the L1 / L2
-// caches, neighbouring threads on neighbouring columns.
-__global__ void __launch_bounds__(kThreads)
+// Bound on an H100: the bytes (4 R C + 8 M C, 0.20 us at the probe's R
+// 256, C 128, M 512), under a launch, so the kernel is one round of
+// dependent loads (idx, then the table) over a grid that fills the card.
+// A warp a row, 4 warps a block (the probe's [512, 128] is 128 blocks of
+// 128 threads). Lane l takes the 4 columns c + l, c + 32 + l, c + 64 + l
+// and c + 96 + l of each 128-column step c: the column comes from the
+// thread, with no division, and each of the warp's loads and stores of
+// idx and out is 128 contiguous bytes, for any C. Its 4 idx loads go out
+// together, then its 4 table reads (__ldg: L1, then L2; the 128 KB table
+// is read twice over at the probe), all held in registers before the
+// first of its 4 stores. The table is not staged:
+// a block would copy all of it to read 512 of its elements (K10 found the
+// same). An index outside [0, R) reads nothing and gives 0.
+constexpr int kTaWarps = 4;
+constexpr int kTaThreads = kTaWarps * 32;
+constexpr int kTaCols = 4 * 32;  // columns of a row a warp takes a step
+
+__global__ void __launch_bounds__(kTaThreads)
 take_along_axis_kernel(const float* __restrict__ table, int R, int C,
-                       const int* __restrict__ idx, int64_t n,
+                       const int* __restrict__ idx, int64_t M,
                        float* __restrict__ out) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= n) return;
-  const int c = static_cast<int>(e % C);
-  const int j = idx[e];
-  out[e] = (j >= 0 && j < R) ? __ldg(table + static_cast<int64_t>(j) * C + c)
-                             : 0.0f;
+  const int64_t m =
+      static_cast<int64_t>(blockIdx.x) * kTaWarps + (threadIdx.x >> 5);
+  if (m >= M) return;
+  const int* irow = idx + m * C;
+  float* orow = out + m * C;
+  for (int64_t c = threadIdx.x & 31; c < C; c += kTaCols) {
+    int j[4];
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      j[k] = c + 32 * k < C ? __ldg(irow + c + 32 * k) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = static_cast<unsigned>(j[k]) < static_cast<unsigned>(R)
+                 ? __ldg(table + static_cast<int64_t>(j[k]) * C + c + 32 * k)
+                 : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c + 32 * k < C) orow[c + 32 * k] = v[k];
+    }
+  }
 }
 
 // ---- K17: out[M, N] = f32(tile[M, K]) @ q[K, N] ----
@@ -681,8 +754,8 @@ int compare_launch(const int* comps, const float* vals, const int* qc,
 
 // The wrappers (ops/probe_kernels.py) hold the operands to these limits
 // before a launch: K12's and K16's terms to kMaxTerms (their entry points
-// refuse more too), K13's K and K18's V to the 48 KB of dynamic shared
-// memory a block gets without opting in, / 4.
+// refuse more too), K18's V to the 48 KB of dynamic shared memory a block
+// gets without opting in, / 4.
 extern "C" {
 
 int seismic_probe_empty(cudaStream_t stream) {
@@ -751,8 +824,19 @@ int seismic_probe_u8_matvec(const uint8_t* tile, const float* q,
                             const float* scale, int M, int K, float* out,
                             cudaStream_t stream) {
   if (M > 0) {
-    u8_matvec_kernel<<<blocks_for(M, kWarps), kThreads, K * sizeof(float),
-                       stream>>>(tile, q, scale, M, K, out);
+    // 16-byte loads where every row and q are 16-byte aligned: the vector
+    // path is chosen by K as well as by the base pointers
+    const bool vec = K % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(tile) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    const int blocks = blocks_for(M, kMvWarps);
+    if (vec) {
+      u8_matvec_kernel<true><<<blocks, kMvThreads, 0, stream>>>(
+          tile, q, scale, M, K, out);
+    } else {
+      u8_matvec_kernel<false><<<blocks, kMvThreads, 0, stream>>>(
+          tile, q, scale, M, K, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -761,8 +845,9 @@ int seismic_probe_take_along_axis(const float* table, int R, int C,
                                   const int* idx, int64_t n, float* out,
                                   cudaStream_t stream) {
   if (n > 0) {
-    take_along_axis_kernel<<<blocks_for(n, kThreads), kThreads, 0, stream>>>(
-        table, R, C, idx, n, out);
+    const int64_t M = n / C;
+    take_along_axis_kernel<<<blocks_for(M, kTaWarps), kTaThreads, 0,
+                             stream>>>(table, R, C, idx, M, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

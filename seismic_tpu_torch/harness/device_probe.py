@@ -9,7 +9,8 @@ numpy expectation, times the kernel, the plain version and the nearest
 single PyTorch call (the mean over `reps` back-to-back calls between one
 pair of CUDA events, which on the card is mostly the host's cost of a
 call), times the kernel and the library call on the card alone (calls
-queued behind a kernel that holds the stream, with L2 warm and flushed),
+queued behind a kernel that holds the stream, with L2 warm, flushed by a
+write and flushed by a read),
 prints the JAX probe's quantities and returns a record. `xla_slice_matmul` and `xla_compare_qloc` call no Pallas kernel in
 the JAX tool; here they are plain torch ops, timed the same way.
 
@@ -31,6 +32,7 @@ missed.
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
 import time
 import traceback
@@ -49,6 +51,7 @@ PEAK_BF16 = 989e12
 SOURCE = "seismic_tpu_torch/csrc/device_probe.cu"
 JAX_PROBE = "seismic_tpu/harness/device_probe.py"
 PROBES = []
+COLD_ROUNDS = 3  # pairs of windows behind each L2-flushed device time
 
 # the JAX tool's generation-3 sizes (device_probe.py:447-448)
 _B, _QC, _MB, _V = 256, 10, 32, 512
@@ -81,14 +84,17 @@ def mean_ms(fn, dev, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_ms(fn, dev, n: int = 50, flush=None):
+def device_ms(fn, dev, n: int = 50, evict=None):
     """Device ms per call of `fn`, without the host's cost of launching:
     `n` calls are queued behind a kernel that holds the stream for 20 ms,
     so they run back to back on the card, between one pair of CUDA events
-    (raises if the host took longer to queue them). With `flush` (a
-    tensor larger than the 50 MB L2 cache), each call follows an
-    overwrite of it, so it finds its operands in device memory; the time
-    of the overwrites alone is subtracted. None on the CPU."""
+    (raises if the host took longer to queue them). With `evict` (a pass
+    over more than the 50 MB L2 cache, `flush_passes`), each call follows
+    the pass, so it finds its operands in device memory; the time of the
+    passes alone is subtracted: the median over COLD_ROUNDS pairs of
+    windows taken in turns (a pass takes many times as long as a short
+    kernel, so one pair can be off by more than the kernel takes). None
+    on the CPU."""
     if dev.type != "cuda":
         return None
     hold_ns = 20_000_000
@@ -110,15 +116,44 @@ def device_ms(fn, dev, n: int = 50, flush=None):
         return a.elapsed_time(b) / n
 
     fn()
-    if flush is None:
+    if evict is None:
         return window(fn)
-    flush.zero_()  # its first launch outside the window (lazy loading)
+    evict()  # its first launch outside the window (lazy loading)
 
     def flushed():
-        flush.zero_()
+        evict()
         fn()
 
-    return window(flushed) - window(flush.zero_)
+    return statistics.median(window(flushed) - window(evict)
+                             for _ in range(COLD_ROUNDS))
+
+
+def flush_passes(dev, nbytes: int = 1 << 28):
+    """{"cold": overwrite, "cold_read": read}: two passes over an
+    `nbytes` tensor (256 MB, five times the L2) that empty the L2 before
+    a flushed reading of `device_ms`. The overwrite (`zero_`) leaves the
+    L2 full of dirty lines, which the next call writes back as it brings
+    its own in; the read (`torch.sum` into a preallocated scalar) leaves
+    clean lines."""
+    flush = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
+    total = torch.empty((), dtype=torch.float32, device=dev)
+
+    def read():
+        torch.sum(flush, 0, out=total)
+
+    return {"cold": flush.zero_, "cold_read": read}
+
+
+DEVICE_KEYS = ("device_ms", "device_cold_ms", "device_cold_read_ms",
+               "library_device_ms", "library_device_cold_ms",
+               "library_device_cold_read_ms")
+
+
+def below_floor(rec, floor_ms: float) -> dict:
+    """The device times of `rec` under `floor_ms`, an empty kernel's
+    device time from the same run: readings that no call can take."""
+    return {k: rec[k] for k in DEVICE_KEYS
+            if rec.get(k) is not None and rec[k] < floor_ms}
 
 
 def launch_floor_us(dev, reps: int = 1000):
@@ -153,31 +188,33 @@ def _kernel_record(probe_name, kernel, line, dev, reps, ok, err, run, plain,
     """The record of a kernel probe: times of the kernel, its plain version
     and the library call (`library` = (description, fn) or (reason, None)),
     each the mean of back-to-back calls; the device time per call of the
-    kernel (`device_ms`, its operands left in L2 by the call before, and
-    `device_cold_ms`, L2 flushed before each call) and of the library call
-    (`library_device_ms`, `library_device_cold_ms`); the bound; the calls
-    made to the kernel's wrapper. `nops` counts the operations of the
-    kernel's route, at `op_peak`."""
+    kernel (`device_ms`, its operands left in L2 by the call before;
+    `device_cold_ms`, L2 flushed by a write before each call, so the call
+    also writes dirty lines back; `device_cold_read_ms`, L2 flushed by a
+    read, its lines clean) and of the library call (`library_device_ms`,
+    `library_device_cold_ms`, `library_device_cold_read_ms`); the bound;
+    the calls made to the kernel's wrapper. `nops` counts the operations
+    of the kernel's route, at `op_peak`."""
     b, bb = bound(nbytes, nops, op_peak)
     lib_name, lib_fn = library
     n_dev = 50
-    flush = (torch.empty(1 << 26, dtype=torch.float32, device=dev)
-             if dev.type == "cuda" else None)
+    passes = (flush_passes(dev) if dev.type == "cuda"
+              else dict.fromkeys(("cold", "cold_read")))
     rec = dict(
         name=kernel, probe=probe_name, route="cuda", source=SOURCE,
         replaces=f"{JAX_PROBE}:{line}", ok=bool(ok), max_abs_err=float(err),
         ms=mean_ms(run, dev, reps), plain_ms=mean_ms(plain, dev, reps),
         bound_ms=b, bound_by=bb,
         library_ms=None if lib_fn is None else mean_ms(lib_fn, dev, reps),
-        device_ms=device_ms(run, dev, n_dev),
-        device_cold_ms=device_ms(run, dev, n_dev, flush),
-        library_device_ms=None if lib_fn is None
-        else device_ms(lib_fn, dev, n_dev),
-        library_device_cold_ms=None if lib_fn is None
-        else device_ms(lib_fn, dev, n_dev, flush),
         library=lib_name, bytes=float(nbytes), ops=float(nops),
-        calls={"check": 1, "timing": reps + 1, "device": 2 * (n_dev + 1)},
+        calls={"check": 1, "timing": reps + 1,
+               "device": n_dev + 1 + 2 * (1 + COLD_ROUNDS * n_dev)},
         device=str(dev))
+    for key, evict in (("", None), *passes.items()):
+        suffix = f"_{key}" if key else ""
+        rec[f"device{suffix}_ms"] = device_ms(run, dev, n_dev, evict)
+        rec[f"library_device{suffix}_ms"] = (
+            None if lib_fn is None else device_ms(lib_fn, dev, n_dev, evict))
     rec.update(extra)
     return rec
 
@@ -658,11 +695,14 @@ def run(device=None, only=None, reps: int = 200, verbose: bool = False):
             if rec.get("device_ms") is not None:
                 print(f"  {rec['name']}: {rec['device_ms'] * 1e3:.2f} us on "
                       f"the card, {rec['device_cold_ms'] * 1e3:.2f} with L2 "
-                      f"flushed; bound {rec['bound_ms'] * 1e3:.3f} us by "
+                      f"flushed by a write, "
+                      f"{rec['device_cold_read_ms'] * 1e3:.2f} by a read; "
+                      f"bound {rec['bound_ms'] * 1e3:.3f} us by "
                       f"{rec['bound_by']}; plain {rec['plain_ms'] * 1e3:.2f} "
                       f"us, library {rec['library']}: {rec['library_ms']} "
                       f"ms a call, on the card {rec['library_device_ms']} / "
-                      f"{rec['library_device_cold_ms']} ms")
+                      f"{rec['library_device_cold_ms']} / "
+                      f"{rec['library_device_cold_read_ms']} ms")
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
     return records, failures
@@ -680,11 +720,18 @@ def main(argv=None) -> int:
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"device: {name}")
+    dev_us = None
     if dev.type == "cuda":
         host_us, dev_us = launch_floor_us(dev)
         print(f"launch floor: {host_us:.2f} us a call, {dev_us:.2f} us on "
               "the card")
-    _, failures = run(dev, args.only, verbose=args.v)
+    records, failures = run(dev, args.only, verbose=args.v)
+    for rec in records if dev_us is not None else ():
+        low = below_floor(rec, dev_us * 1e-3)
+        if low:
+            print(f"[{rec['probe']}] device times under the launch floor: "
+                  f"{low}")
+            failures.append(rec["probe"])
     if failures:
         print(f"FAILED: {', '.join(failures)}")
         return 1

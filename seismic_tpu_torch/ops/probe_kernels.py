@@ -38,9 +38,8 @@ NAMES = ("table_take", "row_gather", "compare_intersect", "u8_matvec",
 launches = dict.fromkeys(NAMES, 0)
 _handle = None
 # the limits of csrc/device_probe.cu: K12 and K16 (one kernel) take at
-# most kMaxTerms terms, on both entry points; K13 / K18 stage at most 48 KB
-# / 4 floats of q / qloc (the dynamic shared memory a block gets without
-# opting in)
+# most kMaxTerms terms, on both entry points; K18 stages at most 48 KB / 4
+# floats of qloc (the dynamic shared memory a block gets without opting in)
 MAX_TERMS = 1024
 MAX_STAGE = 48 * 1024 // 4
 
@@ -291,7 +290,12 @@ def compare_term_loop(comps, vals, qc, qv):
 
 def u8_matvec(tile, q, scale):
     """tile u8 [M, K] (K % 4 == 0); q f32 [K, 1]; scale f32 [M, 1].
-    Returns f32 [M, 1] = (f32(tile) @ q) * scale."""
+    Returns f32 [M, 1] = (f32(tile) @ q) * scale. On the card a warp
+    takes a row in one round of loads (16 bytes of the row and 16 values
+    of q a lane, 16-byte loads where K % 16 == 0), any K, 4 rows a
+    block; its sum order (16 products a lane, then the warp's xor tree)
+    keeps it within 1e-6 * sum_k |tile * q| * |scale| of an f64
+    product."""
     req = _cuda.require
     req(tile.dim() == 2 and tile.dtype == torch.uint8, "tile must be u8")
     M, K = tile.shape
@@ -301,7 +305,6 @@ def u8_matvec(tile, q, scale):
         "scale must be f32 [M, 1]")
     if not _on_card("u8_matvec", (tile, q, scale)):
         return u8_matvec_plain(tile, q, scale)
-    req(K <= MAX_STAGE, f"K={K} exceeds the stage cap")
     out = torch.empty((M, 1), dtype=torch.float32, device=tile.device)
     p = _cuda.ptr
     _launch("u8_matvec", _lib().seismic_probe_u8_matvec, p(tile), p(q),
@@ -311,7 +314,9 @@ def u8_matvec(tile, q, scale):
 
 def take_along_axis(table, idx):
     """table f32 [R, C]; idx int32 [M, C]. Returns f32 [M, C] with
-    out[m, c] = table[idx[m, c], c]."""
+    out[m, c] = table[idx[m, c], c]. On the card a warp takes a row and
+    a lane 4 of its columns, 32 apart, reading the table through L1 /
+    L2."""
     req = _cuda.require
     req(table.dim() == 2 and table.dtype == torch.float32
         and table.shape[0] > 0, "table must be f32 [R, C], R > 0")
