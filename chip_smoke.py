@@ -99,12 +99,37 @@ Phases (any failure exits non-zero, and no result line is printed):
    time of K10-K18 or of its library call reads under the empty kernel's
    device time; then the microbench once
    (`harness/microbench.py`).
+8. drive the k-NN graph, kNN refinement, exact search and the user API:
+   (a) on phase 3's index (after phase 5) `SeismicIndexRaw.build_knn(16)`
+   in self-search batches of 4096 (K7 once a batch, every other kernel
+   never), wall and device time; the graph int32 [n_docs, 16], no row
+   holding its own id or a repeated one, -1 only at a row's end, 256
+   sampled rows equal to a fresh self-search as id sets, the
+   `save_knn` -> `load_knn` round trip equal, and its recall@16 against
+   `exact_search` on the sample printed; (b) `batch_search(n_knn=16,
+   heap_factor=0)` of phase 3's queries on the grouped route (K1, K2, K3
+   launched, K3 more often than in phase 3's window, K7 never), every
+   score the exact dot, recall@10 no more than 0.005 under phase 3's;
+   (e) the corpus written as JSONL (ids d<i>, tokens t<c>, contents) to
+   a temporary directory, read back into phase 3's CSR, indexed by
+   `SeismicIndex.build` into phase 3's arrays, searched with the queries
+   as token strings at heap_factor 0 and 0.7, every result equal to
+   `SeismicIndexRaw`'s, `get_doc_text` returning the contents; then, on
+   phase 4's index carrying (a)'s graph (inside phase 4, before phase 6),
+   (d) `exact_search` of the 16,384 queries (its stream branch) held
+   against phase 4's sparse product (scores to 1e-5, ids equal where the
+   scores do not tie within 1e-6), timed; (c) the headline program with
+   `n_knn=16` at B=16384 / M=16 (K1, K4, K3 launched, every other kernel
+   never): recall@10 against (d) beside the same call without it, every
+   score exact, one call under `set_sync_debug_mode("error")`, five timed
+   calls of each and their device time by kernel.
 
 Every one of these windows sets the launch counts of all eighteen wrappers
 to 0 and reads all eighteen, and fails on a kernel that launched where it
 should not; the kernels' record takes `launches` (the kernel's own main
-path) and `launches_api` / `_engine` / `_headline` / `_modes` / `_probe`
-from those readings.
+path) and `launches_api` / `_engine` / `_headline` / `_modes` / `_probe` /
+`_knn_graph` / `_knn` / `_api_classes` / `_knn_headline` from those
+readings.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -572,11 +597,12 @@ def align_pair_order(host, derived):
     return dataclasses.replace(host, **moved)
 
 
-def headline_path(ds, dev, record, kernels) -> dict:
+def headline_path(ds, dev, record, kernels, graph) -> dict:
     """Phase 4: the bench headline path through `plan_caps` and
-    `search_grouped_derive`; returns K4's record and leaves the path's
-    launch counts of all eighteen kernels in
-    `record["launch_windows"]["headline"]`."""
+    `search_grouped_derive` on an index that carries `graph` (phase 8a's);
+    returns K4's record and leaves the path's launch counts of all
+    eighteen kernels in `record["launch_windows"]["headline"]`. Phases 6
+    and 8 (c, d) run inside it, on its index."""
     import torch
 
     from seismic_tpu_torch import Configuration, GlobalThresholdPruning
@@ -611,6 +637,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
     arrays = build_index(ds, cfg, value_dtype="f32")
     t1 = time.time()
     arrays = narrow_vocab(arrays, V0)
+    arrays.knn = graph  # indexed by doc id, as this index's docs are
     t2 = time.time()
     dindex = arrays.to_device(dev, tile_csub=CSUB)
     ctx = PlannerContext.from_arrays(arrays, csub=CSUB)
@@ -855,7 +882,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
             ds.components.astype(np.int64)),
         torch.from_numpy(ds.values.astype(np.float32)),
         size=(len(ds), DIM)).to(dev)
-    gt = []
+    gt, gt_s = [], []
     worst = 0.0
     for c0 in range(0, N_QUERIES, 2048):
         qc_t, qv_t = qcB[c0:c0 + 2048], qvB[c0:c0 + 2048]
@@ -865,7 +892,9 @@ def headline_path(ds, dev, record, kernels) -> dict:
         qd = torch.zeros((DIM, n), dtype=torch.float32, device=dev)
         qd[qc_t[ok].long(), col[ok]] = qv_t[ok]
         exact = torch.sparse.mm(docs, qd)  # [n_docs, n]
-        gt.append(torch.topk(exact, K, dim=0).indices.t())
+        top = torch.topk(exact, K, dim=0)
+        gt.append(top.indices.t())
+        gt_s.append(top.values.t())
         # every returned score is the exact dot of its doc
         ex = exact.t().gather(1, i4[c0:c0 + n])
         worst = max(worst, ((s4[c0:c0 + n] - ex).abs()
@@ -874,6 +903,7 @@ def headline_path(ds, dev, record, kernels) -> dict:
     if not worst <= 1e-4:
         fail(f"headline scores differ from exact dots by {worst} relative")
     gt = torch.cat(gt).cpu().numpy()
+    gt_s = torch.cat(gt_s).cpu().numpy()
 
     def recall(ids):
         ids = ids.cpu().numpy()
@@ -886,6 +916,12 @@ def headline_path(ds, dev, record, kernels) -> dict:
         f"scores exact to {worst:.3g}")
     if rec4 < 0.95 or rec16 < 0.95:
         fail(f"headline recall@10 {rec4:.4f} / {rec16:.4f} < 0.95")
+
+    # ---- phase 8 (c, d): the knn rung and exact search, on this index ----
+    knn_headline_path(
+        dict(ds=ds, dindex=dindex, ctx=ctx, q_comps=q_comps, q_vals=q_vals,
+             qcB=qcB, qvB=qvB, gcB=gcB, wcB=wcB, gt=gt, gt_scores=gt_s,
+             docs=docs), dev, record)
 
     # ---- phase 6: the remaining modes, on this index and batch 0 ----
     new_kernels = modes_path(
@@ -1563,7 +1599,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     import torch
 
     from seismic_tpu_torch.api import DEFAULT_QUERY_PAD
-    from seismic_tpu_torch.data.sparse import PAD_COMPONENT, pad_queries
+    from seismic_tpu_torch.data.sparse import pad_queries
     from seismic_tpu_torch.ops import rescore, tiles_scorer
     from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
     from seismic_tpu_torch.search import engine
@@ -1809,34 +1845,15 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
     torch.cuda.empty_cache()
     # brute force over the index's own forward rows (f16 values) and the
     # queries' top score_cut terms, on the card
-    fc = np.asarray(arrays.fwd_comps)
-    real = fc != PAD_COMPONENT
-    crow = np.zeros(len(fc) + 1, np.int64)
-    np.cumsum(real.sum(1), out=crow[1:])
-    docs16 = torch.sparse_csr_tensor(
-        torch.from_numpy(crow), torch.from_numpy(fc[real].astype(np.int64)),
-        torch.from_numpy(np.asarray(arrays.fwd_vals)[real].astype(
-            np.float32)), size=(len(fc), DIM)).to(dev)
+    docs16 = fwd_csr(arrays, dev)
     top_c, top_v, _ = engine._query_terms(qct, qvt, rparams.score_cut)
-    worst = 0.0
     s_rt = torch.from_numpy(s_r).to(dev)
     i_rt = torch.from_numpy(i_r).to(dev)
     fin_r = torch.isfinite(s_rt) & (i_rt >= 0)
     if fin_r.float().mean().item() < 0.99:
         fail("rescore-mode results: under 99% of the top-k slots filled")
-    for c0 in range(0, BATCH, 2048):
-        tc, tv = top_c[c0:c0 + 2048], top_v[c0:c0 + 2048]
-        n = tc.shape[0]
-        ok = tc != int(PAD_COMPONENT)
-        col = torch.arange(n, device=dev)[:, None].expand_as(tc)
-        qd = torch.zeros((DIM, n), dtype=torch.float32, device=dev)
-        qd[tc[ok].long(), col[ok]] = tv[ok]
-        exact = torch.sparse.mm(docs16, qd).t()  # [n, n_docs]
-        ex = exact.gather(1, i_rt[c0:c0 + n].clamp_min(0))
-        f = fin_r[c0:c0 + n]
-        worst = max(worst, ((s_rt[c0:c0 + n] - ex).abs()
-                            / ex.abs().clamp_min(1e-30))[f].max().item())
-        del exact, qd
+    ex = exact_of(docs16, top_c, top_v, i_rt.clamp_min(0))
+    worst = max_rel_err(s_rt[fin_r], ex[fin_r])
     r_res = sum(len(set(gt[b].tolist()) & set(i_r[b].tolist()))
                 for b in range(nq)) / (K * nq)
     log(f"phase 5: one rescore-mode batch of {BATCH}: {rescore_ms:.2f} ms, "
@@ -2010,10 +2027,411 @@ def probe_path(dev, record) -> list:
     return kernels
 
 
+# ---- phase 8: the k-NN graph and refinement, exact search, the user API ----
+NKNN = 16
+# documents a self-search batch of the graph holds: the graph does not
+# depend on it (tests/test_torch_knn.py::
+# test_graph_does_not_depend_on_batch_size)
+KNN_BATCH = 4096
+KNN_SAMPLE = 256
+
+
+def fwd_csr(arrays, dev):
+    """The index's own forward rows as a sparse CSR [n_docs, DIM] f32
+    tensor on the card (its value dtype decoded to f32)."""
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+
+    fc = np.asarray(arrays.fwd_comps)
+    real = fc != PAD_COMPONENT
+    crow = np.zeros(len(fc) + 1, np.int64)
+    np.cumsum(real.sum(1), out=crow[1:])
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(crow), torch.from_numpy(fc[real].astype(np.int64)),
+        torch.from_numpy(np.asarray(arrays.fwd_vals)[real].astype(
+            np.float32)), size=(len(fc), DIM)).to(dev)
+
+
+def exact_of(docs, qc_t, qv_t, ids):
+    """Exact dots of each query (padded qc_t int32 / qv_t f32 [B, Q] on
+    the card) with its result docs ids [B, k] (>= 0): the brute-force
+    sparse x dense product, 2048 queries at a time."""
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+
+    out = []
+    for c0 in range(0, qc_t.shape[0], 2048):
+        qc, qv = qc_t[c0:c0 + 2048], qv_t[c0:c0 + 2048]
+        n = qc.shape[0]
+        ok = qc != int(PAD_COMPONENT)
+        col = torch.arange(n, device=qc.device)[:, None].expand_as(qc)
+        qd = torch.zeros((DIM, n), dtype=torch.float32, device=qc.device)
+        qd[qc[ok].long(), col[ok]] = qv[ok]
+        out.append(torch.sparse.mm(docs, qd).t().gather(1, ids[c0:c0 + n]))
+        del qd
+    return torch.cat(out)
+
+
+def max_rel_err(scores, exact) -> float:
+    return float(((scores - exact).abs()
+                  / exact.abs().clamp_min(1e-30)).max().item())
+
+
+def recall_at(gt, ids) -> float:
+    """Mean share of each row of `gt` found in the same row of `ids`."""
+    return float(np.mean([len(set(g.tolist()) & set(r.tolist())) / len(g)
+                          for g, r in zip(gt, ids)]))
+
+
+def knn_api_path(index, ds, qcomps, qvals, gt, recall3, dev, record):
+    """Phase 8 (a) and (b) on the API cell's index: the graph built by
+    `build_knn` (its self-searches, 256 sampled rows redone, the file
+    round trip, its recall against exact search), then the API's grouped
+    route with `n_knn=16`. Returns the graph."""
+    import tempfile
+
+    import torch
+
+    from seismic_tpu_torch.data.sparse import pad_queries
+    from seismic_tpu_torch.search import engine
+    from seismic_tpu_torch.search import knn as knn_mod
+    from seismic_tpu_torch.search.exact import exact_search
+
+    rec = record.setdefault("knn", {})
+    arrays = index.arrays
+    n = arrays.n_docs
+    n_batches = -(-n // KNN_BATCH)
+
+    # ---- (a) the graph ----
+    index.device_index()
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    index.build_knn(NKNN, batch_size=KNN_BATCH)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = hold_launches("phase 8a: build_knn", read_launches(),
+                           exact={"score_tiles": n_batches})
+    record["launch_windows"]["knn_graph"] = counts
+    graph = arrays.knn
+    dindex = index.device_index()  # the upload that carries the graph
+    if not torch.equal(dindex.knn.cpu(), torch.from_numpy(graph)):
+        fail("phase 8a: the device index does not carry the new graph")
+    try:
+        busy, kern = profile_device(lambda: knn_mod.build_knn(
+            arrays, dindex, NKNN, batch_size=KNN_BATCH))
+        prof = dict(device_busy_s=busy / 1e3, kernels_ms=kern)
+    except NoProfile as e:  # informational only
+        prof = {"profile": f"not measured: {e}"}
+    if graph.shape != (n, NKNN) or graph.dtype != np.int32:
+        fail(f"phase 8a: graph {graph.shape} {graph.dtype}")
+    valid = graph >= 0
+    if (valid[:, 1:] & ~valid[:, :-1]).any():
+        fail("phase 8a: -1 before a neighbour in some row")
+    if (graph == np.arange(n)[:, None]).any():
+        fail("phase 8a: a document is its own neighbour")
+    uniq = np.sort(np.where(valid, graph, -1 - np.arange(NKNN)), axis=1)
+    if (uniq[:, 1:] == uniq[:, :-1]).any():
+        fail("phase 8a: a row repeats a neighbour")
+    sample = np.sort(np.random.default_rng(8).choice(n, KNN_SAMPLE,
+                                                      replace=False))
+    sq_c = np.asarray(arrays.fwd_comps)[sample]
+    sq_v = np.asarray(arrays.fwd_vals)[sample].astype(np.float32)
+    _, ids = engine.search_batch(
+        dindex, sq_c, sq_v, knn_mod.self_search_params(arrays, NKNN),
+        heap_factor=knn_mod.KNN_HEAP_FACTOR)
+    fresh = knn_mod.drop_self(ids, sample, NKNN)
+    for row, doc in zip(fresh, sample):
+        if set(row.tolist()) != set(graph[doc].tolist()):
+            fail(f"phase 8a: doc {doc}: graph row {graph[doc].tolist()} "
+                 f"but a fresh self-search gives {row.tolist()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = index.save_knn(os.path.join(tmp, "graph"))
+        if not np.array_equal(knn_mod.load_knn(path), graph):
+            fail("phase 8a: save_knn -> load_knn changed the graph")
+    _, ex_i = exact_search(ds, sq_c, sq_v, NKNN + 1, device=dev)
+    rec16 = recall_at(knn_mod.drop_self(ex_i, sample, NKNN), graph[sample])
+    rec.update(graph_wall_s=wall_s, graph_batches=n_batches,
+               graph_batch=KNN_BATCH, graph_launches=counts,
+               graph_profile=prof, graph_empty_slots=int((~valid).sum()),
+               graph_recall_at_16=rec16)
+    log(f"phase 8a: build_knn({NKNN}) of {n} docs in {n_batches} "
+        f"self-search batches of {KNN_BATCH}: {wall_s:.2f} s wall, "
+        f"{json.dumps(prof)}; launches {counts}; {KNN_SAMPLE} sampled rows "
+        f"equal a fresh self-search as id sets; file round trip equal; "
+        f"{rec['graph_empty_slots']} empty slots; recall@{NKNN} of the "
+        f"graph against exact search on the sample {rec16:.4f}")
+
+    # ---- (b) the API's grouped route with refinement ----
+    def run():
+        t = time.perf_counter()
+        res = index.batch_search(qcomps, qvals, k=K, query_cut=QUERY_CUT,
+                                 heap_factor=0.0, n_knn=NKNN)
+        return res, time.perf_counter() - t
+
+    run()  # warm-up
+    zero_launches()
+    lat, res = [], None
+    for _ in range(REPS):
+        res, dt = run()
+        lat.append(dt)
+    counts = hold_launches(
+        "phase 8b: the API's grouped route with n_knn", read_launches(),
+        positive=("qloc", "score_grouped_i8", "rescore"))
+    record["launch_windows"]["knn"] = counts
+    k3_api = record["launch_windows"]["api"]["rescore"]
+    if not counts["rescore"] > k3_api:
+        fail(f"phase 8b: K3 launched {counts['rescore']} times, not more "
+             f"than phase 3's {k3_api}")
+    if len(res) != BATCH or any(len(r) != K for r in res):
+        fail("phase 8b: not 10 results for every query")
+    s_b = np.array([[s for s, _ in r] for r in res], np.float32)
+    i_b = np.array([[d for _, d in r] for r in res], np.int64)
+    if not (np.isfinite(s_b).all() and (np.diff(s_b, axis=1) <= 0).all()):
+        fail("phase 8b: scores not finite and descending")
+    q_comps, q_vals = pad_queries(qcomps, qvals, 128)
+    top_c, top_v, _ = engine._query_terms(
+        torch.from_numpy(q_comps).to(dev), torch.from_numpy(q_vals).to(dev),
+        64)
+    docs16 = fwd_csr(arrays, dev)
+    worst = max_rel_err(torch.from_numpy(s_b).to(dev),
+                        exact_of(docs16, top_c, top_v,
+                                 torch.from_numpy(i_b).to(dev)))
+    del docs16
+    torch.cuda.empty_cache()
+    if not worst <= 1e-5:
+        fail(f"phase 8b: scores differ from exact dots by {worst} relative")
+    nq = len(gt)
+    rec_b = recall_at(gt, i_b[:nq])
+    rec.update(api_recall_at_10=rec_b, api_recall_at_10_phase3=recall3,
+               api_p50_ms=float(np.median(lat)) * 1e3, api_latencies_s=lat,
+               api_launches=counts, api_max_rel_score_err=worst)
+    log(f"phase 8b: batch_search(n_knn={NKNN}, heap_factor=0) of {BATCH}: "
+        f"p50 {rec['api_p50_ms']:.2f} ms over {REPS} batches, launches "
+        f"{counts}, scores exact to {worst:.3g}; recall@10 {rec_b:.4f} on "
+        f"{nq} queries against phase 3's {recall3:.4f}")
+    if rec_b < recall3 - 0.005:
+        fail(f"phase 8b: recall@10 {rec_b:.4f} more than 0.005 under "
+             f"phase 3's {recall3:.4f}")
+    return graph
+
+
+def user_flow_path(index, ds, qcomps, qvals, dev, record):
+    """Phase 8 (e): the corpus written as JSONL (ids d<i>, tokens t<c>,
+    contents), `SeismicIndex.build` of it with the identity token map and
+    phase 3's configuration, and `batch_search` of phase 3's queries as
+    token strings on the grouped route (heap_factor 0) and the engine path
+    (0.7), each result equal to `SeismicIndexRaw`'s on phase 3's index."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from seismic_tpu_torch import SeismicIndex, TpuLayout
+    from seismic_tpu_torch.data import io as data_io
+
+    rec = record.setdefault("api_classes", {})
+    tmap = {f"t{c}": c for c in range(DIM)}
+    names = list(tmap)
+    # the build's own parse, kept and timed: one pass over the file
+    parsed, read = {}, data_io.read_jsonl_dataset
+
+    def timed_read(*a, **kw):
+        t = time.perf_counter()
+        parsed["out"] = read(*a, **kw)
+        parsed["s"] = time.perf_counter() - t
+        return parsed["out"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "documents.jsonl")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            for i, (c, v) in enumerate(ds.iter_rows()):
+                f.write(json.dumps({
+                    "id": f"d{i}", "content": f"document {i}",
+                    "vector": dict(zip([names[x] for x in c.tolist()],
+                                       v.tolist()))}) + "\n")
+        t1 = time.perf_counter()
+        data_io.read_jsonl_dataset = timed_read
+        try:
+            sidx = SeismicIndex.build(
+                path, n_postings=200, max_fraction=2.0,
+                layout=TpuLayout(max_block_len=32, summary_vocab_cap=V_CAP,
+                                 max_doc_nnz=256, tile_overflow=64),
+                input_token_to_id_map=tmap)
+        finally:
+            data_io.read_jsonl_dataset = read
+        t3 = time.perf_counter()
+        jsonl_bytes = os.path.getsize(path)
+    csr, doc_ids, _, contents = parsed.pop("out")
+    for f_ in ("offsets", "components", "values"):
+        if not np.array_equal(getattr(csr, f_), getattr(ds, f_)):
+            fail(f"phase 8e: the JSONL's CSR {f_} differ from phase 3's")
+    if csr.dim != ds.dim or doc_ids[7] != "d7" or contents[7] != \
+            "document 7":
+        fail("phase 8e: the JSONL's dim, ids or contents differ")
+    del csr, contents
+    ref = index.arrays
+    for f_ in dataclasses.fields(ref):
+        a, b = getattr(ref, f_.name), getattr(sidx.arrays, f_.name)
+        if f_.name != "knn" and isinstance(a, np.ndarray) and not \
+                np.array_equal(a, b):
+            fail(f"phase 8e: SeismicIndex array {f_.name} differs from "
+                 "phase 3's")
+    tq = [np.array([names[x] for x in c], dtype="U30") for c in qcomps]
+    qids = np.array([f"q{i}" for i in range(len(qcomps))], dtype="U30")
+    sidx.device_index()
+    torch.cuda.synchronize()
+    zero_launches()
+    t4 = time.perf_counter()
+    got = {hf: sidx.batch_search(qids, tq, qvals, k=K, query_cut=QUERY_CUT,
+                                 heap_factor=hf) for hf in (0.0, 0.7)}
+    t5 = time.perf_counter()
+    counts = hold_launches(
+        "phase 8e: SeismicIndex.batch_search", read_launches(),
+        positive=("qloc", "score_grouped_i8", "rescore", "score_tiles"))
+    record["launch_windows"]["api_classes"] = counts
+    worst = 0.0
+    for hf, rows in got.items():
+        raw = index.batch_search(qcomps, qvals, k=K, query_cut=QUERY_CUT,
+                                 heap_factor=hf)
+        for qid, row, rrow in zip(qids, rows, raw):
+            if [(q, d) for q, _, d in row] != [(qid, f"d{d}")
+                                               for _, d in rrow]:
+                fail(f"phase 8e: heap_factor {hf}, {qid}: SeismicIndex "
+                     f"{row} but SeismicIndexRaw {rrow}")
+            for (_, s, _), (r, _) in zip(row, rrow):
+                worst = max(worst, abs(s - r) / max(abs(r), 1e-30))
+    if not worst <= 1e-6:
+        fail(f"phase 8e: scores differ from SeismicIndexRaw's by {worst}")
+    for i in (0, 7, len(ds) - 1):
+        if sidx.get_doc_text(i) != f"document {i}":
+            fail(f"phase 8e: get_doc_text({i}) = {sidx.get_doc_text(i)!r}")
+    rec.update(jsonl_bytes=jsonl_bytes, write_jsonl_s=t1 - t0,
+               read_jsonl_dataset_s=parsed["s"], seismic_index_build_s=t3 - t1,
+               two_batches_s=t5 - t4, launches=counts,
+               max_rel_score_diff=worst, corpus_docs=len(ds))
+    log(f"phase 8e: {len(ds)} docs as JSONL ({jsonl_bytes} bytes) written "
+        f"in {t1 - t0:.1f} s; SeismicIndex.build {t3 - t1:.1f} s, of which "
+        f"read_jsonl_dataset {parsed['s']:.1f} s (its CSR is phase 3's; "
+        f"the index's arrays are phase 3's); batch_search at heap_factor 0 and 0.7 "
+        f"{t5 - t4:.2f} s, launches {counts}; every result equals "
+        f"SeismicIndexRaw's (scores to {worst:.3g}); get_doc_text ok")
+    del sidx, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def knn_headline_path(env, dev, record):
+    """Phase 8 (c) and (d) on phase 4's index, which carries phase 8a's
+    graph: the headline program with `n_knn=16` at B=16384 / M=16 beside
+    the same call without it, and the port's `exact_search` of the 16,384
+    queries held against phase 4's sparse product."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch.search.exact import exact_search
+    from seismic_tpu_torch.search.grouped import search_grouped_derive
+
+    rec = record.setdefault("knn_headline", {})
+    dindex, ctx = env["dindex"], env["ctx"]
+    qcB, qvB, gcB, wcB = env["qcB"], env["qvB"], env["gcB"], env["wcB"]
+    gt, gt_s = env["gt"], env["gt_scores"]
+    base = headline_params()
+    pk = dataclasses.replace(base, n_knn=NKNN)
+
+    # ---- (d) exact search against phase 4's sparse product ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex_s, ex_i = exact_search(env["ds"], env["q_comps"], env["q_vals"], K,
+                              device=dev)
+    exact_s = time.perf_counter() - t0
+    B = ex_s.shape[0]
+    stream = B * len(env["ds"]) * 4 > 4e9
+    rel = np.abs(ex_s - gt_s) / np.maximum(np.abs(gt_s), 1e-30)
+    if not rel.max() <= 1e-5:
+        fail(f"phase 8d: exact_search scores differ from the sparse product "
+             f"by {rel.max()} relative")
+    differ = ex_i != gt
+    if (differ & (rel > 1e-6)).any():
+        fail("phase 8d: exact_search ids differ from the sparse product's "
+             "where the scores do not tie within 1e-6")
+    n_tied = int(differ.any(axis=1).sum())
+    log(f"phase 8d: exact_search of {B} queries over {len(env['ds'])} docs "
+        f"(stream branch: {stream}) {exact_s:.2f} s; scores to "
+        f"{rel.max():.3g} relative of the sparse product; id lists equal "
+        f"but on {n_tied} queries, where the scores tie within 1e-6")
+
+    # ---- (c) the headline program with refinement ----
+    def call(p):
+        return search_grouped_derive(dindex, qcB, qvB, p, QUERY_CUT, BIG_M,
+                                     gcB, wcB, ctx.zero_region)
+
+    call(pk)
+    torch.cuda.synchronize()
+    timed = {}
+    for name, p in (("n_knn_16", pk), ("n_knn_0", base)):
+        zero_launches()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            out = call(p)
+        torch.cuda.synchronize()
+        timed[name] = ((time.perf_counter() - t0) / REPS * 1e3,
+                       hold_launches(f"phase 8c: the headline call, {name}",
+                                     read_launches(), positive=(
+                                         "qloc", "score_grouped_i8_item",
+                                         "rescore")), out)
+    record["launch_windows"]["knn_headline"] = timed["n_knn_16"][1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call(pk)
+    except RuntimeError as e:
+        fail(f"phase 8c: the refined call synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    s_k, i_k = timed["n_knn_16"][2]
+    s_0, i_0 = timed["n_knn_0"][2]
+    if s_k.shape != (B, K) or not torch.isfinite(s_k).all():
+        fail("phase 8c: refined results are not finite [16384, 10]")
+    if not (s_k[:, 1:] <= s_k[:, :-1]).all():
+        fail("phase 8c: refined scores are not descending")
+    worst = max_rel_err(s_k, exact_of(env["docs"], qcB, qvB, i_k))
+    if not worst <= 1e-4:
+        fail(f"phase 8c: refined scores differ from exact dots by {worst}")
+    if (s_k[:, -1] < s_0[:, -1]).any():
+        fail("phase 8c: refinement lowered some query's 10th score")
+    r_k, r_0 = recall_at(ex_i, i_k.cpu().numpy()), recall_at(
+        ex_i, i_0.cpu().numpy())
+    prof = {}
+    for name, p in (("n_knn_16", pk), ("n_knn_0", base)):
+        try:
+            busy, kern = profile_device(lambda: call(p))
+            prof[name] = dict(device_busy_ms=busy, kernels_ms=kern)
+        except NoProfile as e:  # informational only
+            prof[name] = {"profile": f"not measured: {e}"}
+    rec.update(exact_search_s=exact_s, exact_stream=stream,
+               exact_tied_queries=n_tied, exact_max_rel=float(rel.max()),
+               recall_at_10_knn=r_k, recall_at_10_no_knn=r_0,
+               call_ms={n_: t[0] for n_, t in timed.items()},
+               launches={n_: t[1] for n_, t in timed.items()},
+               max_rel_score_err=worst, profile=prof)
+    log(f"phase 8c: B={B}/M={BIG_M} with n_knn={NKNN}: recall@10 "
+        f"{r_k:.4f} against exact_search ({r_0:.4f} without), scores exact "
+        f"to {worst:.3g}, {timed['n_knn_16'][0]:.2f} ms a call over {REPS} "
+        f"({timed['n_knn_0'][0]:.2f} without), launches "
+        f"{timed['n_knn_16'][1]} (without {timed['n_knn_0'][1]}); one call "
+        f"under set_sync_debug_mode('error'); {json.dumps(prof)}")
+
+
 def api_path(ds, dev, record):
     """Phases 2 and 3 on the API's grouped route (K1-K3), then phase 5,
-    the engine path, on the same index; returns (the records of K1-K3,
-    K7's record). Everything it builds is freed when it returns."""
+    the engine path, and phase 8 (a, b, e), on the same index; returns
+    (the records of K1-K3, K7's record, phase 8a's graph). Everything it
+    builds on the card is freed when it returns."""
     import torch
 
     from seismic_tpu_torch import (
@@ -2221,8 +2639,13 @@ def api_path(ds, dev, record):
 
     # ---------------- phase 5: the engine path, same index ----------------
     torch.cuda.reset_peak_memory_stats()
-    return kernels, engine_path(index, qcomps, qvals, gt, dev, record,
-                                kernels)
+    k7 = engine_path(index, qcomps, qvals, gt, dev, record, kernels)
+
+    # ------- phase 8 (a, b, e): the graph, refinement, the user API -------
+    del dindex, a2, a2u  # the copy build_knn replaces with one that has it
+    graph = knn_api_path(index, ds, qcomps, qvals, gt, recall, dev, record)
+    user_flow_path(index, ds, qcomps, qvals, dev, record)
+    return kernels, k7, graph
 
 
 def main():
@@ -2282,13 +2705,13 @@ def main():
                   rehearsal=args.n_docs < N_DOCS)
 
     # ------- phases 2, 3 and 5: the API's grouped and engine routes -------
-    kernels, k7 = api_path(ds, dev, record)
+    kernels, k7, graph = api_path(ds, dev, record)
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---------------- phase 4: the bench headline path ----------------
     torch.cuda.reset_peak_memory_stats()
-    new_kernels, k4 = headline_path(ds, dev, record, kernels)
+    new_kernels, k4 = headline_path(ds, dev, record, kernels, graph)
     kernels += [k4, k7] + new_kernels
     del ds
     gc.collect()

@@ -1,18 +1,31 @@
 """seismic_tpu_torch: the PyTorch / CUDA (H100) port of seismic_tpu.
 
 A package of its own beside `seismic_tpu` (the JAX reference, which it
-never imports). It serves `SeismicIndexRaw` (`build_from_csr`, then
-`search` / `batch_search`) on the grouped (list-major) route for
-exhaustive-list requests and on the engine path (`search.engine`) for
-everything else (`heap_factor > 0`, block budgets, kNN refinement), and
-the JAX package's bench headline path (`search.grouped.plan_caps` on the
-host, then `search.grouped.search_grouped_derive`, with the plan derived
-on the device). Its eighteen kernels (K1-K18; K5 is an epilogue compiled
-into K2, K4 and K6) are written by hand in CUDA C++ for sm_90a (`csrc/`),
-each beside its plain PyTorch version.
+never imports). It serves the JAX package's API classes but
+`SeismicIndexDotVByte`: `SeismicIndex` / `SeismicIndexLV` (JSONL or
+tar.gz collections with string tokens, string doc ids and stored text),
+`SeismicIndexRaw` / `SeismicIndexRawLV` (CSR or `.bin` input), each with
+its k-NN graph (`build_knn`, `load_knn`, `n_knn` refinement), and
+`SeismicDataset` / `SeismicDatasetLV` (exact search, `search.exact`).
+Searches take the grouped (list-major) route for exhaustive-list
+requests and the engine path (`search.engine`) for everything else
+(`heap_factor > 0`, block budgets). It also serves the JAX package's
+bench headline path (`search.grouped.plan_caps` on the host, then
+`search.grouped.search_grouped_derive`, with the plan derived on the
+device). Its eighteen kernels (K1-K18; K5 is an epilogue compiled into
+K2, K4 and K6) are written by hand in CUDA C++ for sm_90a (`csrc/`), each
+beside its plain PyTorch version.
 """
 
-from .api import SeismicIndexRaw
+from .api import (
+    SeismicDataset,
+    SeismicDatasetLV,
+    SeismicIndex,
+    SeismicIndexLV,
+    SeismicIndexRaw,
+    SeismicIndexRawLV,
+    get_seismic_string,
+)
 from .config import (
     Configuration,
     GlobalThresholdPruning,
@@ -23,7 +36,13 @@ from .data.sparse import PAD_COMPONENT, CsrDataset, pad_queries
 from .types import IndexArrays, from_jax_arrays
 
 __all__ = [
+    "SeismicIndex",
+    "SeismicIndexLV",
     "SeismicIndexRaw",
+    "SeismicIndexRawLV",
+    "SeismicDataset",
+    "SeismicDatasetLV",
+    "get_seismic_string",
     "Configuration",
     "GlobalThresholdPruning",
     "KnnConfig",

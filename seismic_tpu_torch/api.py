@@ -1,14 +1,24 @@
-"""User-facing API: `SeismicIndexRaw` on the grouped and engine routes.
+"""User-facing API classes, the counterparts of `seismic_tpu.api`'s:
 
-The counterpart of `seismic_tpu.api.SeismicIndexRaw` (integer component
-ids, no metadata), routed as `seismic_tpu/api.py:356-419` routes on the
+- SeismicIndex / SeismicIndexLV        string tokens, string doc ids,
+                                       stored text (JSONL / tar.gz input)
+- SeismicIndexRaw / SeismicIndexRawLV  integer component ids, no metadata
+                                       (CSR or `.bin` input)
+- SeismicDataset / SeismicDatasetLV    growable dataset + exact search
+- get_seismic_string()                 numpy dtype for token arrays ("U30")
+
+The u16 / u32 split is an API-level vocabulary-capacity check; the `*LV`
+classes lift the 65,536-token cap. `SeismicIndexDotVByte` (u8 forward
+values on the block pool) is not served yet (ROADMAP.md, modules to port,
+item 2c).
+
+Every index class routes as `seismic_tpu/api.py:356-419` routes on the
 accelerator. A tiles-mode request that asks for exhaustive lists
 (`heap_factor <= 0` or `full_lists`) and sets no block/candidate budget
 takes the grouped (list-major) route with the fixed `GroupedParams` of
-the JAX API (`seismic_tpu/api.py:391-396`). Every other request
+the JAX API (`route_params`, kNN refinement included). Every other request
 (`heap_factor > 0`, a block budget, another doc or block mode) takes the
-engine path (`search/engine.py::search_batch`); kNN refinement runs there
-when the index carries a graph.
+engine path (`search/engine.py::search_batch`).
 
 Entry points take `device=None`, which means the card ("cuda"); when CUDA
 is absent they raise unless the caller asked for the CPU (`device="cpu"`,
@@ -17,15 +27,37 @@ as the tests do), where the kernels' plain PyTorch versions run.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .config import Configuration
-from .data.sparse import PAD_COMPONENT, CsrDataset, pad_queries
+from .config import Configuration, TpuLayout, default_build_config
+from .data import io as data_io
+from .data.sparse import (
+    PAD_COMPONENT,
+    CsrDataset,
+    GrowableCsrDataset,
+    pad_queries,
+)
 from .device import resolve_device
+from .search import knn as knn_mod
 from .types import INDEX_SUFFIX, IndexArrays
+
+SEISMIC_STRING = "U30"
+
+
+def get_seismic_string() -> str:
+    """NumPy dtype for token-string arrays (reference: src/pylib/mod.rs:41-44)."""
+    return SEISMIC_STRING
+
+
+_U16_CAP = 1 << 16
+# component ids are int32 everywhere and PAD_COMPONENT (2^31 - 1) is the
+# padding sentinel, so the LV capacity is 2^31 - 1 ids
+_U32_CAP = (1 << 31) - 1
 
 # Default query padding (queries longer than this keep their largest values).
 DEFAULT_QUERY_PAD = 128
@@ -39,49 +71,67 @@ def _bucket_batch(n: int) -> int:
     return b
 
 
-def route_params(k: int, score_cut: int = 64):
+def route_params(k: int, score_cut: int = 64, n_knn: int = 0):
     """GroupedParams of the grouped route, the JAX API's tuned operating
-    point: int8 scorer + exact rescore of the top pool + exact pool
-    select; pool and rescore set scale with k (max(8k, 64) as the engine
-    path; rescore >= 2k keeps the final top-k valid)."""
+    point (`seismic_tpu/api.py:391-396`): int8 scorer + exact rescore of
+    the top pool + exact pool select; pool and rescore set scale with k
+    (max(8k, 64) as the engine path; rescore >= 2k keeps the final top-k
+    valid); `n_knn` > 0 refines the top-k over the index's graph."""
     from .search.grouped import GroupedParams
 
     return GroupedParams(
-        k=k, score_cut=score_cut, pool=max(8 * k, 64), compute_dtype="i8",
-        rescore=max(48, 2 * k), pool_mode="exact",
+        k=k, score_cut=score_cut, pool=max(8 * k, 64), n_knn=n_knn,
+        compute_dtype="i8", rescore=max(48, 2 * k), pool_mode="exact",
     )
 
 
-class SeismicIndexRaw:
-    """Raw index (reference: impl_seismic_index_raw!, src/pylib/mod.rs)."""
+def _result_pairs(scores, ids) -> List[Tuple[float, int]]:
+    return [(float(s), int(d)) for s, d in zip(scores, ids)
+            if d >= 0 and np.isfinite(s)]
 
+
+class _IndexBase:
+    """What every index class shares (reference: SeismicIndex<S>,
+    src/inverted_index_wrapper.rs:94-596): the host arrays, their device
+    copies, the routes, the k-NN graph and save / load."""
+
+    _component_cap = _U32_CAP
     _value_dtype = "f16"
 
-    def __init__(self, arrays: IndexArrays, device=None):
+    def __init__(
+        self,
+        arrays: IndexArrays,
+        doc_ids: Optional[np.ndarray] = None,
+        token_to_id: Optional[dict] = None,
+        contents: Optional[list] = None,
+        device=None,
+    ):
         self._arrays = arrays
+        self._doc_ids = doc_ids
+        self._token_to_id = token_to_id
+        self._contents = contents
         self._device_arg = device
         self._device_index = {}  # torch.device -> DeviceIndex
         self._planner_ctx = None
         self._query_pad = DEFAULT_QUERY_PAD
 
-    # ------------------------------------------------------------- build
     @classmethod
-    def build_from_csr(cls, dataset: CsrDataset,
-                       config: Optional[Configuration] = None,
-                       progress: bool = False, device=None):
-        """Build the index on the host (NumPy + the native build core); the
-        device copy is made at the first search on `device`."""
+    def _build(cls, dataset: CsrDataset, config: Configuration,
+               progress: bool = False, device=None, **meta):
+        """Build the index on the host (NumPy + the native build core), then
+        load or build its k-NN graph as `config.knn` asks; the device copy
+        is made at the first search on `device`."""
         from .build.builder import build_index
 
-        config = config or Configuration()
-        if config.knn.nknn > 0 or config.knn.knn_path:
-            raise NotImplementedError(
-                "building or loading a k-NN graph: ROADMAP.md, modules to "
-                "port, item 7")
         arrays = build_index(
             dataset, config, value_dtype=cls._value_dtype, progress=progress,
         )
-        return cls(arrays, device=device)
+        index = cls(arrays, device=device, **meta)
+        if config.knn.knn_path:
+            index.load_knn(config.knn.knn_path, config.knn.nknn or None)
+        elif config.knn.nknn > 0:
+            index.build_knn(config.knn.nknn)
+        return index
 
     # --------------------------------------------------------- accessors
     @property
@@ -92,9 +142,59 @@ class SeismicIndexRaw:
     def dim(self) -> int:
         return self._arrays.dim
 
+    @property
+    def len(self) -> int:
+        return self._arrays.n_docs
+
     def __len__(self) -> int:
         return self._arrays.n_docs
 
+    @property
+    def nnz(self) -> int:
+        """Dataset nnz (reference: src/pylib/mod.rs:110-113): the source
+        dataset's count recorded at build time, else the forward rows'
+        entries."""
+        if self._arrays.dataset_nnz:
+            return int(self._arrays.dataset_nnz)
+        return int(np.count_nonzero(self._arrays.fwd_comps != PAD_COMPONENT))
+
+    @property
+    def knn_len(self) -> int:
+        return self._arrays.nknn
+
+    @property
+    def is_empty(self) -> bool:
+        return self.len == 0
+
+    def get(self, doc_id: int):
+        """(components, values) of one document (reference:
+        src/pylib/mod.rs:157-165)."""
+        comps = self._arrays.fwd_comps[doc_id]
+        mask = comps != PAD_COMPONENT
+        vals = self._arrays.fwd_vals[doc_id].astype(np.float32)
+        if self._arrays.fwd_val_min is not None:
+            vals = (vals * self._arrays.fwd_val_step[doc_id]
+                    + self._arrays.fwd_val_min[doc_id])
+        return comps[mask].copy(), vals[mask].copy()
+
+    def get_doc_ids_in_postings(self, list_id: int) -> List[int]:
+        """Doc ids stored in one posting list (reference:
+        inverted_index.rs:89-100)."""
+        a = self._arrays
+        if not (0 <= list_id < a.n_lists):
+            raise ValueError(f"Invalid list_id: {list_id}")
+        s = int(a.list_block_start[list_id])
+        n = int(a.list_n_blocks[list_id])
+        out: List[int] = []
+        for b in range(s, s + n):
+            st, ln = int(a.block_start[b]), int(a.block_len[b])
+            out.extend(int(d) for d in a.postings[st: st + ln])
+        return out
+
+    def print_space_usage_byte(self) -> int:
+        return self._arrays.print_space_usage_byte()
+
+    # ------------------------------------------------------------ device
     def device_index(self, device=None):
         """The DeviceIndex on `device` (None: the index's own device),
         uploaded on first use."""
@@ -103,6 +203,12 @@ class SeismicIndexRaw:
         if dev not in self._device_index:
             self._device_index[dev] = self._arrays.to_device(dev)
         return self._device_index[dev]
+
+    def _invalidate_device(self):
+        """Drop the device copies (and the planner context): the next
+        search uploads the arrays as they are now, graph included."""
+        self._device_index = {}
+        self._planner_ctx = None
 
     def _grouped_ctx(self):
         if self._planner_ctx is None:
@@ -172,8 +278,8 @@ class SeismicIndexRaw:
     ):
         if n_knn > 0 and self._arrays.knn is None:
             raise ValueError(
-                "n_knn > 0 but the index has no k-NN graph (carry one in "
-                "with from_jax_arrays or IndexArrays.knn)")
+                "n_knn > 0 but the index has no k-NN graph; call build_knn "
+                "or load_knn first")
         B = len(comp_lists)
         if B == 0:
             return np.zeros((0, k), np.float32), np.zeros((0, k), np.int64)
@@ -192,15 +298,12 @@ class SeismicIndexRaw:
         # The grouped (list-major) route realizes the exhaustive scan of
         # the selected lists, so it serves full_lists and heap_factor <= 0
         # requests; block/cand budgets are honored only by the engine
-        # path, so a request that sets them goes there. kNN refinement on
-        # the grouped route is not ported (ROADMAP.md, modules to port,
-        # item 2d): such a request takes the engine path as well.
+        # path, so a request that sets them goes there.
         if (
             params.doc_mode == "tiles"
             and (full_lists or heap_factor <= 0.0)
             and block_budget is None
             and cand_budget is None
-            and n_knn == 0
         ):
             from .search.grouped import DevicePlan, _grouped_impl
             from .search.planner import plan_grouped
@@ -215,7 +318,7 @@ class SeismicIndexRaw:
                 DevicePlan.put(plan, dev),
                 torch.from_numpy(q_comps).to(dev),
                 torch.from_numpy(q_vals).to(dev),
-                route_params(k, score_cut),
+                route_params(k, score_cut, n_knn),
             )
             return scores.cpu().numpy()[:B], ids.cpu().numpy()[:B]
         from .search.engine import search_batch
@@ -223,6 +326,271 @@ class SeismicIndexRaw:
         scores, ids = search_batch(index, q_comps, q_vals, params,
                                    heap_factor=heap_factor)
         return scores[:B], ids[:B]
+
+    # ------------------------------------------------------------- knn
+    def build_knn(self, nknn: int, batch_size: int = 256,
+                  device=None) -> None:
+        """Build the k-NN graph by batched self-search (reference: Knn::new,
+        inverted_index.rs:448-500) on `device`; later searches carry it."""
+        graph = knn_mod.build_knn(self._arrays, self.device_index(device),
+                                  nknn, batch_size=batch_size)
+        self._arrays.knn = graph
+        self._invalidate_device()
+
+    def save_knn(self, path: str) -> str:
+        if self._arrays.knn is None:
+            raise ValueError("index has no k-NN graph")
+        return knn_mod.save_knn(self._arrays.knn, path)
+
+    def load_knn(self, path: str, nknn: Optional[int] = None) -> None:
+        self._arrays.knn = knn_mod.load_knn(path, nknn)
+        self._invalidate_device()
+
+    # ---------------------------------------------------------- save/load
+    def save(self, path: str) -> str:
+        """The index file, plus `<file>.meta.json` with the doc ids, token
+        map and contents when the index has any (the JAX API's files)."""
+        p = self._arrays.save(path)
+        side = {
+            "doc_ids": None if self._doc_ids is None
+            else [str(x) for x in self._doc_ids],
+            "token_to_id": self._token_to_id,
+            "contents": self._contents,
+        }
+        if any(v is not None for v in side.values()):
+            with open(p + ".meta.json", "w") as f:
+                json.dump(side, f)
+        return p
+
+    @classmethod
+    def load(cls, path: str, device=None):
+        arrays = IndexArrays.load(path)
+        p = path if path.endswith(INDEX_SUFFIX) else path + INDEX_SUFFIX
+        doc_ids = token_to_id = contents = None
+        meta_path = p + ".meta.json"
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                side = json.load(f)
+            if side.get("doc_ids") is not None:
+                doc_ids = np.asarray(side["doc_ids"], dtype=SEISMIC_STRING)
+            token_to_id = side.get("token_to_id")
+            contents = side.get("contents")
+        return cls(arrays, doc_ids, token_to_id, contents, device=device)
+
+
+def _encode_tokens(token_to_id: dict, query_components, query_values):
+    """String tokens -> (int64 ids, f32 values); unknown tokens dropped."""
+    comps, vals = [], []
+    for tok, v in zip(query_components, query_values):
+        tid = token_to_id.get(str(tok))
+        if tid is not None:
+            comps.append(tid)
+            vals.append(float(v))
+    return np.asarray(comps, dtype=np.int64), np.asarray(vals, np.float32)
+
+
+class SeismicIndex(_IndexBase):
+    """String tokens in, string doc ids out, optional stored document text
+    (reference: src/pylib/mod.rs:46-661)."""
+
+    _component_cap = _U16_CAP
+
+    @classmethod
+    def build(
+        cls,
+        input_path: str,
+        n_postings: int = 3500,
+        centroid_fraction: float = 0.1,
+        min_cluster_size: int = 2,
+        summary_energy: float = 0.4,
+        max_fraction: float = 1.5,
+        doc_cut: int = 15,
+        nknn: int = 0,
+        knn_path: Optional[str] = None,
+        batched_indexing: Optional[int] = None,  # accepted, ignored (parity)
+        input_token_to_id_map: Optional[dict] = None,
+        load_content: bool = True,
+        num_threads: int = 0,  # accepted, ignored (parity)
+        layout: Optional[TpuLayout] = None,
+        progress: bool = False,
+        device=None,
+    ) -> "SeismicIndex":
+        """Build from a JSONL / tar.gz collection (reference:
+        src/pylib/mod.rs:356-406)."""
+        dataset, doc_ids, token_to_id, contents = data_io.read_jsonl_dataset(
+            input_path,
+            token_to_id=input_token_to_id_map,
+            load_content=load_content,
+            max_vocab=cls._component_cap,
+        )
+        config = default_build_config(
+            n_postings=n_postings, centroid_fraction=centroid_fraction,
+            min_cluster_size=min_cluster_size, summary_energy=summary_energy,
+            max_fraction=max_fraction, doc_cut=doc_cut, nknn=nknn,
+            knn_path=knn_path, layout=layout,
+        )
+        return cls._build(
+            dataset, config, progress, device, doc_ids=doc_ids,
+            token_to_id=token_to_id,
+            contents=contents if load_content else None,
+        )
+
+    @classmethod
+    def build_from_dataset(
+        cls,
+        dataset: "SeismicDataset",
+        n_postings: int = 3500,
+        centroid_fraction: float = 0.1,
+        min_cluster_size: int = 2,
+        summary_energy: float = 0.4,
+        max_fraction: float = 1.5,
+        doc_cut: int = 15,
+        nknn: int = 0,
+        knn_path: Optional[str] = None,
+        batched_indexing: Optional[int] = None,
+        num_threads: int = 0,
+        layout: Optional[TpuLayout] = None,
+        progress: bool = False,
+        device=None,
+    ) -> "SeismicIndex":
+        """Index a growable SeismicDataset (reference:
+        src/pylib/mod.rs:408-468, wrapper.rs:368-394)."""
+        config = default_build_config(
+            n_postings=n_postings, centroid_fraction=centroid_fraction,
+            min_cluster_size=min_cluster_size, summary_energy=summary_energy,
+            max_fraction=max_fraction, doc_cut=doc_cut, nknn=nknn,
+            knn_path=knn_path, layout=layout,
+        )
+        return cls._build(
+            dataset._dataset(), config, progress, device,
+            doc_ids=np.asarray(dataset._doc_ids, dtype=SEISMIC_STRING),
+            token_to_id=dict(dataset._token_to_id),
+            contents=list(dataset._contents),
+        )
+
+    def _encode_query(self, query_components, query_values):
+        return _encode_tokens(self._token_to_id or {}, query_components,
+                              query_values)
+
+    def search(
+        self,
+        query_id: str,
+        query_components: np.ndarray,
+        query_values: np.ndarray,
+        k: int,
+        query_cut: int,
+        heap_factor: float,
+        n_knn: int = 0,
+        sorted: bool = True,
+        block_budget: Optional[int] = None,
+        cand_budget: Optional[int] = None,
+        block_mode: Optional[str] = None,
+        device=None,
+    ) -> List[Tuple[str, float, str]]:
+        """One query -> [(query_id, score, doc_id)] (reference:
+        src/pylib/mod.rs:490-533)."""
+        c, v = self._encode_query(query_components, query_values)
+        scores, ids = self._raw_batch_search(
+            [c], [v], k, query_cut, heap_factor, n_knn, sorted,
+            block_budget, cand_budget, block_mode, device=device,
+        )
+        return self._format_results(query_id, scores[0], ids[0])
+
+    def batch_search(
+        self,
+        queries_ids: np.ndarray,
+        query_components: Sequence[np.ndarray],
+        query_values: Sequence[np.ndarray],
+        k: int,
+        query_cut: int,
+        heap_factor: float,
+        sorted: bool = True,
+        n_knn: int = 0,
+        num_threads: int = 0,
+        block_budget: Optional[int] = None,
+        cand_budget: Optional[int] = None,
+        block_mode: Optional[str] = None,
+        device=None,
+    ) -> List[List[Tuple[str, float, str]]]:
+        """Batched queries (reference: src/pylib/mod.rs:572-655)."""
+        encoded = [self._encode_query(c, v)
+                   for c, v in zip(query_components, query_values)]
+        scores, ids = self._raw_batch_search(
+            [e[0] for e in encoded], [e[1] for e in encoded],
+            k, query_cut, heap_factor, n_knn, sorted,
+            block_budget, cand_budget, block_mode, device=device,
+        )
+        return [self._format_results(str(qid), s, i)
+                for qid, s, i in zip(queries_ids, scores, ids)]
+
+    def _format_results(self, query_id: str, scores, ids):
+        return [
+            (query_id, s, str(self._doc_ids[d]) if self._doc_ids is not None
+             else str(d))
+            for s, d in _result_pairs(scores, ids)
+        ]
+
+    def get_doc_text(self, doc_id: int) -> Optional[str]:
+        """Stored document text (reference: wrapper.rs:288-293)."""
+        if self._contents is None:
+            return None
+        return self._contents[doc_id]
+
+
+class SeismicIndexLV(SeismicIndex):
+    """Large-vocabulary (> 65,535 tokens) variant."""
+
+    _component_cap = _U32_CAP
+
+
+class SeismicIndexRaw(_IndexBase):
+    """Raw index: integer component ids, no metadata (reference:
+    impl_seismic_index_raw!, src/pylib/mod.rs:663-1151)."""
+
+    _component_cap = _U16_CAP
+
+    @classmethod
+    def build(
+        cls,
+        input_file: str,
+        n_postings: int = 3500,
+        centroid_fraction: float = 0.1,
+        min_cluster_size: int = 2,
+        summary_energy: float = 0.4,
+        max_fraction: float = 1.5,
+        doc_cut: int = 15,
+        nknn: int = 0,
+        knn_path: Optional[str] = None,
+        batched_indexing: Optional[int] = None,
+        num_threads: int = 0,
+        layout: Optional[TpuLayout] = None,
+        progress: bool = False,
+        device=None,
+    ) -> "SeismicIndexRaw":
+        """Build from the seismic inner binary format (reference:
+        src/pylib/mod.rs:956-1012)."""
+        dataset = data_io.read_seismic_format(input_file)
+        if dataset.dim > cls._component_cap:
+            raise ValueError(
+                f"component ids exceed the {cls._component_cap} capacity; "
+                "use the LV variant"
+            )
+        config = default_build_config(
+            n_postings=n_postings, centroid_fraction=centroid_fraction,
+            min_cluster_size=min_cluster_size, summary_energy=summary_energy,
+            max_fraction=max_fraction, doc_cut=doc_cut, nknn=nknn,
+            knn_path=knn_path, layout=layout,
+        )
+        return cls.build_from_csr(dataset, config, progress, device)
+
+    @classmethod
+    def build_from_csr(cls, dataset: CsrDataset,
+                       config: Optional[Configuration] = None,
+                       progress: bool = False, device=None):
+        """Build from a CsrDataset; `config.knn` loads (`knn_path`) or
+        builds (`nknn`) the k-NN graph."""
+        return cls._build(dataset, config or Configuration(), progress,
+                          device)
 
     def search(
         self,
@@ -245,16 +613,12 @@ class SeismicIndexRaw:
             [c], [v], k, query_cut, heap_factor, n_knn, sorted,
             block_budget, cand_budget, block_mode, device=device,
         )
-        return [
-            (float(s), int(d))
-            for s, d in zip(scores[0], ids[0])
-            if d >= 0 and np.isfinite(s)
-        ]
+        return _result_pairs(scores[0], ids[0])
 
     def batch_search(
         self,
-        query_components: Sequence[np.ndarray],
-        query_values: Sequence[np.ndarray],
+        query_path_or_components,
+        query_values: Optional[Sequence[np.ndarray]] = None,
         k: int = 10,
         query_cut: int = 10,
         heap_factor: float = 0.7,
@@ -266,35 +630,142 @@ class SeismicIndexRaw:
         block_mode: Optional[str] = None,
         device=None,
     ) -> List[List[Tuple[float, int]]]:
-        """Batched queries (reference: mod.rs:1098-1146) from explicit
-        component/value lists; reading a queries `.bin` path arrives with
-        the data I/O module (ROADMAP.md, modules to port, item 4)."""
-        if isinstance(query_components, str):
-            raise NotImplementedError(
-                "queries from a .bin path: ROADMAP.md, modules to port, "
-                "item 4")
+        """Batched queries (reference: mod.rs:1098-1146) from a queries
+        `.bin` path or explicit component/value lists."""
+        if isinstance(query_path_or_components, str):
+            qs = data_io.read_seismic_format(query_path_or_components)
+            comp_lists = [qs.get(i)[0] for i in range(len(qs))]
+            val_lists = [qs.get(i)[1].astype(np.float32)
+                         for i in range(len(qs))]
+        else:
+            comp_lists = [np.asarray(c) for c in query_path_or_components]
+            val_lists = [np.asarray(v) for v in query_values]
         scores, ids = self._raw_batch_search(
-            [np.asarray(c) for c in query_components],
-            [np.asarray(v) for v in query_values],
-            k, query_cut, heap_factor, n_knn, sorted, block_budget,
-            cand_budget, block_mode, device=device,
+            comp_lists, val_lists, k, query_cut, heap_factor, n_knn, sorted,
+            block_budget, cand_budget, block_mode, device=device,
         )
+        return [_result_pairs(s, i) for s, i in zip(scores, ids)]
+
+
+class SeismicIndexRawLV(SeismicIndexRaw):
+    _component_cap = _U32_CAP
+
+
+class SeismicDataset:
+    """In-memory accumulation + brute-force exact search on `device`, the
+    ground truth of recall (reference: wrapper.rs:599-758, FlatIndex)."""
+
+    _component_cap = _U16_CAP
+
+    def __init__(self, device=None):
+        self._growable = GrowableCsrDataset()
+        self._doc_ids: List[str] = []
+        self._token_to_id: dict = {}
+        self._contents: List[Optional[str]] = []
+        self._frozen: Optional[CsrDataset] = None
+        self._device = device
+
+    @property
+    def dim(self) -> int:
+        return self._growable.dim
+
+    @property
+    def len(self) -> int:
+        return len(self._growable)
+
+    def __len__(self) -> int:
+        return len(self._growable)
+
+    @property
+    def nnz(self) -> int:
+        return self._growable.nnz
+
+    def add_document(
+        self,
+        doc_id: str,
+        tokens: Sequence[str],
+        values: Sequence[float],
+        content: Optional[str] = None,
+    ) -> None:
+        """(reference: dataset.rs:66-85; incremental token-id assignment)"""
+        comps = []
+        for tok in tokens:
+            tok = str(tok)
+            tid = self._token_to_id.get(tok)
+            if tid is None:
+                tid = len(self._token_to_id)
+                if tid >= self._component_cap:
+                    raise ValueError(
+                        "vocabulary exceeded the component type capacity; "
+                        "use the LV variant"
+                    )
+                self._token_to_id[tok] = tid
+            comps.append(tid)
+        self._growable.push(comps, values)
+        self._doc_ids.append(str(doc_id))
+        self._contents.append(content)
+        self._frozen = None
+
+    def get_doc_text(self, doc_id: int) -> Optional[str]:
+        return self._contents[doc_id]
+
+    def _dataset(self) -> CsrDataset:
+        if self._frozen is None:
+            self._frozen = self._growable.freeze()
+        return self._frozen
+
+    def search(
+        self,
+        query_id: str,
+        query_components: np.ndarray,
+        query_values: np.ndarray,
+        k: int,
+    ) -> List[Tuple[str, float, str]]:
+        """Exact search (reference: dataset.rs:104-127)."""
+        return self.batch_search(
+            np.asarray([query_id]), [query_components], [query_values], k
+        )[0]
+
+    def batch_search(
+        self,
+        queries_ids: np.ndarray,
+        query_components: Sequence[np.ndarray],
+        query_values: Sequence[np.ndarray],
+        k: int,
+        num_threads: int = 0,
+    ) -> List[List[Tuple[str, float, str]]]:
+        from .search.exact import exact_search
+
+        encoded = [_encode_tokens(self._token_to_id, c, v)
+                   for c, v in zip(query_components, query_values)]
+        q_comps, q_vals = pad_queries(
+            [e[0] for e in encoded],
+            [e[1] for e in encoded],
+            max(DEFAULT_QUERY_PAD, max((len(e[0]) for e in encoded),
+                                       default=1)),
+        )
+        scores, ids = exact_search(self._dataset(), q_comps, q_vals, k,
+                                   device=self._device)
         return [
-            [
-                (float(s), int(d))
-                for s, d in zip(srow, irow)
-                if d >= 0 and np.isfinite(s)
-            ]
-            for srow, irow in zip(scores, ids)
+            [(str(qid), s, self._doc_ids[d]) for s, d in _result_pairs(
+                srow, irow)]
+            for qid, srow, irow in zip(queries_ids, scores, ids)
         ]
 
-    # ------------------------------------------------------------ save/load
-    def save(self, path: str) -> str:
-        return self._arrays.save(path)
 
-    @classmethod
-    def load(cls, path: str, device=None) -> "SeismicIndexRaw":
-        return cls(IndexArrays.load(path), device=device)
+class SeismicDatasetLV(SeismicDataset):
+    _component_cap = _U32_CAP
 
 
-__all__ = ["SeismicIndexRaw", "DEFAULT_QUERY_PAD", "INDEX_SUFFIX"]
+__all__ = [
+    "SeismicIndex",
+    "SeismicIndexLV",
+    "SeismicIndexRaw",
+    "SeismicIndexRawLV",
+    "SeismicDataset",
+    "SeismicDatasetLV",
+    "get_seismic_string",
+    "route_params",
+    "DEFAULT_QUERY_PAD",
+    "INDEX_SUFFIX",
+]

@@ -34,6 +34,7 @@ Pipeline (planner -> device program), as in
             it ("pre") or after it ("post"); rescore == 0: the overflow
             correction of the pool (or of its top `ovf_pool` unique
             candidates) and the id dedup; final top-k
+         7. n_knn > 0: kNN refinement of the top-k (K3 on the neighbours)
 
 Two entry points: `search_grouped` (host plan) and
 `search_grouped_derive` (device-derived plan; the bench headline path of
@@ -44,10 +45,13 @@ kernel_unroll 1, or > 1 with "i8" and pool_mode "exact", "approx", "hier",
 "seg" or "stride"; every pool_mode; pool_select "exact" and "approx"
 (every selection here is exact, as `approx_max_k` is on JAX's CPU
 backend); pool_dtype "f32", "bf16"; dedup_mode "pre", "post"; rescore > 0
-and the overflow tail (rescore == 0); stop_after. Not served, each
+and the overflow tail (rescore == 0); kNN refinement (n_knn > 0 with a
+graph on the index: after the rescore tail, `knn_rounds` rounds of K3
+over the neighbours of the top `knn_top` results, `_knn_refine_grouped`;
+after the overflow tail, the engine's round); stop_after. Not served, each
 raising NotImplementedError with its ROADMAP.md item: stream_frac < 1,
 return_margin and the weighted list cut (2f; hashed tiles, also 2f, have
-no upload path here), block_expand (2c), n_knn > 0 (2d). The glue between
+no upload path here), block_expand (2c). The glue between
 the kernels (top-k, sorts, scans, gathers, masks) is plain torch, and none
 of it reads a device value back to the host.
 """
@@ -75,7 +79,9 @@ from ..ops.rescore import rescore_exact
 from ..ops.tiles_prep import SUB, ll_pad_for
 from ..types import DeviceIndex
 from .engine import (
+    SearchParams,
     _dedup_by_id,
+    _knn_refine,
     _lookup,
     _query_terms,
     _sort_by_id_then_score,
@@ -129,7 +135,7 @@ _POOL_MODES = ("exact", "approx", "hier", "slot", "seg", "window", "stride")
 def _check_supported(params: GroupedParams) -> None:
     """Raise NotImplementedError for every mode this package does not serve
     yet, naming the ROADMAP item that brings it (2f: stream_frac,
-    return_margin, the weighted cut; 2c: block_expand; 2d: n_knn), and
+    return_margin, the weighted cut; 2c: block_expand), and
     ValueError for values and combinations the JAX package refuses too."""
     unsupported = [
         (params.stream_frac < 1.0,
@@ -137,7 +143,6 @@ def _check_supported(params: GroupedParams) -> None:
         (params.return_margin, f"return_margin ({_R2}f)"),
         (params.block_expand > 0,
          f"block_expand={params.block_expand} ({_R2}c)"),
-        (params.n_knn > 0, f"n_knn={params.n_knn} ({_R2}d)"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -408,7 +413,7 @@ def _grouped_impl(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
         return pooled.out, pooled.out
     if params.stop_after == "pool":
         return pooled[3], pooled[4]
-    return _grouped_tail(index, params, *pooled)
+    return _grouped_tail(index, params, q_comps, q_vals, *pooled)
 
 
 def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
@@ -671,14 +676,49 @@ def _dedup_with_payload(scores, ids, payload, n_docs: int):
     return scores_s, ids_s, pay_s
 
 
-def _grouped_tail(index, params, top_c, top_v, sc, top_scores, cand_ids,
-                  safe_post, pool):
+def _knn_refine_grouped(index: DeviceIndex, params: GroupedParams, top_c,
+                        top_v, sc: int, top_scores, top_ids):
+    """kNN refinement on the rescore kernel (`seismic_tpu/search/grouped.py
+    ::_knn_refine_grouped`, the reference Knn::refine): each round gathers
+    the neighbours of the top `knn_top` results (all k when 0), scores
+    them exactly with K3, dedups them against the current top-k and takes
+    the top-k again. Invalid neighbours (-1 in the graph, or of a result
+    at -inf) take id n_docs and score -inf."""
+    B, k = top_ids.shape
+    n_docs = index.n_docs
+    n_knn = min(params.n_knn, index.knn.shape[1])
+    # top_scores is sorted descending, so the top-m slice is a prefix
+    m = k if params.knn_top <= 0 else min(params.knn_top, k)
+    top_ids = top_ids.to(torch.int32)
+    for _ in range(max(1, params.knn_rounds)):
+        safe_top = top_ids[:, :m].clamp(0, n_docs - 1).long()
+        neigh = index.knn[safe_top][..., :n_knn].reshape(B, m * n_knn)
+        neigh_valid = (torch.isfinite(top_scores[:, :m])[:, :, None]
+                       .expand(B, m, n_knn).reshape(B, m * n_knn)
+                       & (neigh >= 0))
+        nscores = rescore_exact(index, torch.where(neigh_valid, neigh, 0),
+                                top_c, top_v, sc)
+        nscores = torch.where(neigh_valid, nscores, -torch.inf)
+        neigh = torch.where(neigh_valid, neigh, n_docs)
+        all_scores, all_ids = _dedup_by_id(
+            torch.cat([top_scores, nscores], dim=1),
+            torch.cat([top_ids, neigh], dim=1), n_docs)
+        top_scores, pos = _top_k(all_scores, k)
+        top_ids = torch.gather(all_ids, 1, pos)
+    return top_scores, top_ids
+
+
+def _grouped_tail(index, params, q_comps, q_vals, top_c, top_v, sc,
+                  top_scores, cand_ids, safe_post, pool):
     """Post-pool tail. rescore > 0: exact-rescore `rescore` candidates (K3)
     and take the final top-k; dedup_mode "pre" sort-dedups the pool first
     and rescores the top unique candidates, "post" rescores the raw top of
     the pool (it arrives sorted) and dedups on the exact scores.
     rescore == 0: the overflow correction (of the whole pool, or after the
-    dedup of its top `ovf_pool` unique candidates) and the id dedup."""
+    dedup of its top `ovf_pool` unique candidates) and the id dedup. Then
+    kNN refinement when n_knn > 0 and the index carries a graph: on K3
+    after the rescore tail, the engine's round (exact scores of the full
+    queries from forward-row gathers) after the overflow tail."""
     k = params.k
     n_docs = index.n_docs
     if params.rescore > 0:
@@ -716,8 +756,17 @@ def _grouped_tail(index, params, top_c, top_v, sc, top_scores, cand_ids,
                                              safe_post)
             t2, ids2 = _dedup_by_id(top_scores, cand_ids, n_docs)
     out_scores, opos = torch.topk(t2, k, dim=1)
-    out_ids = torch.gather(ids2, 1, opos).long()
-    out_ids = torch.where(torch.isfinite(out_scores), out_ids, -1)
+    out_ids = torch.gather(ids2, 1, opos)
+    if params.n_knn > 0 and index.knn is not None:
+        if params.rescore > 0:
+            out_scores, out_ids = _knn_refine_grouped(
+                index, params, top_c, top_v, sc, out_scores, out_ids)
+        else:
+            qd = densify_query_batch(q_comps, q_vals, index.dim)
+            out_scores, out_ids = _knn_refine(
+                index, SearchParams(k=k, n_knn=params.n_knn), qd,
+                out_scores, out_ids)
+    out_ids = torch.where(torch.isfinite(out_scores), out_ids.long(), -1)
     return out_scores, out_ids
 
 
