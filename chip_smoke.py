@@ -123,13 +123,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    never): recall@10 against (d) beside the same call without it, every
    score exact, one call under `set_sync_debug_mode("error")`, five timed
    calls of each and their device time by kernel.
+9. drive `SeismicIndexDotVByte` (inside phase 8, while (e)'s JSONL
+   exists): `SeismicIndexDotVByte.build` of that JSONL at the cells'
+   layout (u8 forward values, no doc tiles), (a)'s graph read by
+   `load_knn`, the block view (dense block summaries narrowed to V=512,
+   members ordered by value) and the engine copy uploaded in the lean
+   forward form (neither holds fused rows or int32 forward ids, or the
+   run fails), and `batch_search` of phase 3's 4096 queries as token
+   strings (k=10, query_cut=14): K3's u8 form held against its plain
+   version on one batch's own expanded candidates (1e-5 relative) and
+   timed beside its bounds; the block-pool route at heap_factor 0.7 (5
+   timed batches: QPS, p50; K1, K2 and K3-u8 launched, K7 never), the
+   same queries with `block_budget=512` (the engine's rescore mode: K3-u8
+   launched; and at the default budget, 64) and the block route with `n_knn=16` (K3-u8 more often than a
+   batch without); every score the exact dot of the document's decoded
+   u8 row (1e-5), the block route's top-10 sharing >= 90% of its entries
+   with the engine's at 512, refinement lowering no 10th score; recall@10 of each
+   against phase 3's product, the device bytes beside phase 3's index,
+   and a breakdown of one block-route batch (host stages, device busy
+   time by kernel, idle share).
 
-Every one of these windows sets the launch counts of all eighteen wrappers
-to 0 and reads all eighteen, and fails on a kernel that launched where it
+Every one of these windows sets the launch counts of all nineteen wrappers
+to 0 and reads all nineteen, and fails on a kernel that launched where it
 should not; the kernels' record takes `launches` (the kernel's own main
 path) and `launches_api` / `_engine` / `_headline` / `_modes` / `_probe` /
-`_knn_graph` / `_knn` / `_api_classes` / `_knn_headline` from those
-readings.
+`_knn_graph` / `_knn` / `_api_classes` / `_dotvbyte` / `_dotvbyte_engine`
+/ `_dotvbyte_knn` / `_knn_headline` from those readings.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -248,17 +267,19 @@ def sass_of(lib: str):
     return out
 
 
-# the eighteen kernel wrappers, in the order of the `kernels` line: K1-K9
-# each with a module of its own, K10-K18 in `ops/probe_kernels.py`
+# the nineteen kernel wrappers, in the order of the `kernels` line: K1-K9
+# each with a module of its own, K10-K18 in `ops/probe_kernels.py`, then
+# K3's u8 form (its own count in `ops/rescore.py`)
 COUNTED = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
            "score_tiles", "pack_epilogue", "score_grouped_f", "qloc_rowmajor",
            "qloc_residue", "table_take", "row_gather", "compare_intersect",
            "u8_matvec", "take_along_axis", "flat_row_gather",
-           "compare_term_loop", "i8_matmul", "tile_matvec")
-PROBE_KERNELS = COUNTED[9:]
+           "compare_term_loop", "i8_matmul", "tile_matvec", "rescore_u8")
+PROBE_KERNELS = COUNTED[9:18]
 
 
 def _counted_modules() -> dict:
+    """{wrapper: (module, name of its count)} of K1-K9 and K3's u8 form."""
     import importlib
 
     from seismic_tpu_torch import ops
@@ -267,26 +288,29 @@ def _counted_modules() -> dict:
         "qloc", "grouped_scorer", "rescore", "grouped_scorer_item",
         "tiles_scorer", "pack_epilogue", "grouped_scorer_f", "qloc_rowmajor",
         "qloc_residue")))
-    return {n_: importlib.import_module(f"{ops.__name__}.{f_}")
-            for n_, f_ in files.items()}
+    out = {n_: (importlib.import_module(f"{ops.__name__}.{f_}"), "launches")
+           for n_, f_ in files.items()}
+    out["rescore_u8"] = (out["rescore"][0], "launches_u8")
+    return out
 
 
 def zero_launches():
     """Set every kernel wrapper's launch count to 0."""
     from seismic_tpu_torch.ops import probe_kernels
 
-    for m in _counted_modules().values():
-        m.launches = 0
+    for m, attr in _counted_modules().values():
+        setattr(m, attr, 0)
     probe_kernels.launches.update(dict.fromkeys(PROBE_KERNELS, 0))
 
 
 def read_launches() -> dict:
-    """Every kernel wrapper's launch count since `zero_launches`."""
+    """Every kernel wrapper's launch count since `zero_launches`, in the
+    order of COUNTED."""
     from seismic_tpu_torch.ops import probe_kernels
 
-    counts = {n_: m.launches for n_, m in _counted_modules().items()}
-    counts.update((n_, probe_kernels.launches[n_]) for n_ in PROBE_KERNELS)
-    return counts
+    mods = _counted_modules()
+    return {n_: (getattr(*mods[n_]) if n_ in mods
+                 else probe_kernels.launches[n_]) for n_ in COUNTED}
 
 
 def hold_launches(what: str, counts: dict, positive=(), exact=None) -> dict:
@@ -536,20 +560,28 @@ class NoProfile(RuntimeError):
     phase."""
 
 
-def profile_device(fn):
+def profile_device(fn, top: int | None = 12, warmup: int = 0):
     """(device busy ms, {kernel: ms}) of one call of `fn` from a
-    torch.profiler window; raises NoProfile when the profiler could not
-    start or saw no device time."""
+    torch.profiler window, the kernels by time, the first `top` of them
+    (all with None); with `warmup` > 0, that many calls of `fn` run first
+    under the profiler's warm-up step, whose events are dropped. Raises
+    NoProfile when the profiler could not start or saw no device time."""
     import torch
 
     try:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, schedule
+        sched = (schedule(wait=0, warmup=warmup, active=1, repeat=1)
+                 if warmup else None)
         prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+                                   ProfilerActivity.CUDA], schedule=sched)
         prof.start()
     except Exception as e:  # noqa: BLE001 - the profiler alone
         raise NoProfile(f"the profiler did not start: {e}") from e
     try:
+        for _ in range(warmup):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         fn()
         torch.cuda.synchronize()
     finally:
@@ -557,12 +589,16 @@ def profile_device(fn):
     kern = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
+        # the schedule's step annotation spans the step on the device
+        # timeline; it is no kernel
+        if e.key.startswith("ProfilerStep"):
+            continue
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             kern[e.key[:80]] = kern.get(e.key[:80], 0.0) + us / 1e3
     busy = sum(kern.values())
     if busy <= 0:
         raise NoProfile("the profiler recorded no device time")
-    return busy, dict(sorted(kern.items(), key=lambda kv: -kv[1])[:12])
+    return busy, dict(sorted(kern.items(), key=lambda kv: -kv[1])[:top])
 
 
 def align_pair_order(host, derived):
@@ -601,7 +637,7 @@ def headline_path(ds, dev, record, kernels, graph) -> dict:
     """Phase 4: the bench headline path through `plan_caps` and
     `search_grouped_derive` on an index that carries `graph` (phase 8a's);
     returns K4's record and leaves the path's launch counts of all
-    eighteen kernels in `record["launch_windows"]["headline"]`. Phases 6
+    nineteen kernels in `record["launch_windows"]["headline"]`. Phases 6
     and 8 (c, d) run inside it, on its index."""
     import torch
 
@@ -1008,7 +1044,7 @@ F32_VS_I8_FLOOR = 0.98
 def modes_path(env, dev, record, kernels) -> list:
     """Phase 6: the grouped-search modes of K5, K6, K8 and K9 on the
     headline cell's index, one B=4096 / M=8 batch; returns the four new
-    kernels' records and leaves the phase's launch counts of all eighteen
+    kernels' records and leaves the phase's launch counts of all nineteen
     kernels in `record["launch_windows"]["modes"]`."""
     import dataclasses
 
@@ -1928,7 +1964,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
 def probe_path(dev, record) -> list:
     """Phase 7: the device probe's `run` on the card at the JAX probes'
     own sizes (each of K10-K18 held against its plain version inside its
-    probe), the launch counts of all eighteen wrappers set to 0 before and
+    probe), the launch counts of all nineteen wrappers set to 0 before and
     read after, then the microbench once. Returns K10-K18's records."""
     import torch
 
@@ -2038,7 +2074,8 @@ KNN_SAMPLE = 256
 
 def fwd_csr(arrays, dev):
     """The index's own forward rows as a sparse CSR [n_docs, DIM] f32
-    tensor on the card (its value dtype decoded to f32)."""
+    tensor on the card (its value dtype decoded to f32; u8 codes as
+    code * step + min of their document)."""
     import torch
 
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT
@@ -2047,10 +2084,13 @@ def fwd_csr(arrays, dev):
     real = fc != PAD_COMPONENT
     crow = np.zeros(len(fc) + 1, np.int64)
     np.cumsum(real.sum(1), out=crow[1:])
+    fv = np.asarray(arrays.fwd_vals).astype(np.float32)
+    if arrays.fwd_val_min is not None:
+        fv = (fv * np.asarray(arrays.fwd_val_step, np.float32)[:, None]
+              + np.asarray(arrays.fwd_val_min, np.float32)[:, None])
     return torch.sparse_csr_tensor(
         torch.from_numpy(crow), torch.from_numpy(fc[real].astype(np.int64)),
-        torch.from_numpy(np.asarray(arrays.fwd_vals)[real].astype(
-            np.float32)), size=(len(fc), DIM)).to(dev)
+        torch.from_numpy(fv[real]), size=(len(fc), DIM)).to(dev)
 
 
 def exact_of(docs, qc_t, qv_t, ids):
@@ -2218,18 +2258,26 @@ def knn_api_path(index, ds, qcomps, qvals, gt, recall3, dev, record):
     return graph
 
 
-def user_flow_path(index, ds, qcomps, qvals, dev, record):
+def cell_layout():
+    """The search cells' TpuLayout (V_CAP-wide local vocabularies)."""
+    from seismic_tpu_torch import TpuLayout
+
+    return TpuLayout(max_block_len=32, summary_vocab_cap=V_CAP,
+                     max_doc_nnz=256, tile_overflow=64)
+
+
+def user_flow_path(index, ds, qcomps, qvals, dev, record, tmp):
     """Phase 8 (e): the corpus written as JSONL (ids d<i>, tokens t<c>,
-    contents), `SeismicIndex.build` of it with the identity token map and
-    phase 3's configuration, and `batch_search` of phase 3's queries as
-    token strings on the grouped route (heap_factor 0) and the engine path
-    (0.7), each result equal to `SeismicIndexRaw`'s on phase 3's index."""
+    contents) into directory `tmp`, `SeismicIndex.build` of it with the
+    identity token map and phase 3's configuration, and `batch_search` of
+    phase 3's queries as token strings on the grouped route (heap_factor
+    0) and the engine path (0.7), each result equal to `SeismicIndexRaw`'s
+    on phase 3's index. Returns (the JSONL's path, the token map)."""
     import dataclasses
-    import tempfile
 
     import torch
 
-    from seismic_tpu_torch import SeismicIndex, TpuLayout
+    from seismic_tpu_torch import SeismicIndex
     from seismic_tpu_torch.data import io as data_io
 
     rec = record.setdefault("api_classes", {})
@@ -2244,27 +2292,24 @@ def user_flow_path(index, ds, qcomps, qvals, dev, record):
         parsed["s"] = time.perf_counter() - t
         return parsed["out"]
 
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "documents.jsonl")
-        t0 = time.perf_counter()
-        with open(path, "w") as f:
-            for i, (c, v) in enumerate(ds.iter_rows()):
-                f.write(json.dumps({
-                    "id": f"d{i}", "content": f"document {i}",
-                    "vector": dict(zip([names[x] for x in c.tolist()],
-                                       v.tolist()))}) + "\n")
-        t1 = time.perf_counter()
-        data_io.read_jsonl_dataset = timed_read
-        try:
-            sidx = SeismicIndex.build(
-                path, n_postings=200, max_fraction=2.0,
-                layout=TpuLayout(max_block_len=32, summary_vocab_cap=V_CAP,
-                                 max_doc_nnz=256, tile_overflow=64),
-                input_token_to_id_map=tmap)
-        finally:
-            data_io.read_jsonl_dataset = read
-        t3 = time.perf_counter()
-        jsonl_bytes = os.path.getsize(path)
+    path = os.path.join(tmp, "documents.jsonl")
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        for i, (c, v) in enumerate(ds.iter_rows()):
+            f.write(json.dumps({
+                "id": f"d{i}", "content": f"document {i}",
+                "vector": dict(zip([names[x] for x in c.tolist()],
+                                   v.tolist()))}) + "\n")
+    t1 = time.perf_counter()
+    data_io.read_jsonl_dataset = timed_read
+    try:
+        sidx = SeismicIndex.build(
+            path, n_postings=200, max_fraction=2.0, layout=cell_layout(),
+            input_token_to_id_map=tmap)
+    finally:
+        data_io.read_jsonl_dataset = read
+    t3 = time.perf_counter()
+    jsonl_bytes = os.path.getsize(path)
     csr, doc_ids, _, contents = parsed.pop("out")
     for f_ in ("offsets", "components", "values"):
         if not np.array_equal(getattr(csr, f_), getattr(ds, f_)):
@@ -2322,6 +2367,398 @@ def user_flow_path(index, ds, qcomps, qvals, dev, record):
     del sidx, got
     gc.collect()
     torch.cuda.empty_cache()
+    return path, tmap
+
+
+# ---- phase 9: SeismicIndexDotVByte on the block-pool route ----
+DOTV_HEAP_FACTOR = 0.7
+# the engine batches' block budgets: 512 takes every block of the 14
+# selected lists (about 20 a list at this layout), as the API's default
+# budget does on the JAX package's toy set, where the block route is held
+# to the engine route; 64 is the API's default, max(4k, 64), printed
+DOTV_ENGINE_BUDGET, DOTV_DEFAULT_BUDGET = 512, 64
+# top-10 entries the block route shares with the engine route: the JAX
+# package's own bar (tests/test_api.py:170-173)
+DOTV_AGREE_FLOOR = 0.9
+
+
+def k3u8_bounds(a) -> dict:
+    """K3's u8 form's bounds on a = (comps16, codes, vmin, vstep, ids, qc,
+    qv, n_docs), counted as `k3_bounds` counts K3's. `bound_ms`: the bytes
+    the function must move (each distinct row's real entries, 2-byte id
+    and 1-byte code, each run rounded up to 32-byte sectors, and its
+    8-byte (min, step); the ids, the query terms and the output) against
+    one lookup and one multiply-add a real entry of every candidate row,
+    and the decode's multiply and add an entry whose id hits one of the
+    query's terms, at the f32 rate; `bound_as_scheduled_ms`: the bytes
+    with every candidate row's entries read once (no reuse across the
+    L2)."""
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+
+    comps16, ids, qc = a[0], a[4], a[5]
+    safe = ids.long().clamp(0, comps16.shape[0] - 1)
+    doc_nnz = (comps16 >= 0).sum(-1)  # [n_docs]
+
+    def row_bytes(nnz):
+        return int((((nnz * 2 + 31) // 32 + (nnz + 31) // 32) * 32 + 8)
+                   .sum().item())
+
+    # entries of every candidate row whose id is one of its query's real
+    # terms (searched in the query's sorted terms, 64 queries at a time)
+    q_sorted = qc.sort(1).values.contiguous()
+    hits = 0
+    for b0 in range(0, ids.shape[0], 64):
+        rows = comps16[safe[b0:b0 + 64]].to(torch.int32)  # [b, R, W]
+        flat = rows.reshape(rows.shape[0], -1).contiguous()
+        q = q_sorted[b0:b0 + 64]
+        at = torch.searchsorted(q, flat).clamp_max(q.shape[1] - 1)
+        found = q.gather(1, at)
+        hits += int(((found == flat) & (flat >= 0)
+                     & (found != int(PAD_COMPONENT))).sum().item())
+        del rows, flat, at, found
+    row_nnz = doc_nnz[safe]  # [B, R]
+    other = ids.numel() * 4 + qc.numel() * 8 + ids.numel() * 4
+    nbytes = row_bytes(doc_nnz[torch.unique(safe)]) + other
+    sched = row_bytes(row_nnz) + other
+    real = int(row_nnz.sum().item())
+    b, bb = bound(nbytes, 2.0 * real + 2.0 * hits, PEAK_F32)
+    return dict(bound_ms=b, bound_by=bb,
+                bound_as_scheduled_ms=sched / PEAK_BYTES * 1e3,
+                bytes=nbytes, bytes_as_scheduled=sched,
+                real_entries=real, hit_entries=hits)
+
+
+def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
+                  record) -> dict:
+    """Phase 9: `SeismicIndexDotVByte.build` of phase 8e's JSONL at the
+    cells' layout, phase 8a's graph read by `load_knn`, and `batch_search`
+    of phase 3's queries as token strings (k=10, query_cut 14): the
+    block-pool route at heap_factor 0.7, the same queries with a block
+    budget (the engine's rescore mode) and the block route with n_knn=16.
+    K3's u8 form is held against its plain version on one batch's
+    expanded candidates and timed beside its bounds. Returns its record."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch import SeismicIndexDotVByte
+    from seismic_tpu_torch.api import DEFAULT_QUERY_PAD, block_pool_params
+    from seismic_tpu_torch.data.sparse import pad_queries
+    from seismic_tpu_torch.ops import rescore
+    from seismic_tpu_torch.search import engine, grouped
+    from seismic_tpu_torch.search.grouped import DevicePlan, _grouped_impl
+    from seismic_tpu_torch.search.planner import plan_grouped
+
+    rec = record.setdefault("dotvbyte", {})
+    t0 = time.perf_counter()
+    vidx = SeismicIndexDotVByte.build(
+        jsonl, n_postings=200, max_fraction=2.0, layout=cell_layout(),
+        input_token_to_id_map=tmap)
+    t1 = time.perf_counter()
+    # read before the first upload, so both device copies carry it
+    vidx.load_knn(graph_path)
+    arrays = vidx.arrays
+    if (arrays.fwd_val_min is None or arrays.fwd_vals.dtype != np.uint8
+            or arrays.doc_tiles is not None):
+        fail("phase 9: the DotVByte build holds no u8 forward values, or "
+             "holds doc tiles")
+    bindex, bctx, E = vidx.block_device_index()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    eindex = vidx.device_index()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    W = arrays.fwd_comps.shape[1]
+    for name_, di in (("block", bindex), ("engine", eindex)):
+        if di.fwd_fused is not None or di.fwd_comps16 is None or \
+                di.fwd_comps16.dtype != torch.int16:
+            fail(f"phase 9: the {name_} device index is not in the lean "
+                 "forward form")
+        for f_ in dataclasses.fields(di):
+            t_ = getattr(di, f_.name)
+            if (torch.is_tensor(t_) and t_.dtype == torch.int32
+                    and tuple(t_.shape) == (arrays.n_docs, W)):
+                fail(f"phase 9: the {name_} device index holds int32 "
+                     f"forward ids ({f_.name})")
+    V = int(bindex.vocab16.shape[1])
+    if V != 512 or E != 32:
+        fail(f"phase 9: the block view is {V} wide with block_expand {E}")
+    sizes = dict(block_index_bytes=bindex.nbytes(),
+                 engine_index_bytes=eindex.nbytes(),
+                 aligned_block_rows_bytes=bindex.doc_tiles_aligned.numel(),
+                 aligned_block_rows=int(bindex.doc_tiles_aligned.shape[0]),
+                 api_index_bytes=record["device_index_bytes"])
+    rec.update(build_s=t1 - t0, block_view_upload_s=t2 - t1,
+               engine_upload_s=t3 - t2, n_blocks=int(len(arrays.block_len)),
+               n_lists=int(arrays.n_lists), **sizes)
+    log(f"phase 9: SeismicIndexDotVByte.build {t1 - t0:.1f} s (u8 values, "
+        f"no doc tiles); block view (narrowed to V={V}, members ordered, "
+        f"lean upload) {t2 - t1:.1f} s, engine copy {t3 - t2:.1f} s; device "
+        f"bytes: block index {sizes['block_index_bytes']} (aligned block "
+        f"rows {sizes['aligned_block_rows_bytes']} over "
+        f"{sizes['aligned_block_rows']} rows), engine copy "
+        f"{sizes['engine_index_bytes']}; phase 3's API index "
+        f"{sizes['api_index_bytes']}")
+
+    tq = [np.array([f"t{c}" for c in q], dtype="U30") for q in qcomps]
+    qids = np.array([f"q{i}" for i in range(len(qcomps))], dtype="U30")
+
+    def run(**kw):
+        t = time.perf_counter()
+        res = vidx.batch_search(qids, tq, qvals, k=K, query_cut=QUERY_CUT,
+                                heap_factor=DOTV_HEAP_FACTOR, **kw)
+        return res, time.perf_counter() - t
+
+    def as_arrays(res, what):
+        if len(res) != BATCH or any(len(r) != K for r in res):
+            fail(f"phase 9 ({what}): not {K} results for every query")
+        s_ = np.array([[x[1] for x in r] for r in res], np.float32)
+        i_ = np.array([[int(x[2][1:]) for x in r] for r in res], np.int64)
+        if not (np.isfinite(s_).all() and (np.diff(s_, axis=1) <= 0).all()):
+            fail(f"phase 9 ({what}): scores not finite and descending")
+        return s_, i_
+
+    # ---- K3's u8 form on one batch's own expanded candidates; K1's and
+    # K2's operands of the same batch, timed alone below ----
+    wrapped = ((rescore, "score_docs_rowmajor_u8"),
+               (grouped, "project_qloc_quantize"),
+               (grouped, "score_grouped_i8"))
+    calls = {name_: [] for _, name_ in wrapped}
+    kernel = rescore.score_docs_rowmajor_u8
+    originals = [getattr(m_, name_) for m_, name_ in wrapped]
+
+    def keeper(name_, f_):
+        def keep(*a):
+            calls[name_].append(a)
+            return f_(*a)
+        return keep
+
+    for (m_, name_), f_ in zip(wrapped, originals):
+        setattr(m_, name_, keeper(name_, f_))
+    try:
+        run()  # also the warm-up
+    finally:
+        for (m_, name_), f_ in zip(wrapped, originals):
+            setattr(m_, name_, f_)
+    if any(len(c_) != 1 for c_ in calls.values()):
+        fail(f"phase 9: calls in one block-route batch "
+             f"{ {n_: len(c_) for n_, c_ in calls.items()} }, not one each")
+    a8 = calls.pop("score_docs_rowmajor_u8").pop()
+    # K1 and K2 alone on the batch's operands: event times, which no
+    # profiler window can lose
+    k12_ms = {n_: time_ms(lambda f_=f_, a_=c_[0]: f_(*a_), 10)
+              for (_, n_), f_, c_ in zip(wrapped[1:], originals[1:],
+                                         calls.values())}
+    del calls
+    B8, R8 = a8[4].shape
+
+    def plain():  # in slices of 256 queries, bounding [rows, R, W]
+        return torch.cat([rescore.score_docs_rowmajor_u8_plain(
+            *a8[:4], a8[4][r0:r0 + 256], a8[5][r0:r0 + 256],
+            a8[6][r0:r0 + 256], a8[7]) for r0 in range(0, B8, 256)])
+
+    k8, p8 = kernel(*a8), plain()
+    torch.cuda.synchronize()
+    err8 = (k8 - p8).abs()
+    rel8 = (err8 / p8.abs().clamp_min(1e-30))[p8 != 0].max().item()
+    zero8 = err8[p8 == 0].max().item() if (p8 == 0).any() else 0.0
+    real8 = int((a8[4] < a8[7]).sum().item())
+    b8 = k3u8_bounds(a8)
+    k3u8 = dict(
+        name="rescore_u8", route="cuda",
+        source="seismic_tpu_torch/csrc/rescore.cu",
+        replaces="seismic_tpu/ops/pallas_rescore.py:30",
+        max_abs_err=float(err8.max().item()), max_rel_err=rel8,
+        ms=time_ms(lambda: kernel(*a8), 10), plain_ms=time_ms(plain, 2),
+        library_ms=None, B=B8, R=R8, W=int(a8[0].shape[1]),
+        terms=int(a8[5].shape[1]), real_candidates=real8,
+        nonzero_scores=int((p8 != 0).sum().item()), **b8)
+    log(f"phase 9: K3-u8 on the block route's own [{B8}, {R8}] expanded "
+        f"candidates ({real8} real): max rel err {rel8:.3g} on "
+        f"{k3u8['nonzero_scores']} nonzero scores, {k3u8['ms']:.4f} ms "
+        f"(bound {b8['bound_ms']:.4f} ms by {b8['bound_by']}: "
+        f"{b8['real_entries']} real entries, {b8['hit_entries']} hits; "
+        f"{b8['bound_as_scheduled_ms']:.4f} with every candidate row read; "
+        f"plain {k3u8['plain_ms']:.3f} ms in 256-query slices)")
+    # its ptxas lines (registers, spills) from phase 1's build; a spill is
+    # logged, not failed: the kernel's redesign is queued (ROADMAP.md)
+    ptx8 = ptxas_of("rescore", "rescore_u8_kernel")
+    if not ptx8 or not all(ptx8.values()):
+        fail("phase 9: no ptxas line of K3-u8's rescore_u8_kernel")
+    k3u8["ptxas"] = ptx8
+    log(f"phase 9: K3-u8 rescore_u8_kernel ptxas: {ptx8}")
+    if not (rel8 <= 1e-5 and zero8 <= 1e-30):
+        fail(f"K3-u8 disagrees with its plain version on the block route's "
+             f"candidates: max relative error {rel8}, {zero8} where the "
+             "plain score is 0")
+    del a8, k8, p8, err8
+    torch.cuda.empty_cache()
+
+    # ---- the block-pool route: REPS timed batches ----
+    zero_launches()
+    lat, res = [], None
+    for _ in range(REPS):
+        res, dt = run()
+        lat.append(dt)
+    counts = hold_launches(
+        "phase 9: the block-pool route", read_launches(),
+        positive=("qloc", "score_grouped_i8", "rescore_u8"))
+    record["launch_windows"]["dotvbyte"] = counts
+    s_b, i_b = as_arrays(res, "block route")
+    p50 = float(np.median(lat))
+    qps = BATCH * REPS / sum(lat)
+
+    # every score the exact dot of the document's decoded u8 row with the
+    # query's top score_cut terms
+    q_comps, q_vals = pad_queries(qcomps, qvals, DEFAULT_QUERY_PAD)
+    qct = torch.from_numpy(q_comps).to(dev)
+    qvt = torch.from_numpy(q_vals).to(dev)
+    top_c, top_v, _ = engine._query_terms(qct, qvt, 64)
+    docs8 = fwd_csr(arrays, dev)
+
+    def worst_err(s_, i_):
+        return max_rel_err(torch.from_numpy(s_).to(dev), exact_of(
+            docs8, top_c, top_v, torch.from_numpy(i_).to(dev)))
+
+    worst_b = worst_err(s_b, i_b)
+    nq = len(gt)
+    r_b = recall_at(gt, i_b[:nq])
+    log(f"phase 9: block-pool route, {REPS} batches of {BATCH} at "
+        f"heap_factor {DOTV_HEAP_FACTOR}: QPS {qps:.1f}, p50 "
+        f"{p50 * 1e3:.2f} ms, launches {counts}; scores exact to "
+        f"{worst_b:.3g}; recall@10 {r_b:.4f} on {nq} queries")
+    if not worst_b <= 1e-5:
+        fail(f"phase 9: block-route scores differ from the exact dots of "
+             f"the u8 rows by {worst_b} relative")
+
+    # ---- the same queries with a block budget: the engine's rescore mode
+    def shared(i_):
+        return float(np.mean([len(set(a) & set(b)) / K
+                              for a, b in zip(i_b.tolist(), i_.tolist())]))
+
+    zero_launches()
+    res_e, dt_e = run(block_budget=DOTV_ENGINE_BUDGET)
+    ecounts = hold_launches("phase 9: the engine's rescore mode",
+                            read_launches(), positive=("rescore_u8",))
+    record["launch_windows"]["dotvbyte_engine"] = ecounts
+    s_e, i_e = as_arrays(res_e, "engine")
+    worst_e = worst_err(s_e, i_e)
+    agree, r_e = shared(i_e), recall_at(gt, i_e[:nq])
+    res_d, dt_d = run(block_budget=DOTV_DEFAULT_BUDGET)
+    s_d, i_d = as_arrays(res_d, "engine, default budget")
+    worst_e = max(worst_e, worst_err(s_d, i_d))
+    agree_d, r_d = shared(i_d), recall_at(gt, i_d[:nq])
+    log(f"phase 9: engine rescore mode, block_budget {DOTV_ENGINE_BUDGET}: "
+        f"{dt_e * 1e3:.2f} ms, launches {ecounts}; scores exact to "
+        f"{worst_e:.3g}; recall@10 {r_e:.4f}; the block route's top-10 "
+        f"shares {agree:.4f} of its entries (at block_budget "
+        f"{DOTV_DEFAULT_BUDGET}: {dt_d * 1e3:.2f} ms, recall@10 {r_d:.4f}, "
+        f"shares {agree_d:.4f})")
+    if not worst_e <= 1e-5:
+        fail(f"phase 9: engine scores differ from the exact dots by "
+             f"{worst_e} relative")
+    if agree < DOTV_AGREE_FLOOR:
+        fail(f"phase 9: block and engine top-10 share {agree:.4f} of "
+             f"entries, under {DOTV_AGREE_FLOOR}")
+
+    # ---- the block route with n_knn on the graph load_knn read ----
+    zero_launches()
+    res_k, dt_k = run(n_knn=NKNN)
+    kcounts = hold_launches(
+        "phase 9: the block-pool route with n_knn", read_launches(),
+        positive=("qloc", "score_grouped_i8", "rescore_u8"))
+    record["launch_windows"]["dotvbyte_knn"] = kcounts
+    if not kcounts["rescore_u8"] > counts["rescore_u8"] // REPS:
+        fail(f"phase 9: K3-u8 launched {kcounts['rescore_u8']} times with "
+             "n_knn, no more than a batch without")
+    s_k, i_k = as_arrays(res_k, "n_knn")
+    worst_k = worst_err(s_k, i_k)
+    r_k = recall_at(gt, i_k[:nq])
+    log(f"phase 9: block route with n_knn={NKNN}: {dt_k * 1e3:.2f} ms, "
+        f"launches {kcounts}; scores exact to {worst_k:.3g}; recall@10 "
+        f"{r_k:.4f} ({r_b:.4f} without)")
+    if not worst_k <= 1e-5:
+        fail(f"phase 9: refined scores differ from the exact dots by "
+             f"{worst_k} relative")
+    if (s_k[:, -1] < s_b[:, -1]).any():
+        fail("phase 9: refinement lowered some query's 10th score")
+    del docs8
+    torch.cuda.empty_cache()
+
+    # ---- where one block-route batch's time goes ----
+    params = block_pool_params(K, E)
+    g0 = gc_ms()
+    t = [time.perf_counter()]
+    enc = [vidx._encode_query(c, v) for c, v in zip(tq, qvals)]
+    t.append(time.perf_counter())
+    qc2, qv2 = pad_queries([e[0] for e in enc], [e[1] for e in enc],
+                           DEFAULT_QUERY_PAD)
+    t.append(time.perf_counter())
+    plan = plan_grouped(qc2, qv2, bctx, QUERY_CUT, native=True)
+    t.append(time.perf_counter())
+    args = (bindex, DevicePlan.put(plan, dev), torch.from_numpy(qc2).to(dev),
+            torch.from_numpy(qv2).to(dev), params)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    out = _grouped_impl(*args)
+    t_enq = time.perf_counter()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    out[0].cpu(), out[1].cpu()
+    t.append(time.perf_counter())
+    brk = {name_: (t[i + 1] - t[i]) * 1e3 for i, name_ in enumerate(
+        ("encode_tokens_ms", "pad_queries_ms", "plan_ms", "upload_ms",
+         "device_program_ms", "download_ms"))}
+    brk.update(enqueue_ms=(t_enq - t[4]) * 1e3, gc_ms=gc_ms() - g0,
+               plan={"G": plan.G, "W": plan.W, "G_cap": plan.G_cap,
+                     "W_cap": plan.W_cap})
+    brk.update(device_events_ms=time_ms(lambda: _grouped_impl(*args), 5),
+               kernel_event_ms=dict(k12_ms, rescore_u8=k3u8["ms"]))
+    # a window is read only where it holds each kernel the batch launches
+    # (windows of earlier full-size runs lost K1 and K2, cause unknown):
+    # up to 3 windows, each after a warm-up call; where none holds them
+    # all, the busy time and the idle share are not measured
+    wanted = ("qloc_kernel", "score_grouped_i8_kernel", "rescore_u8_kernel")
+    try:
+        for n_win in range(1, 4):
+            busy, kern = profile_device(lambda: _grouped_impl(*args),
+                                        top=None, warmup=1)
+            missing = [n_ for n_ in wanted
+                       if not any(n_ in k_ for k_ in kern)]
+            if not missing:
+                break
+        k8_dev = sum(v for k_, v in kern.items() if "rescore_u8" in k_)
+        brk.update(kernels_ms=dict(list(kern.items())[:12]),
+                   profile_windows=n_win, profile_missing=missing)
+        if missing:
+            brk.update(device_busy_ms=None, device_idle_share=None,
+                       device_busy_ms_incomplete_window=busy)
+        else:
+            brk.update(device_busy_ms=busy, device_idle_share=max(
+                0.0, 1.0 - busy / brk["device_program_ms"]))
+        k3u8["device_ms_in_batch"] = k8_dev if k8_dev else "not measured"
+    except NoProfile as e:  # informational only
+        brk["profile"] = f"not measured: {e}"
+        k3u8["device_ms_in_batch"] = "not measured"
+    log(f"phase 9 breakdown of one block-route batch: {json.dumps(brk)}")
+    rec.update(qps=qps, p50_ms=p50 * 1e3, latencies_s=lat, launches=counts,
+               recall_at_10=r_b, recall_at_10_engine=r_e,
+               recall_at_10_knn=r_k, engine_block_budget=DOTV_ENGINE_BUDGET,
+               engine_batch_ms=dt_e * 1e3, knn_batch_ms=dt_k * 1e3,
+               block_engine_agreement=agree,
+               default_budget=dict(block_budget=DOTV_DEFAULT_BUDGET,
+                                   batch_ms=dt_d * 1e3, recall_at_10=r_d,
+                                   block_engine_agreement=agree_d),
+               max_rel_score_err=max(
+                   worst_b, worst_e, worst_k), engine_launches=ecounts,
+               knn_launches=kcounts, breakdown=brk, k3_u8=k3u8,
+               recall_queries=nq)
+    del vidx, bindex, eindex, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k3u8
 
 
 def knn_headline_path(env, dev, record):
@@ -2429,27 +2866,29 @@ def knn_headline_path(env, dev, record):
 
 def api_path(ds, dev, record):
     """Phases 2 and 3 on the API's grouped route (K1-K3), then phase 5,
-    the engine path, and phase 8 (a, b, e), on the same index; returns
-    (the records of K1-K3, K7's record, phase 8a's graph). Everything it
+    the engine path, and phase 8 (a, b, e), on the same index, and phase
+    9 (the DotVByte class, from phase 8e's JSONL); returns (the records of
+    K1-K3, K7's record, phase 8a's graph, K3-u8's record). Everything it
     builds on the card is freed when it returns."""
+    import tempfile
+
     import torch
 
     from seismic_tpu_torch import (
         Configuration,
         GlobalThresholdPruning,
         SeismicIndexRaw,
-        TpuLayout,
     )
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT, pad_queries
     from seismic_tpu_torch.ops import grouped_scorer
     from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
+    from seismic_tpu_torch.search import knn as knn_mod
     from seismic_tpu_torch.search.grouped import DevicePlan, _top_k
     from seismic_tpu_torch.search.planner import plan_grouped
 
     cfg = Configuration(
         pruning=GlobalThresholdPruning(n_postings=200, max_fraction=2.0),
-        layout=TpuLayout(max_block_len=32, summary_vocab_cap=V_CAP,
-                         max_doc_nnz=256, tile_overflow=64),
+        layout=cell_layout(),
     )
     t0 = time.time()
     index = SeismicIndexRaw.build_from_csr(ds, cfg)
@@ -2644,8 +3083,14 @@ def api_path(ds, dev, record):
     # ------- phase 8 (a, b, e): the graph, refinement, the user API -------
     del dindex, a2, a2u  # the copy build_knn replaces with one that has it
     graph = knn_api_path(index, ds, qcomps, qvals, gt, recall, dev, record)
-    user_flow_path(index, ds, qcomps, qvals, dev, record)
-    return kernels, k7, graph
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl, tmap = user_flow_path(index, ds, qcomps, qvals, dev, record,
+                                     tmp)
+        # ------- phase 9: SeismicIndexDotVByte on the block-pool route ----
+        graph_path = knn_mod.save_knn(graph, os.path.join(tmp, "graph"))
+        k3u8 = dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt,
+                             dev, record)
+    return kernels, k7, graph, k3u8
 
 
 def main():
@@ -2704,8 +3149,8 @@ def main():
     record.update(n_docs=len(ds), synth_s=synth_s,
                   rehearsal=args.n_docs < N_DOCS)
 
-    # ------- phases 2, 3 and 5: the API's grouped and engine routes -------
-    kernels, k7, graph = api_path(ds, dev, record)
+    # ------- phases 2, 3, 5, 8 (a, b, e) and 9 on the API cell's corpus ----
+    kernels, k7, graph, k3u8 = api_path(ds, dev, record)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2718,15 +3163,16 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------- phase 7: the device probe and microbench ------------
-    kernels += probe_path(dev, record)
+    kernels += probe_path(dev, record) + [k3u8]
     # every count below was read from a wrapper's counter after a window that
-    # set all eighteen to 0 first; `launches` is the count on the kernel's
+    # set all nineteen to 0 first; `launches` is the count on the kernel's
     # own main path
     windows = record["launch_windows"]
     main_window = dict.fromkeys(COUNTED, "modes")
     main_window.update(qloc="api", score_grouped_i8="api", rescore="api",
                        score_grouped_i8_item="headline", score_tiles="engine")
-    main_window.update(dict.fromkeys(PROBE_KERNELS, "probe"))
+    main_window.update(dict.fromkeys(PROBE_KERNELS, "probe"),
+                       rescore_u8="dotvbyte")
     for kr, n_ in zip(kernels, COUNTED, strict=True):
         kr["launches"] = windows[main_window[n_]][n_]
         kr.update({f"launches_{w_}": windows[w_][n_] for w_ in windows})

@@ -4,16 +4,21 @@
                                        stored text (JSONL / tar.gz input)
 - SeismicIndexRaw / SeismicIndexRawLV  integer component ids, no metadata
                                        (CSR or `.bin` input)
+- SeismicIndexDotVByte                 u8 forward values, no doc tiles,
+                                       the block-pool lean path
 - SeismicDataset / SeismicDatasetLV    growable dataset + exact search
 - get_seismic_string()                 numpy dtype for token arrays ("U30")
 
 The u16 / u32 split is an API-level vocabulary-capacity check; the `*LV`
-classes lift the 65,536-token cap. `SeismicIndexDotVByte` (u8 forward
-values on the block pool) is not served yet (ROADMAP.md, modules to port,
-item 2c).
+classes lift the 65,536-token cap.
 
-Every index class routes as `seismic_tpu/api.py:356-419` routes on the
-accelerator. A tiles-mode request that asks for exhaustive lists
+Every index class routes as `seismic_tpu/api.py:300-419` routes on the
+accelerator. `SeismicIndexDotVByte` sends a request that sets no budget
+and no block or doc mode to the block-pool route (`block_device_index`:
+the blocks-as-rows view of its dense block summaries, narrowed to 512
+columns, its members ordered by value, with the lean u8 forward rows;
+the C++ planner; `block_pool_params`): on every device, the card taking
+the TPU's part. A tiles-mode request that asks for exhaustive lists
 (`heap_factor <= 0` or `full_lists`) and sets no block/candidate budget
 takes the grouped (list-major) route with the fixed `GroupedParams` of
 the JAX API (`route_params`, kNN refinement included). Every other request
@@ -85,6 +90,21 @@ def route_params(k: int, score_cut: int = 64, n_knn: int = 0):
     )
 
 
+def block_pool_params(k: int, E: int, score_cut: int = 64, n_knn: int = 0):
+    """GroupedParams of the block-pool route (`seismic_tpu/api.py:
+    330-335`): int8 scorer over the block rows, a hier pool of
+    max(4k, 32) blocks, each expanded into up to `E` (the index's
+    max_block_len) members, all exact-rescored; `n_knn` > 0 refines."""
+    from .search.grouped import GroupedParams
+
+    pool = max(4 * k, 32)
+    return GroupedParams(
+        k=k, score_cut=score_cut, pool=pool, block_expand=E, n_knn=n_knn,
+        compute_dtype="i8", pool_mode="hier",
+        pool_per_pair=max(4, pool // 4),
+    )
+
+
 def _result_pairs(scores, ids) -> List[Tuple[float, int]]:
     return [(float(s), int(d)) for s, d in zip(scores, ids)
             if d >= 0 and np.isfinite(s)]
@@ -97,6 +117,13 @@ class _IndexBase:
 
     _component_cap = _U32_CAP
     _value_dtype = "f16"
+    # the build's doc tiles and the engine's default doc mode; the
+    # DotVByte class keeps no tiles and rescores
+    _store_doc_tiles = True
+    _default_doc_mode: Optional[str] = None
+    # the block-pool route and the width its view is narrowed to
+    _use_block_pool = False
+    _block_V = 512
 
     def __init__(
         self,
@@ -112,6 +139,9 @@ class _IndexBase:
         self._contents = contents
         self._device_arg = device
         self._device_index = {}  # torch.device -> DeviceIndex
+        # torch.device -> (DeviceIndex of the block view, its
+        # PlannerContext, block_expand)
+        self._block_index = {}
         self._planner_ctx = None
         self._query_pad = DEFAULT_QUERY_PAD
 
@@ -124,7 +154,8 @@ class _IndexBase:
         from .build.builder import build_index
 
         arrays = build_index(
-            dataset, config, value_dtype=cls._value_dtype, progress=progress,
+            dataset, config, value_dtype=cls._value_dtype,
+            store_doc_tiles=cls._store_doc_tiles, progress=progress,
         )
         index = cls(arrays, device=device, **meta)
         if config.knn.knn_path:
@@ -204,10 +235,44 @@ class _IndexBase:
             self._device_index[dev] = self._arrays.to_device(dev)
         return self._device_index[dev]
 
+    def block_device_index(self, device=None):
+        """(DeviceIndex, PlannerContext, block_expand) of the block-pool
+        route on `device`, made on first use (`seismic_tpu/api.py:
+        120-150`): the dense block summaries narrowed to `_block_V`
+        columns when they are wider, the blocks-as-rows view with each
+        block's members ordered by value, uploaded in the lean forward
+        form when the values are u8. It is a second device index: the
+        engine's copy (`device_index`) keeps the unordered postings.
+        block_expand is the index's max_block_len."""
+        from .ops.tiles_prep import block_pool_arrays, narrow_vocab
+        from .search.planner import PlannerContext
+
+        dev = resolve_device(device if device is not None
+                             else self._device_arg)
+        if dev not in self._block_index:
+            arrays = self._arrays
+            if arrays.dense_summary is None:
+                # the JAX package hashes the CSR summaries here instead;
+                # that view raises, naming its ROADMAP item
+                bv = block_pool_arrays(arrays, self._block_V,
+                                       order_members=True, mode="hash")
+            else:
+                width = int(arrays.dense_summary.shape[1])
+                if self._block_V < width and arrays.vocab_rank is not None:
+                    arrays = narrow_vocab(arrays, self._block_V)
+                    width = self._block_V
+                bv = block_pool_arrays(arrays, width, order_members=True,
+                                       mode="dense")
+            self._block_index[dev] = (bv.to_device(dev),
+                                      PlannerContext.from_arrays(bv),
+                                      int(self._arrays.max_block_len))
+        return self._block_index[dev]
+
     def _invalidate_device(self):
         """Drop the device copies (and the planner context): the next
         search uploads the arrays as they are now, graph included."""
         self._device_index = {}
+        self._block_index = {}
         self._planner_ctx = None
 
     def _grouped_ctx(self):
@@ -244,7 +309,8 @@ class _IndexBase:
             else:
                 block_mode = "sketch"
         if doc_mode is None:
-            doc_mode = "tiles" if a.doc_tiles is not None else "gather"
+            doc_mode = self._default_doc_mode or (
+                "tiles" if a.doc_tiles is not None else "gather")
         return SearchParams(
             k=k,
             query_cut=query_cut,
@@ -290,6 +356,34 @@ class _IndexBase:
                 q_comps, ((0, bb - B), (0, 0)), constant_values=PAD_COMPONENT
             )
             q_vals = np.pad(q_vals, ((0, bb - B), (0, 0)))
+        # The block-pool route: the pool ranks the blocks' dense summaries,
+        # pooled blocks expand into their members, every member is
+        # exact-rescored from the forward rows. Taken for any heap_factor
+        # (the finite block pool does the threshold's work); a budget or a
+        # block or doc mode goes to the engine path.
+        if (
+            self._use_block_pool
+            and self._arrays.summary_comps is not None
+            and block_budget is None
+            and cand_budget is None
+            and block_mode is None
+            and doc_mode is None
+        ):
+            from .search.grouped import DevicePlan, _grouped_impl
+            from .search.planner import plan_grouped
+
+            bindex, bctx, E = self.block_device_index(device)
+            dev = bindex.device
+            plan = plan_grouped(q_comps, q_vals, bctx, query_cut,
+                                native=True)
+            scores, ids = _grouped_impl(
+                bindex,
+                DevicePlan.put(plan, dev),
+                torch.from_numpy(q_comps).to(dev),
+                torch.from_numpy(q_vals).to(dev),
+                block_pool_params(k, E, score_cut, n_knn),
+            )
+            return scores.cpu().numpy()[:B], ids.cpu().numpy()[:B]
         params = self._search_params(
             k, query_cut, n_knn, first_sorted, block_budget, cand_budget,
             block_mode, doc_mode, full_lists, score_cut,
@@ -651,6 +745,29 @@ class SeismicIndexRawLV(SeismicIndexRaw):
     _component_cap = _U32_CAP
 
 
+class SeismicIndexDotVByte(SeismicIndex):
+    """The memory-lean variant (reference: src/pylib/dotvbyte.rs:32-426):
+    u8 forward values with a per-document (min, step), no replicated doc
+    tiles, and searches on the block-pool route (dense block summaries
+    pool blocks, their members are exact-rescored from the u8 forward
+    rows by K3's u8 form); other requests take the engine path in its
+    rescore doc mode on the same forward rows."""
+
+    _component_cap = _U16_CAP
+    _value_dtype = "u8"
+    _store_doc_tiles = False
+    _default_doc_mode = "rescore"
+    _use_block_pool = True
+
+    def build_knn(self, nknn: int, batch_size: int = 256,
+                  device=None) -> None:
+        # as the reference, which builds no graph on compressed datasets
+        # (dotvbyte.rs:101-112)
+        raise NotImplementedError(
+            "SeismicIndexDotVByte does not support build_knn; build the "
+            "graph on an uncompressed index and load it with load_knn")
+
+
 class SeismicDataset:
     """In-memory accumulation + brute-force exact search on `device`, the
     ground truth of recall (reference: wrapper.rs:599-758, FlatIndex)."""
@@ -762,10 +879,12 @@ __all__ = [
     "SeismicIndexLV",
     "SeismicIndexRaw",
     "SeismicIndexRawLV",
+    "SeismicIndexDotVByte",
     "SeismicDataset",
     "SeismicDatasetLV",
     "get_seismic_string",
     "route_params",
+    "block_pool_params",
     "DEFAULT_QUERY_PAD",
     "INDEX_SUFFIX",
 ]

@@ -37,6 +37,19 @@
 // fit 3 and ran slower on the H100 (PERF.md §6). The row's sum reduces
 // over the warp in 5 shuffles. The [B*R, 2W] gathered copy of the TPU
 // version never exists.
+//
+// The lean u8 form (rescore_u8_kernel, entry point seismic_rescore_u8):
+// the same computation over a document's int16 ids (-1 padded), its u8
+// codes and its f32 (min, step), val_w = code_w * step + min, read by the
+// JAX package as the i16 twin plus the codes decoded per document
+// (pallas_rescore.py:147-159, search/engine.py:114-131). It reads 3W + 8
+// bytes a candidate row where the fused form reads 8W. The same block
+// shape, staging and table; a warp takes one row at a time in chunks of
+// 128 ids (4 a lane: one 8-byte load of ids and, only where one of them
+// hits a query term, one 4-byte load of codes, when W % 4 == 0; single
+// loads otherwise), ends the row at the first chunk holding a -1 id, and
+// decodes with the rounding of two separate f32 ops (no contraction into
+// an FMA) before it multiplies by the looked-up sum.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -149,6 +162,111 @@ rescore_fused_kernel(const int* __restrict__ fwd,      // [n_docs, 2W]
   }
 }
 
+constexpr int kChunkU8 = 128;  // ids a warp reads at once, 4 a lane
+
+// The 4 ids at columns w..w+3 of an int16 row (kPad for -1 and past W).
+template <bool kVec>
+__device__ __forceinline__ void load_ids16(const int16_t* row, int w, int W,
+                                           int (&c)[4]) {
+  if (kVec && w < W) {
+    const int2 x = __ldg(reinterpret_cast<const int2*>(row + w));
+    const int h[4] = {static_cast<int>(static_cast<int16_t>(x.x)),
+                      x.x >> 16,
+                      static_cast<int>(static_cast<int16_t>(x.y)),
+                      x.y >> 16};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) c[j] = h[j] < 0 ? kPad : h[j];
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int v = w + j < W ? static_cast<int>(__ldg(row + w + j)) : -1;
+    c[j] = v < 0 ? kPad : v;
+  }
+}
+
+// The 4 u8 codes at columns w..w+3 of a row (0 past W).
+template <bool kVec>
+__device__ __forceinline__ void load_codes(const uint8_t* row, int w, int W,
+                                           float (&x)[4]) {
+  if (kVec) {
+    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(row + w));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[j] = static_cast<float>((v >> (8 * j)) & 255u);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[j] = w + j < W ? static_cast<float>(__ldg(row + w + j)) : 0.0f;
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 8)
+rescore_u8_kernel(const int16_t* __restrict__ comps,  // [n_docs, W]
+                  const uint8_t* __restrict__ codes,  // [n_docs, W]
+                  const float* __restrict__ vmin,     // [n_docs]
+                  const float* __restrict__ vstep,    // [n_docs]
+                  const int* __restrict__ doc_ids,    // [B, R]
+                  const int* __restrict__ qc,         // [B, SC]
+                  const float* __restrict__ qv,       // [B, SC]
+                  int n_docs, int W, int R, int SC,
+                  float* __restrict__ out) {          // [B, R]
+  __shared__ int s_qc[kQlocMaxTerms];
+  __shared__ float s_qv[kQlocMaxTerms];
+  __shared__ int2 s_tab[kTermSlots];
+  __shared__ int s_n;
+  __shared__ int s_dup;
+
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int* ids_b = doc_ids + static_cast<int64_t>(b) * R;
+
+  term_table_clear(s_tab, &s_dup);
+  stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
+  __syncthreads();
+  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);
+
+  int r = threadIdx.x >> 5;
+  int d = r < R ? __ldg(ids_b + r) : 0;
+  for (; r < R; r += kWarps) {
+    d = d < 0 ? 0 : (d > n_docs - 1 ? n_docs - 1 : d);
+    const int16_t* crow = comps + static_cast<int64_t>(d) * W;
+    const uint8_t* vrow = codes + static_cast<int64_t>(d) * W;
+    const float mn = __ldg(vmin + d);
+    const float st = __ldg(vstep + d);
+    // the next row's doc id is in flight while this row is scored
+    d = r + kWarps < R ? __ldg(ids_b + r + kWarps) : 0;
+    float part = 0.0f;
+    for (int w0 = 0; w0 < W; w0 += kChunkU8) {
+      const int w = w0 + 4 * lane;
+      int c[4];
+      load_ids16<kVec>(crow, w, W, c);
+      float a[4];
+      term_find_n(s_tab, c, a);
+      if (a[0] != 0.0f || a[1] != 0.0f || a[2] != 0.0f || a[3] != 0.0f) {
+        float x[4];
+        load_codes<kVec>(vrow, w, W, x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          part += __fmul_rn(__fadd_rn(__fmul_rn(x[j], st), mn), a[j]);
+        }
+      }
+      // the row goes on only while this chunk held no padding
+      const bool pad = c[0] == kPad || c[1] == kPad || c[2] == kPad ||
+                       c[3] == kPad;
+      if (__ballot_sync(0xffffffffu, pad) != 0u) break;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    }
+    if (lane == 0) out[static_cast<int64_t>(b) * R + r] = part;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,6 +279,28 @@ int seismic_rescore_fused(const int* fwd, const int* doc_ids, const int* qc,
   if (B > 0 && R > 0) {
     rescore_fused_kernel<<<B, kThreads, 0, stream>>>(fwd, doc_ids, qc, qv,
                                                      n_docs, W, R, SC, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int seismic_rescore_u8(const int16_t* comps, const uint8_t* codes,
+                       const float* vmin, const float* vstep,
+                       const int* doc_ids, const int* qc, const float* qv,
+                       int B, int R, int SC, int n_docs, int W, float* out,
+                       cudaStream_t stream) {
+  if (B > 0 && R > 0) {
+    // one 8-byte load of ids and one 4-byte load of codes a lane when
+    // every row and chunk start is aligned for them
+    const bool vec = W % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(comps) % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+    if (vec) {
+      rescore_u8_kernel<true><<<B, kThreads, 0, stream>>>(
+          comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+    } else {
+      rescore_u8_kernel<false><<<B, kThreads, 0, stream>>>(
+          comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

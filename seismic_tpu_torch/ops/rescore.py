@@ -12,6 +12,16 @@ doc d = clamp(doc_ids[b, r], 0, n_docs - 1):
 `score_docs_rowmajor` launches the kernel, a lookup of each entry in a
 shared-memory hash table of the query's terms, for CUDA tensors and uses
 the plain PyTorch version, `score_docs_rowmajor_plain`, for CPU ones.
+
+The lean u8 form of the forward rows (`SeismicIndexDotVByte`: int16 ids
+`[n_docs, W]` with -1 padding, u8 codes `[n_docs, W]` and each document's
+f32 min and step) has a second entry point on the same table,
+`score_docs_rowmajor_u8` (its plain version `score_docs_rowmajor_u8_plain`),
+with val[d, w] = code[d, w] * step[d] + min[d] and 0 where the id is -1:
+what the JAX package scores from the i16 twin and the decoded codes
+(`pallas_rescore.py:147-159`, `search/engine.py:114-131`). It reads 3W + 8
+bytes a candidate row where the fused form reads 8W. `rescore_exact`
+dispatches on the index's form.
 """
 
 from __future__ import annotations
@@ -22,8 +32,10 @@ import torch
 
 from . import _cuda
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: the fused form's and
+# the u8 form's
 launches = 0
+launches_u8 = 0
 _handle = None
 
 
@@ -40,17 +52,64 @@ def decode_fused_rows(fwd_fused, doc_ids):
     return comps, vals
 
 
-def score_docs_rowmajor_plain(fwd_fused, doc_ids, qc, qv, n_docs: int):
-    """Plain PyTorch version: gather + decode, then the term-by-term
-    compare-accumulate and the reduction over W."""
-    safe = doc_ids.clamp(0, n_docs - 1)
-    comps, vals = decode_fused_rows(fwd_fused, safe)  # [B, R, W]
+def decode_u8_rows(comps16, codes, vmin, vstep, doc_ids):
+    """Gather and decode lean u8 forward rows: (comps int32 [..., W], -1
+    at padding; vals f32 [..., W], code * step + min, 0 at padding) — the
+    fwd_comps16 branch of the JAX `rescore_exact` with its
+    `_decode_fwd_vals` (`seismic_tpu/search/engine.py:114-131`)."""
+    from ..search.engine import _decode_fwd_vals
+
+    d = doc_ids.long()
+    comps = comps16[d].to(torch.int32)
+    vals = (codes[d].to(torch.float32) * vstep[d][..., None]
+            + vmin[d][..., None])
+    return comps, _decode_fwd_vals(vals, comps >= 0)
+
+
+def fwd_width(index) -> int:
+    """W, the entries of a forward row, in whichever form `index` holds
+    the rows."""
+    if index.fwd_fused is not None:
+        return index.fwd_fused.shape[1] // 2
+    return index.fwd_comps16.shape[1]
+
+
+def decode_fwd_rows(index, doc_ids):
+    """(comps int32, vals f32) of the forward rows of `doc_ids` in
+    whichever form `index` holds them; padding ids are PAD_COMPONENT
+    (fused) or -1 (u8), padding values 0."""
+    if index.fwd_fused is not None:
+        return decode_fused_rows(index.fwd_fused, doc_ids)
+    return decode_u8_rows(index.fwd_comps16, index.fwd_vals,
+                          index.fwd_val_min, index.fwd_val_step, doc_ids)
+
+
+def _compare_sum(comps, vals, qc, qv):
+    """sum_w vals * sum_i qv[i] * [comps == qc[i]], the terms added in
+    order from 0.0 as the Pallas body adds them."""
     acc = torch.zeros(comps.shape, dtype=torch.float32, device=comps.device)
     zero = torch.zeros((), dtype=torch.float32, device=comps.device)
     for i in range(qc.shape[1]):
         acc = acc + torch.where(comps == qc[:, None, i:i + 1],
                                 qv[:, None, i:i + 1], zero)
     return (vals * acc).sum(dim=-1)
+
+
+def score_docs_rowmajor_plain(fwd_fused, doc_ids, qc, qv, n_docs: int):
+    """Plain PyTorch version: gather + decode, then the term-by-term
+    compare-accumulate and the reduction over W."""
+    safe = doc_ids.clamp(0, n_docs - 1)
+    comps, vals = decode_fused_rows(fwd_fused, safe)  # [B, R, W]
+    return _compare_sum(comps, vals, qc, qv)
+
+
+def score_docs_rowmajor_u8_plain(comps16, codes, vmin, vstep, doc_ids, qc,
+                                 qv, n_docs: int):
+    """Plain PyTorch version of the u8 form: gather + decode, then the
+    compare loop, as the fused form's."""
+    safe = doc_ids.clamp(0, n_docs - 1)
+    comps, vals = decode_u8_rows(comps16, codes, vmin, vstep, safe)
+    return _compare_sum(comps, vals, qc, qv)
 
 
 def _lib():
@@ -60,6 +119,9 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.seismic_rescore_fused.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.seismic_rescore_fused.restype = ctypes.c_int
+        lib.seismic_rescore_u8.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                           i, p, p]
+        lib.seismic_rescore_u8.restype = ctypes.c_int
         lib.seismic_rescore_max_terms.restype = ctypes.c_int
         _handle = lib
     return _handle
@@ -104,21 +166,73 @@ def score_docs_rowmajor(fwd_fused, doc_ids, qc, qv, n_docs: int):
     return out
 
 
+def score_docs_rowmajor_u8(comps16, codes, vmin, vstep, doc_ids, qc, qv,
+                           n_docs: int):
+    """The u8 form: comps16 int16 [n_docs, W] (-1 padded at each row's
+    end: the kernel stops reading a row at its first -1), codes uint8
+    [n_docs, W], vmin / vstep f32 [n_docs]; doc_ids int32 [B, R]; qc
+    int32 / qv f32 [B, SC] (PAD_COMPONENT / 0 padded). Returns exact f32
+    [B, R]."""
+    global launches_u8
+    req = _cuda.require
+    req(comps16.dim() == 2 and comps16.dtype == torch.int16,
+        "comps16 must be int16 [n_docs, W]")
+    req(codes.dtype == torch.uint8 and codes.shape == comps16.shape,
+        "codes must be uint8 of comps16's shape")
+    req(comps16.shape[0] == n_docs, "comps16 must have n_docs rows")
+    req(all(t.dtype == torch.float32 and t.shape == (n_docs,)
+            for t in (vmin, vstep)), "vmin / vstep must be f32 [n_docs]")
+    req(doc_ids.dim() == 2 and doc_ids.dtype == torch.int32,
+        "doc_ids must be int32 [B, R]")
+    req(qc.dim() == 2 and qc.dtype == torch.int32
+        and qc.shape[0] == doc_ids.shape[0], "qc must be int32 [B, SC]")
+    req(qv.shape == qc.shape and qv.dtype == torch.float32,
+        "qv must be f32 of qc's shape")
+    ops = (comps16, codes, vmin, vstep, doc_ids, qc, qv)
+    dev = comps16.device
+    req(all(t.device == dev for t in ops),
+        "all operands must be on one device")
+    if dev.type == "cpu":
+        return score_docs_rowmajor_u8_plain(*ops, n_docs)
+    req(dev.type == "cuda", f"unsupported device {dev}")
+    req(all(t.is_contiguous() for t in ops), "operands must be contiguous")
+    lib = _lib()
+    B, R = doc_ids.shape
+    SC = qc.shape[1]
+    req(SC <= lib.seismic_rescore_max_terms(), f"{SC} terms exceed the cap")
+    out = torch.empty((B, R), dtype=torch.float32, device=dev)
+    p = _cuda.ptr
+    rc = lib.seismic_rescore_u8(
+        *(p(t) for t in ops), B, R, SC, n_docs, comps16.shape[1], p(out),
+        ctypes.c_void_p(_cuda.stream_handle(dev)))
+    _cuda.check(rc, "rescore_u8")
+    launches_u8 += 1
+    return out
+
+
+def _score_rows(index, ids, qc, qv):
+    """Exact scores of `ids` from the index's forward rows, by its form."""
+    if index.fwd_fused is not None:
+        return score_docs_rowmajor(index.fwd_fused, ids, qc, qv,
+                                   index.n_docs)
+    return score_docs_rowmajor_u8(
+        index.fwd_comps16, index.fwd_vals, index.fwd_val_min,
+        index.fwd_val_step, ids, qc, qv, index.n_docs)
+
+
 def rescore_exact(index, doc_ids, top_c, top_v, sc: int, chunk_r: int = 0):
     """Exact scores of `doc_ids` [B, R] against each row's query terms
-    (top_c/top_v [B, >= sc]). `chunk_r > 0` scores R in sequential column
-    chunks of that width (bounds live temporaries; one launch each)."""
-    B, R = doc_ids.shape
-    n_docs = index.n_docs
+    (top_c/top_v [B, >= sc]), from the fused forward rows or the lean u8
+    form, whichever the index holds. `chunk_r > 0` scores R in sequential
+    column chunks of that width (bounds live temporaries; one launch
+    each)."""
+    R = doc_ids.shape[1]
     qc = top_c[:, :sc].to(torch.int32).contiguous()
     qv = top_v[:, :sc].to(torch.float32).contiguous()
     ids = doc_ids.to(torch.int32)
     if 0 < chunk_r < R:
         return torch.cat([
-            score_docs_rowmajor(index.fwd_fused,
-                                ids[:, c0:c0 + chunk_r].contiguous(), qc, qv,
-                                n_docs)
+            _score_rows(index, ids[:, c0:c0 + chunk_r].contiguous(), qc, qv)
             for c0 in range(0, R, chunk_r)
         ], dim=1)
-    return score_docs_rowmajor(index.fwd_fused, ids.contiguous(), qc, qv,
-                               n_docs)
+    return _score_rows(index, ids.contiguous(), qc, qv)

@@ -9,13 +9,18 @@ scorer reads one contiguous `[csub*SUB, V]` block, and a zero tail of
 u8 and the per-row scale stays a flat `[rows]` vector (the TPU layout's
 int8 view and `[n_super, 8, 128]` scale blocks were Mosaic constraints).
 `narrow_vocab` (a copy of `seismic_tpu/ops/pallas_tiles.py::narrow_vocab`)
-derives a narrower-vocabulary index from a built one; `residue_layout` and
+derives a narrower-vocabulary index from a built one; `block_pool_arrays`
+and `order_block_members` (copies of the functions of those names there,
+dense mode) take the blocks-as-rows view of the block-pool lean path;
+`residue_layout` and
 `residue_permute_arrays` (copies of the functions of those names there)
 reorder every list's vocabulary into residue groups for the bucketed
 projection kernel (ops/qloc_residue.py).
 """
 
 from __future__ import annotations
+
+from dataclasses import replace as dataclasses_replace
 
 import numpy as np
 
@@ -85,12 +90,115 @@ def prepare_pallas_tiles(arrays, csub: int = 1):
     )
 
 
+_PACK_BINS = ("bin-packed block views (pack_bins) need the packed region "
+              "layout; not ported yet (ROADMAP.md, modules to port, item 2c)")
+
+
 def _check_unpacked(arrays):
     if getattr(arrays, "pack_bins", False):
+        raise NotImplementedError(_PACK_BINS)
+
+
+def order_block_members(arrays, chunk: int = 1 << 21):
+    """Reorder the postings WITHIN each block by the member's posting value
+    (the doc's forward value for the block's list term, decoded when the
+    values are u8 codes), descending, stably (a copy of
+    `seismic_tpu/ops/pallas_tiles.py::order_block_members`). Block geometry
+    is unchanged, so a truncated expansion (block_expand < max_block_len)
+    drops each block's least valuable members. Returns a new IndexArrays
+    with a permuted copy of `postings`, every other field shared."""
+    lps = np.asarray(arrays.list_post_start, np.int64)
+    ll = np.asarray(arrays.list_len, np.int64)
+    posts = np.asarray(arrays.postings)
+    bs = np.asarray(arrays.block_start, np.int64)
+    bl = np.asarray(arrays.block_len, np.int64)
+    total = int((lps + ll).max()) if len(lps) else 0
+
+    # list id of every packed posting row: non-empty lists are packed
+    # contiguously, in ascending-start order
+    nz = ll > 0
+    order = np.argsort(lps[nz], kind="stable")
+    lid_packed = np.repeat(
+        np.arange(len(ll), dtype=np.int64)[nz][order], ll[nz][order])
+    assert len(lid_packed) == total
+
+    fc = np.asarray(arrays.fwd_comps)
+    fv = np.asarray(arrays.fwd_vals)
+    has_step = arrays.fwd_val_step is not None
+    val = np.zeros(total, np.float32)
+    for s in range(0, total, chunk):
+        e = min(total, s + chunk)
+        d = posts[s:e].astype(np.int64)
+        m = fc[d] == lid_packed[s:e, None]
+        v = np.where(m, fv[d].astype(np.float32), 0.0).max(axis=1)
+        if has_step:
+            v = np.where(
+                m.any(axis=1),
+                v * np.asarray(arrays.fwd_val_step, np.float32)[d]
+                + np.asarray(arrays.fwd_val_min, np.float32)[d],
+                0.0)
+        val[s:e] = v
+
+    # block id of every packed posting row: blocks are contiguous in
+    # packed order and cover [0, total)
+    real = bl > 0
+    blk_of = np.repeat(np.arange(len(bs), dtype=np.int64)[real], bl[real])
+    assert len(blk_of) == total, (len(blk_of), total)
+    # stable sort by (block, -value): members move only within their block
+    perm = np.lexsort((-val, blk_of))
+    new_posts = posts.copy()
+    new_posts[:total] = posts[perm]
+    return dataclasses_replace(arrays, postings=new_posts)
+
+
+def block_pool_arrays(arrays, V: int, order_members: bool = False,
+                      mode: str = "dense", pack_bins: bool = False):
+    """The blocks-as-rows VIEW of the index for the grouped scorer (a copy
+    of `seismic_tpu/ops/pallas_tiles.py::block_pool_arrays`, dense mode):
+    the builder's dense block summaries (exact u8 values over each list's
+    vocabulary, width V: `narrow_vocab` first for a narrower V) replace
+    the per-posting doc tiles, and the list geometry counts blocks:
+
+      doc_tiles / doc_tile_scale -> dense_summary / dense_scale
+      list_post_start            -> list_block_start
+      list_len                   -> list_n_blocks
+      max_list_len               -> max_blocks_per_list
+
+    postings, block_start and block_len stay the real ones: the pool
+    emits block ids and `GroupedParams.block_expand` expands them into
+    member postings. `order_members` first orders each block's postings
+    by value (`order_block_members`). The hashed rows (`mode="hash"`,
+    uploaded with `tile_hash`) and the bin-packed regions (`pack_bins`)
+    are not ported."""
+    if mode != "dense":
         raise NotImplementedError(
-            "bin-packed block views arrive with the block-pool lean path "
-            "(ROADMAP.md, modules to port, item 2c)"
-        )
+            f"hashed block rows (mode={mode!r}) need the tile_hash upload; "
+            "not ported yet (ROADMAP.md, modules to port, item 2f)")
+    if pack_bins:
+        raise NotImplementedError(_PACK_BINS)
+    if order_members:
+        arrays = order_block_members(arrays)
+    assert V % 128 == 0
+    assert arrays.dense_summary is not None and (
+        arrays.dense_summary.shape[1] == V
+    ), ("mode='dense' uses the built dense_summary; narrow_vocab() first "
+        "for a narrower V", V,
+        None if arrays.dense_summary is None
+        else arrays.dense_summary.shape)
+    return _dc_replace_block_view(
+        arrays, np.asarray(arrays.dense_summary),
+        np.asarray(arrays.dense_scale, np.float32))
+
+
+def _dc_replace_block_view(arrays, tiles, scale):
+    return dataclasses_replace(
+        arrays,
+        doc_tiles=tiles,
+        doc_tile_scale=scale,
+        list_post_start=np.asarray(arrays.list_block_start, np.int32),
+        list_len=np.asarray(arrays.list_n_blocks, np.int32),
+        max_list_len=int(arrays.max_blocks_per_list),
+    )
 
 
 def narrow_vocab(arrays, V0: int, chunk: int = 262144):

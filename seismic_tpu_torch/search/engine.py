@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..data.sparse import PAD_COMPONENT
-from ..ops.rescore import decode_fused_rows, rescore_exact
+from ..ops.rescore import decode_fwd_rows, fwd_width, rescore_exact
 from ..ops.tiles_prep import ll_pad_for
 from ..ops.tiles_scorer import score_tiles
 from ..types import DeviceIndex
@@ -146,9 +146,9 @@ def _lookup(qd, comps):
 
 
 def _decode_fwd_vals(tiles_vals, tiles_comps):
-    """Decode gathered f32 forward values: 0 at padding. `tiles_comps` may
+    """Gathered forward values as f32, 0 at padding. `tiles_comps` may
     be the int32 comps (PAD_COMPONENT padded) or a validity mask (bool).
-    The u8-compressed variant (per-doc min/step) is not served yet."""
+    u8 codes arrive decoded (`ops/rescore.py::decode_u8_rows`)."""
     if tiles_comps.dtype == torch.bool:
         mask = tiles_comps
     else:
@@ -191,11 +191,11 @@ def _dense_top_terms(q_comps, q_vals, score_cut: int, dim: int):
 
 def _exact_scores(index: DeviceIndex, qd, doc_ids):
     """Exact dot products of `doc_ids` [B, N] against the dense queries:
-    forward-row gathers + a dense-query lookup, f32 accumulate, in
-    sequential column chunks that bound the gathered `[B, chunk, 2W]`
-    rows."""
+    forward-row gathers (either form) + a dense-query lookup, f32
+    accumulate, in sequential column chunks that bound the gathered
+    `[B, chunk, W]` ids and values."""
     B, N = doc_ids.shape
-    chunk = max(1, _GATHER_ELEMS // max(B * index.fwd_fused.shape[1], 1))
+    chunk = max(1, _GATHER_ELEMS // max(B * 2 * fwd_width(index), 1))
     if N <= chunk:
         return _exact_scores_block(index, qd, doc_ids)
     return torch.cat([
@@ -205,7 +205,7 @@ def _exact_scores(index: DeviceIndex, qd, doc_ids):
 
 
 def _exact_scores_block(index: DeviceIndex, qd, doc_ids):
-    comps, vals = decode_fused_rows(index.fwd_fused, doc_ids)  # [B, N, W]
+    comps, vals = decode_fwd_rows(index, doc_ids)  # [B, N, W]
     return (vals * _lookup(qd, comps)).sum(dim=-1)
 
 

@@ -34,6 +34,11 @@ Pipeline (planner -> device program), as in
             it ("pre") or after it ("post"); rescore == 0: the overflow
             correction of the pool (or of its top `ovf_pool` unique
             candidates) and the id dedup; final top-k
+            block_expand > 0 (an index uploaded from the blocks-as-rows
+            view, `ops/tiles_prep.py::block_pool_arrays`): the pool holds
+            block ids; each expands through block_start / block_len into
+            up to block_expand member postings, all exact-rescored (K3),
+            then a pre-rank, the id dedup and the top-k
          7. n_knn > 0: kNN refinement of the top-k (K3 on the neighbours)
 
 Two entry points: `search_grouped` (host plan) and
@@ -48,10 +53,11 @@ backend); pool_dtype "f32", "bf16"; dedup_mode "pre", "post"; rescore > 0
 and the overflow tail (rescore == 0); kNN refinement (n_knn > 0 with a
 graph on the index: after the rescore tail, `knn_rounds` rounds of K3
 over the neighbours of the top `knn_top` results, `_knn_refine_grouped`;
-after the overflow tail, the engine's round); stop_after. Not served, each
-raising NotImplementedError with its ROADMAP.md item: stream_frac < 1,
-return_margin and the weighted list cut (2f; hashed tiles, also 2f, have
-no upload path here), block_expand (2c). The glue between
+after the overflow tail, the engine's round); block_expand (the block-pool
+lean path; return_margin with it is refused, as in the JAX package);
+stop_after. Not served, each raising NotImplementedError with its
+ROADMAP.md item: stream_frac < 1, return_margin and the weighted list cut
+(2f; hashed tiles, also 2f, have no upload path here). The glue between
 the kernels (top-k, sorts, scans, gathers, masks) is plain torch, and none
 of it reads a device value back to the host.
 """
@@ -135,14 +141,16 @@ _POOL_MODES = ("exact", "approx", "hier", "slot", "seg", "window", "stride")
 def _check_supported(params: GroupedParams) -> None:
     """Raise NotImplementedError for every mode this package does not serve
     yet, naming the ROADMAP item that brings it (2f: stream_frac,
-    return_margin, the weighted cut; 2c: block_expand), and
-    ValueError for values and combinations the JAX package refuses too."""
+    return_margin, the weighted cut), and ValueError for values and
+    combinations the JAX package refuses too."""
+    if params.return_margin and params.block_expand > 0:
+        # the JAX package's assert in `_grouped_tail`
+        raise ValueError("grouped search: return_margin is only implemented "
+                         "on the rescore path, not with block_expand")
     unsupported = [
         (params.stream_frac < 1.0,
          f"stream_frac={params.stream_frac} ({_R2}f)"),
         (params.return_margin, f"return_margin ({_R2}f)"),
-        (params.block_expand > 0,
-         f"block_expand={params.block_expand} ({_R2}c)"),
     ]
     for bad, what in unsupported:
         if bad:
@@ -708,9 +716,51 @@ def _knn_refine_grouped(index: DeviceIndex, params: GroupedParams, top_c,
     return top_scores, top_ids
 
 
+def _block_expand_tail(index: DeviceIndex, params: GroupedParams, top_c,
+                       top_v, sc: int, blk_scores, blk_sel):
+    """The block-pool tail (`seismic_tpu/search/grouped.py::
+    _block_expand_tail`, the reference's evaluate_posting_block: every
+    member of a pooled block gets a full sparse dot). Pooled block ids
+    `blk_sel` [B, P] (`safe_post` of the blocks-as-rows view) expand into
+    E = block_expand slots each, slot j of block b holding
+    postings[block_start[b] + j]; slots past block_len[b], and every slot
+    of a block with a non-finite pool score, hold n_docs and score -inf.
+    Every member is exact-rescored with K3, the top dd = min(P * E,
+    max(8k, 128)) pre-ranked (duplicates carry equal exact scores, so the
+    top-k survives the cut), deduped by id and cut to the top-k, then
+    refined when n_knn > 0."""
+    k = params.k
+    n_docs = index.n_docs
+    B, P = blk_sel.shape
+    E = params.block_expand
+    blk = blk_sel.clamp(0, index.block_start.shape[0] - 1).long()
+    bs = index.block_start[blk]  # [B, P]
+    bl = index.block_len[blk]
+    j = torch.arange(E, dtype=torch.int32, device=blk_sel.device)
+    valid = (j < bl[:, :, None]) & torch.isfinite(blk_scores)[:, :, None]
+    pidx = (bs[:, :, None] + j).clamp(0, index.postings.shape[0] - 1)
+    ids = torch.where(valid, index.postings[pidx.long()],
+                      n_docs).reshape(B, P * E)
+    exact = rescore_exact(index, ids, top_c, top_v, sc,
+                          chunk_r=params.rescore_chunk)
+    exact = torch.where(ids < n_docs, exact, -torch.inf)
+    dd = min(ids.shape[1], max(8 * k, 128))
+    t2, pos2 = _top_k(exact, dd)
+    ids2 = torch.gather(ids, 1, pos2)
+    dscores, dids = _dedup_by_id(t2, ids2, n_docs)
+    out_scores, opos = _top_k(dscores, k)
+    out_ids = torch.gather(dids, 1, opos)
+    if params.n_knn > 0 and index.knn is not None:
+        out_scores, out_ids = _knn_refine_grouped(
+            index, params, top_c, top_v, sc, out_scores, out_ids)
+    out_ids = torch.where(torch.isfinite(out_scores), out_ids.long(), -1)
+    return out_scores, out_ids
+
+
 def _grouped_tail(index, params, q_comps, q_vals, top_c, top_v, sc,
                   top_scores, cand_ids, safe_post, pool):
-    """Post-pool tail. rescore > 0: exact-rescore `rescore` candidates (K3)
+    """Post-pool tail. block_expand > 0: `_block_expand_tail`.
+    rescore > 0: exact-rescore `rescore` candidates (K3)
     and take the final top-k; dedup_mode "pre" sort-dedups the pool first
     and rescores the top unique candidates, "post" rescores the raw top of
     the pool (it arrives sorted) and dedups on the exact scores.
@@ -721,6 +771,11 @@ def _grouped_tail(index, params, q_comps, q_vals, top_c, top_v, sc,
     queries from forward-row gathers) after the overflow tail."""
     k = params.k
     n_docs = index.n_docs
+    if params.block_expand > 0:
+        # blocks-as-rows view: the pooled rows are block ids; the
+        # candidate ids gathered from them mean nothing and are dropped
+        return _block_expand_tail(index, params, top_c, top_v, sc,
+                                  top_scores, safe_post)
     if params.rescore > 0:
         rp = min(params.rescore, pool)
         if params.dedup_mode == "post":

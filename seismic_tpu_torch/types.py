@@ -9,8 +9,13 @@ tensors (`DeviceIndex`):
   (the TPU layout's int8 view and 8x-replicated scale blocks were Mosaic
   constraints and are not carried over);
 - the per-list local vocabularies (`vocab16`, int16 with -1 padding);
-- the fused forward rows `fwd_fused` `[n_docs, 2W]` int32 (component ids
-  | f32 value bits) read by the exact rescore;
+- the forward rows read by the exact rescore, in one of two forms: the
+  fused rows `fwd_fused` `[n_docs, 2W]` int32 (component ids | f32 value
+  bits), or, for an index with u8 values (`fwd_val_min` set: the lean
+  form of `SeismicIndexDotVByte`), int16 ids `fwd_comps16` (-1 padded),
+  the u8 codes `fwd_vals` and each document's f32 `fwd_val_min` /
+  `fwd_val_step` (value = code * step + min), with no fused rows and no
+  int32 ids;
 - the posting array and the list geometry;
 - what the engine path reads on top of those, each `None` when the build
   left it out: the block geometry, the dense and the u8 CSR block
@@ -375,15 +380,16 @@ class IndexArrays:
             raise ValueError(f"tile_csub={tile_csub} must be >= 1")
         if self.dim > 32766:
             raise NotImplementedError(
-                "dims past the int16 vocab twin (> 32766) need an int32 "
-                "vocab in K1; not ported yet (ROADMAP.md, modules to port, "
-                "item 1)"
+                "dims past the int16 twins (> 32766) need an int32 vocab in "
+                "K1 and int32 forward ids beside u8 values in K3; not "
+                "ported yet (ROADMAP.md, modules to port, item 1)"
             )
-        if self.fwd_val_min is not None:
+        if (self.fwd_val_min is not None
+                and np.asarray(self.fwd_vals).dtype != np.uint8):
             raise NotImplementedError(
-                "u8-compressed forward values (SeismicIndexDotVByte) arrive "
-                "with the block-pool lean path (ROADMAP.md, modules to "
-                "port, item 2c)"
+                f"{np.asarray(self.fwd_vals).dtype} forward codes: the lean "
+                "forward form reads u8 codes only (ROADMAP.md, modules to "
+                "port, item 5b)"
             )
 
         def put(a, dtype=None):
@@ -402,14 +408,26 @@ class IndexArrays:
             lv = np.asarray(lv)
             lv = np.where(lv == PAD_COMPONENT, -1, lv)
         fc = np.asarray(self.fwd_comps, dtype=np.int32)
-        fv = np.asarray(self.fwd_vals, dtype=np.float32)
-        fused = np.concatenate([fc, fv.view(np.int32)], axis=1)
+        fwd = {}
+        if self.fwd_val_min is None:
+            fv = np.asarray(self.fwd_vals, dtype=np.float32)
+            fwd["fwd_fused"] = put(
+                np.concatenate([fc, fv.view(np.int32)], axis=1))
+        else:
+            # the lean u8 form (the JAX package's to_device with
+            # lean_fwd=True): int16 ids, u8 codes, per-doc (min, step)
+            fwd.update(
+                fwd_comps16=put(np.where(fc == PAD_COMPONENT, -1, fc),
+                                np.int16),
+                fwd_vals=put(self.fwd_vals, np.uint8),
+                fwd_val_min=put(self.fwd_val_min, np.float32),
+                fwd_val_step=put(self.fwd_val_step, np.float32))
         return DeviceIndex(
             doc_tiles_aligned=put(tiles_u8),
             tile_scale=put(tile_scale),
             list_region_start=put(region_start, np.int32),
             vocab16=put(lv, np.int16),
-            fwd_fused=put(fused),
+            **fwd,
             postings=put(self.postings, np.int32),
             list_post_start=put(self.list_post_start, np.int32),
             list_len=put(self.list_len, np.int32),
@@ -447,10 +465,15 @@ class DeviceIndex:
     # int32 [n_lists] subtile start of each list (a multiple of tile_csub)
     list_region_start: object
     vocab16: object  # int16 [n_lists, V] (-1 padded)
-    fwd_fused: object  # int32 [n_docs, 2W]: comps | f32 value bits
     postings: object  # int32 [total_postings_pad] doc ids
     list_post_start: object  # int32 [n_lists]
     list_len: object  # int32 [n_lists]
+    # --- the forward rows: fused, or the lean u8 form (the other None) ---
+    fwd_fused: object = None  # int32 [n_docs, 2W]: comps | f32 value bits
+    fwd_comps16: object = None  # int16 [n_docs, W], -1 padded
+    fwd_vals: object = None  # uint8 [n_docs, W] codes
+    fwd_val_min: object = None  # f32 [n_docs]
+    fwd_val_step: object = None  # f32 [n_docs]
     # --- read by the engine path only ---
     block_start: object = None  # int32 [n_blocks_pad] into postings
     block_len: object = None  # int32 [n_blocks_pad]
@@ -479,6 +502,7 @@ class DeviceIndex:
     @property
     def device(self):
         return self.postings.device
+
 
     def nbytes(self) -> int:
         """Bytes of every tensor this index holds on its device."""

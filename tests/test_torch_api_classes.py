@@ -260,7 +260,7 @@ def test_lv_caps_and_seismic_string(tmp_path):
     for cls in (port.SeismicDatasetLV, port.SeismicIndexLV,
                 port.SeismicIndexRawLV):
         assert cls._component_cap == (1 << 31) - 1
-    assert not hasattr(port, "SeismicIndexDotVByte")
+    assert port.SeismicIndexDotVByte._component_cap == 1 << 16
 
     class Tiny(port.SeismicIndex):
         _component_cap = 50

@@ -304,11 +304,15 @@ def test_unported_parts_raise(setup, device_index, case):
             search_batch(device_index[0], q_comps, q_vals,
                          SearchParams(cand_budget=32))
         else:
+            # u8 forward values upload in the lean form (int16 ids) up to
+            # dim 32766; past it they need int32 ids beside the codes
             ta = built[0][2]
             n = ta.n_docs
             dataclasses.replace(
-                ta, fwd_val_min=np.zeros(n, np.float32),
-                fwd_val_step=np.ones(n, np.float32)).to_device("cpu")
+                ta, fwd_vals=np.zeros(ta.fwd_comps.shape, np.uint8),
+                fwd_val_min=np.zeros(n, np.float32),
+                fwd_val_step=np.ones(n, np.float32),
+                dim=40000).to_device("cpu")
 
 
 def test_tiles_mode_needs_csub_1(setup):

@@ -20,7 +20,11 @@ blocks, one with an empty list, one whose pairs on a list differ in
 length), with the pairs' own lengths and with every
 row scored (1e-5 relative; u8 codes times non-negative projections); the
 K3 kernel against its plain version on the edge rows at W 256, 96 (rows
-cut) and 75 (odd: 4-byte loads). K1's cases after its term table moved to
+cut) and 75 (odd: 4-byte loads). K3's u8 form (int16 ids, u8 codes,
+per-doc min and step) takes the same rows: its plain version against the
+JAX kernel on the rows decoded as the JAX package decodes them, and on
+the card its kernel against its plain version at W 256, 96, 94 and 75
+(the last two single loads). K1's cases after its term table moved to
 `csrc/term_table.cuh` are in `tests/test_torch_k1_k4_redesign.py`. This
 file imports neither JAX nor the test configuration at module level, so on
 the card it also runs alone:
@@ -236,4 +240,69 @@ def test_cuda_k3_matches_plain_on_edge_rows(W):
     torch.cuda.synchronize()
     torch.testing.assert_close(
         k, rescore.score_docs_rowmajor_plain(*args, N_DOCS), rtol=1e-5,
+        atol=0)
+
+
+def _k3_u8_operands(W=W3):
+    """The edge rows in the lean u8 form: comps16 int16 [N_DOCS, W] (-1
+    padded), codes uint8, vmin / vstep f32 [N_DOCS], and K3's doc_ids, qc
+    and qv."""
+    fused, ids, qc, qv = _k3_operands(W)
+    comps = fused[:, :W]
+    rng = np.random.default_rng(22)
+    comps16 = np.where(comps == PAD, -1, comps).astype(np.int16)
+    codes = np.where(comps == PAD, 0,
+                     rng.integers(0, 256, comps.shape)).astype(np.uint8)
+    vmin = rng.uniform(0.0, 0.2, N_DOCS).astype(np.float32)
+    vstep = rng.uniform(0.001, 0.02, N_DOCS).astype(np.float32)
+    return comps16, codes, vmin, vstep, ids, qc, qv
+
+
+@pytest.fixture(scope="module")
+def jax_k3_u8():
+    """The JAX kernel's scores of the u8 edge rows: the i16 twin and the
+    codes decoded per document, as its rescore_exact feeds them from a
+    lean upload (pallas_rescore.py:147-159)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from seismic_tpu.ops.pallas_rescore import score_docs_rowmajor_pallas
+
+    comps16, codes, vmin, vstep, ids, qc, qv = _k3_u8_operands()
+    d = np.clip(ids, 0, N_DOCS - 1)
+    c = comps16[d]
+    vals = jnp.where(jnp.asarray(c) >= 0,
+                     jnp.asarray(codes[d]).astype(jnp.float32)
+                     * jnp.asarray(vstep[d])[..., None]
+                     + jnp.asarray(vmin[d])[..., None], 0.0)
+    return np.asarray(score_docs_rowmajor_pallas(
+        jnp.asarray(c), vals, jnp.asarray(qc.reshape(-1)),
+        jnp.asarray(qv.reshape(-1)), qc.shape[1], interpret=True))
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_u8_plain_matches_jax_on_edge_rows(jax_k3_u8, case):
+    args = _k3_u8_operands()
+    b = K3_CASES.index(case)
+    before = rescore.launches_u8
+    out = rescore.score_docs_rowmajor_u8(
+        *(torch.from_numpy(a) for a in args), N_DOCS).numpy()
+    assert rescore.launches_u8 == before  # CPU tensors: the plain version
+    np.testing.assert_allclose(out[b], jax_k3_u8[b], rtol=1e-5, atol=0)
+    nnz = np.array(ROW_NNZ)[np.clip(args[4][b], 0, N_DOCS - 1)]
+    assert (out[b][nnz == 0] == 0).all()  # the all-PAD row
+    if case in ("no_real_term", "no_match"):
+        assert (out[b] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [W3, 96, 94, 75])
+def test_cuda_k3_u8_matches_plain_on_edge_rows(W):
+    dev = _card()
+    args = tuple(torch.from_numpy(a).to(dev) for a in _k3_u8_operands(W))
+    before = rescore.launches_u8
+    k = rescore.score_docs_rowmajor_u8(*args, N_DOCS)
+    assert rescore.launches_u8 == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        k, rescore.score_docs_rowmajor_u8_plain(*args, N_DOCS), rtol=1e-5,
         atol=0)
