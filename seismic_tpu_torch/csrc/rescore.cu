@@ -43,18 +43,36 @@
 // codes and its f32 (min, step), val_w = code_w * step + min, read by the
 // JAX package as the i16 twin plus the codes decoded per document
 // (pallas_rescore.py:147-159, search/engine.py:114-131). It reads 3W + 8
-// bytes a candidate row where the fused form reads 8W. The same block
-// shape, staging and table; a warp takes one row at a time in chunks of
-// 128 ids (4 a lane: one 8-byte load of ids and, only where one of them
-// hits a query term, one 4-byte load of codes, when W % 4 == 0; single
-// loads otherwise), ends the row at the first chunk holding a -1 id, and
-// decodes with the rounding of two separate f32 ops (no contraction into
-// an FMA) before it multiplies by the looked-up sum.
+// bytes a candidate row where the fused form reads 8W. On the block-pool
+// route the rows are mostly L2 hits (77 MB of rows at the 100K cell, each
+// read about 30 times a batch), so the bytes do not bound it: with every
+// id on one document (the row L1-resident) it took as long as on the
+// batch's own ids (chip_smoke phase 9 on an NVIDIA H100 80GB HBM3 at
+// 700.00 W; PERF.md §6). Instructions issued a row do, so the design
+// spends as few as it can on each entry and each row:
+// - skip: with `skip` set, a doc id outside [0, n_docs) scores -inf and
+//   its row is never read or visited (the block-pool tail masks those
+//   slots anyway: 42% of them at the 100K cell); without it ids clamp,
+//   as in JAX. A warp reads the doc ids of 32 of its row slots at once
+//   and takes the rows to read from their ballot.
+// - filter: beside K3's table the block builds a bitmap of the query's
+//   terms over every uint16 (term_filter.cuh, 8 KB): an entry costs one
+//   shared load and a rotate, a -1 id tests a clear bit, and only the
+//   ~3% that hit probe the table.
+// - one round trip a row: a lane issues its 8 ids (one 16-byte load), its
+//   8 codes (one 8-byte load) and the row's (min, step) together,
+//   unconditionally, when W % 8 == 0 and the bases are aligned (8 single
+//   loads of each otherwise), and W = 256 is one span. A longer row takes
+//   a span at a time while the last span held no -1.
+// - rows in flight: a warp loads its next row before this row's sum
+//   reduces; 4 blocks an SM leave 64 registers a thread (no spill).
+// The decode keeps the rounding of two separate f32 ops (no FMA).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "qloc_common.cuh"
+#include "term_filter.cuh"
 #include "term_table.cuh"
 
 namespace {
@@ -162,49 +180,121 @@ rescore_fused_kernel(const int* __restrict__ fwd,      // [n_docs, 2W]
   }
 }
 
-constexpr int kChunkU8 = 128;  // ids a warp reads at once, 4 a lane
+// K3's u8 form. A lane takes 8 entries of a row span of kSpanU8: entry
+// w0 + 8 * lane + j is the half j % 2 of word j / 2 of `ids` (int16 pairs)
+// and byte j % 4 of word j / 4 of `codes`.
+constexpr int kSpanU8 = 256;  // entries of a row a warp reads at once
+constexpr int kSpanGroup = 32;  // row slots a warp reads the doc ids of at once
+constexpr int kBlocksU8 = 4;  // blocks an SM: <= 64 registers a thread
+constexpr unsigned kNegInfBits = 0xff800000u;  // -inf
 
-// The 4 ids at columns w..w+3 of an int16 row (kPad for -1 and past W).
-template <bool kVec>
-__device__ __forceinline__ void load_ids16(const int16_t* row, int w, int W,
-                                           int (&c)[4]) {
-  if (kVec && w < W) {
-    const int2 x = __ldg(reinterpret_cast<const int2*>(row + w));
-    const int h[4] = {static_cast<int>(static_cast<int16_t>(x.x)),
-                      x.x >> 16,
-                      static_cast<int>(static_cast<int16_t>(x.y)),
-                      x.y >> 16};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = h[j] < 0 ? kPad : h[j];
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int v = w + j < W ? static_cast<int>(__ldg(row + w + j)) : -1;
-    c[j] = v < 0 ? kPad : v;
-  }
-}
+struct U8Part {
+  uint4 ids;    // 8 int16 ids, -1 at padding and past W
+  uint2 codes;  // their 8 u8 codes
+  float mn, st;  // the row's min and step
+};
 
-// The 4 u8 codes at columns w..w+3 of a row (0 past W).
+// This lane's 8 entries of span w0 of doc d's row (0 <= d < n_docs): ids,
+// codes and the row's (min, step), all issued together.
 template <bool kVec>
-__device__ __forceinline__ void load_codes(const uint8_t* row, int w, int W,
-                                           float (&x)[4]) {
+__device__ __forceinline__ U8Part load_part(const int16_t* __restrict__ comps,
+                                            const uint8_t* __restrict__ codes,
+                                            const float* __restrict__ vmin,
+                                            const float* __restrict__ vstep,
+                                            int d, int w0, int W) {
+  U8Part p;
+  const int w = w0 + 8 * (threadIdx.x & 31);
+  const int64_t row = static_cast<int64_t>(d) * W;
+  p.mn = __ldg(vmin + d);
+  p.st = __ldg(vstep + d);
   if (kVec) {
-    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(row + w));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[j] = static_cast<float>((v >> (8 * j)) & 255u);
+    // a whole span (the same for every lane) or this lane's 8 entries
+    if (w0 + kSpanU8 <= W || w < W) {
+      p.ids = __ldg(reinterpret_cast<const uint4*>(comps + row + w));
+      p.codes = __ldg(reinterpret_cast<const uint2*>(codes + row + w));
+    } else {
+      p.ids = make_uint4(~0u, ~0u, ~0u, ~0u);
+      p.codes = make_uint2(0u, 0u);
     }
-    return;
+    return p;
   }
+  unsigned h[8], x[8];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    x[j] = w + j < W ? static_cast<float>(__ldg(row + w + j)) : 0.0f;
+  for (int j = 0; j < 8; ++j) {
+    const bool in = w + j < W;
+    h[j] = in ? static_cast<uint16_t>(__ldg(comps + row + w + j)) : 0xffffu;
+    x[j] = in ? static_cast<unsigned>(__ldg(codes + row + w + j)) : 0u;
   }
+  p.ids = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                     h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+  p.codes = make_uint2(x[0] | (x[1] << 8) | (x[2] << 16) | (x[3] << 24),
+                       x[4] | (x[5] << 8) | (x[6] << 16) | (x[7] << 24));
+  return p;
 }
 
+// id j of a part as uint16 (65535 for a -1), by selects: no register
+// array is indexed at run time
+__device__ __forceinline__ unsigned part_id(const uint4& ids, int j) {
+  const unsigned lo = (j & 2) ? ids.y : ids.x;
+  const unsigned hi = (j & 2) ? ids.w : ids.z;
+  return (((j & 4) ? hi : lo) >> ((j & 1) << 4)) & 0xffffu;
+}
+
+// whether a part holds a padding id (-1; also every slot past W)
+__device__ __forceinline__ bool part_has_pad(const uint4& ids) {
+  return ((ids.x | ids.y | ids.z | ids.w) & 0x80008000u) != 0u;
+}
+
+// This lane's share of the row's score: each id tested in the filter
+// (a -1 id tests a clear bit), and only the hits looked up, decoded (two
+// rounded f32 ops, no FMA contraction) and multiplied by their summed
+// value.
+__device__ __forceinline__ float score_part(const U8Part& p,
+                                            const unsigned* s_bits,
+                                            const int2* s_tab) {
+  unsigned hit = term_filter_pair(s_bits, p.ids.x) |
+                 term_filter_pair(s_bits, p.ids.y) << 2 |
+                 term_filter_pair(s_bits, p.ids.z) << 4 |
+                 term_filter_pair(s_bits, p.ids.w) << 6;
+  float part = 0.0f;
+  while (hit != 0u) {
+    const int j = __ffs(hit) - 1;
+    hit &= hit - 1u;
+    const unsigned cw = (j & 4) ? p.codes.y : p.codes.x;
+    const float x = static_cast<float>((cw >> ((j & 3) << 3)) & 255u);
+    part += __fmul_rn(
+        __fadd_rn(__fmul_rn(x, p.st), p.mn),
+        term_find_present(s_tab, static_cast<int>(part_id(p.ids, j))));
+  }
+  return part;
+}
+
+// Score row r (doc d >= 0, its first span in p) and write it.
 template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 8)
+__device__ __forceinline__ void finish_row(
+    const U8Part& p, int d, int r, const int16_t* __restrict__ comps,
+    const uint8_t* __restrict__ codes, const float* __restrict__ vmin,
+    const float* __restrict__ vstep, const unsigned* s_bits,
+    const int2* s_tab, int W, float* __restrict__ out_b) {
+  float part = score_part(p, s_bits, s_tab);
+  // a row longer than a span goes on while its last span held no -1
+  if (W > kSpanU8) {
+    U8Part c = p;
+    for (int w0 = kSpanU8; w0 < W; w0 += kSpanU8) {
+      if (__ballot_sync(0xffffffffu, part_has_pad(c.ids)) != 0u) break;
+      c = load_part<kVec>(comps, codes, vmin, vstep, d, w0, W);
+      part += score_part(c, s_bits, s_tab);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  }
+  if ((threadIdx.x & 31) == 0) out_b[r] = part;
+}
+
+template <bool kVec, bool kSkip>
+__global__ void __launch_bounds__(kThreads, kBlocksU8)
 rescore_u8_kernel(const int16_t* __restrict__ comps,  // [n_docs, W]
                   const uint8_t* __restrict__ codes,  // [n_docs, W]
                   const float* __restrict__ vmin,     // [n_docs]
@@ -217,53 +307,95 @@ rescore_u8_kernel(const int16_t* __restrict__ comps,  // [n_docs, W]
   __shared__ int s_qc[kQlocMaxTerms];
   __shared__ float s_qv[kQlocMaxTerms];
   __shared__ int2 s_tab[kTermSlots];
+  __shared__ unsigned s_bits[kFilterWords];
   __shared__ int s_n;
   __shared__ int s_dup;
 
-  const int b = blockIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * R;
+  const int* ids_b = doc_ids + base;
+  float* out_b = out + base;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int* ids_b = doc_ids + static_cast<int64_t>(b) * R;
+  // A warp's row slots are warp + kWarps k, k = 0, 1, ...; it reads their
+  // doc ids 32 at a time (lane l: k = k0 + l), one group ahead, and takes
+  // the rows it must read from the group's ballot: under the skip, a slot
+  // out of range is written -inf at once and never visited; without it
+  // every slot is read, its id clamped.
+  const int nk = R > warp ? (R - warp + kWarps - 1) / kWarps : 0;
+  auto slot_of = [=](int k) { return warp + kWarps * k; };
+  auto raw_at = [=](int k0) {
+    const int k = k0 + lane;
+    return k < nk ? __ldg(ids_b + slot_of(k)) : -1;
+  };
+  auto in_range = [=](int x) { return x >= 0 && x < n_docs; };
+  int k0 = 0;
+  int xc = raw_at(0);           // this group's ids
+  int xn = raw_at(kSpanGroup);  // the next group's
+  auto take_group = [&]() {     // the rows of group k0 to read
+    const bool real = k0 + lane < nk && (!kSkip || in_range(xc));
+    if (kSkip && k0 + lane < nk && !real) {
+      out_b[slot_of(k0 + lane)] = __uint_as_float(kNegInfBits);
+    }
+    return __ballot_sync(0xffffffffu, real);
+  };
+  unsigned m = take_group();
+  // the next row to read: its slot and doc, or false past the warp's last
+  auto next_row = [&](int& r, int& d) {
+    while (m == 0u) {
+      k0 += kSpanGroup;
+      if (k0 >= nk) return false;
+      xc = xn;
+      xn = raw_at(k0 + kSpanGroup);
+      m = take_group();
+    }
+    const int l = __ffs(m) - 1;
+    m &= m - 1u;
+    const int x = __shfl_sync(0xffffffffu, xc, l);
+    r = slot_of(k0 + l);
+    d = kSkip || in_range(x) ? x : (x < 0 ? 0 : n_docs - 1);
+    return true;
+  };
 
+  // two rows in flight (the next row's part loads while this one
+  // scores), their parts alternating between a and b so none is copied;
+  // the first row's part loads while the block builds its tables
+  int ra = 0, da = -1, rb = 0, db = -1;
+  bool have_a = next_row(ra, da);
+  U8Part a;
+  if (have_a) a = load_part<kVec>(comps, codes, vmin, vstep, da, 0, W);
   term_table_clear(s_tab, &s_dup);
-  stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
+  term_filter_clear(s_bits);
+  stage_terms(qc, qv, blockIdx.x, SC, s_qc, s_qv, &s_n);
   __syncthreads();
-  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);
+  term_filter_build(s_bits, s_qc, s_n);
+  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);  // its barrier: both
 
-  int r = threadIdx.x >> 5;
-  int d = r < R ? __ldg(ids_b + r) : 0;
-  for (; r < R; r += kWarps) {
-    d = d < 0 ? 0 : (d > n_docs - 1 ? n_docs - 1 : d);
-    const int16_t* crow = comps + static_cast<int64_t>(d) * W;
-    const uint8_t* vrow = codes + static_cast<int64_t>(d) * W;
-    const float mn = __ldg(vmin + d);
-    const float st = __ldg(vstep + d);
-    // the next row's doc id is in flight while this row is scored
-    d = r + kWarps < R ? __ldg(ids_b + r + kWarps) : 0;
-    float part = 0.0f;
-    for (int w0 = 0; w0 < W; w0 += kChunkU8) {
-      const int w = w0 + 4 * lane;
-      int c[4];
-      load_ids16<kVec>(crow, w, W, c);
-      float a[4];
-      term_find_n(s_tab, c, a);
-      if (a[0] != 0.0f || a[1] != 0.0f || a[2] != 0.0f || a[3] != 0.0f) {
-        float x[4];
-        load_codes<kVec>(vrow, w, W, x);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          part += __fmul_rn(__fadd_rn(__fmul_rn(x[j], st), mn), a[j]);
-        }
-      }
-      // the row goes on only while this chunk held no padding
-      const bool pad = c[0] == kPad || c[1] == kPad || c[2] == kPad ||
-                       c[3] == kPad;
-      if (__ballot_sync(0xffffffffu, pad) != 0u) break;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    }
-    if (lane == 0) out[static_cast<int64_t>(b) * R + r] = part;
+  while (have_a) {
+    const bool have_b = next_row(rb, db);
+    // with no next row, this row's part again: an L1 hit, never scored
+    const U8Part b = load_part<kVec>(comps, codes, vmin, vstep,
+                                     have_b ? db : da, 0, W);
+    finish_row<kVec>(a, da, ra, comps, codes, vmin, vstep, s_bits, s_tab, W,
+                     out_b);
+    if (!have_b) break;
+    have_a = next_row(ra, da);
+    a = load_part<kVec>(comps, codes, vmin, vstep, have_a ? da : db, 0, W);
+    finish_row<kVec>(b, db, rb, comps, codes, vmin, vstep, s_bits, s_tab, W,
+                     out_b);
+  }
+}
+
+template <bool kVec>
+void launch_u8(const int16_t* comps, const uint8_t* codes, const float* vmin,
+               const float* vstep, const int* doc_ids, const int* qc,
+               const float* qv, int B, int R, int SC, int n_docs, int W,
+               bool skip, float* out, cudaStream_t stream) {
+  if (skip) {
+    rescore_u8_kernel<kVec, true><<<B, kThreads, 0, stream>>>(
+        comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+  } else {
+    rescore_u8_kernel<kVec, false><<<B, kThreads, 0, stream>>>(
+        comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
   }
 }
 
@@ -286,20 +418,20 @@ int seismic_rescore_fused(const int* fwd, const int* doc_ids, const int* qc,
 int seismic_rescore_u8(const int16_t* comps, const uint8_t* codes,
                        const float* vmin, const float* vstep,
                        const int* doc_ids, const int* qc, const float* qv,
-                       int B, int R, int SC, int n_docs, int W, float* out,
-                       cudaStream_t stream) {
+                       int B, int R, int SC, int n_docs, int W, int skip,
+                       float* out, cudaStream_t stream) {
   if (B > 0 && R > 0) {
-    // one 8-byte load of ids and one 4-byte load of codes a lane when
-    // every row and chunk start is aligned for them
-    const bool vec = W % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(comps) % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(codes) % 4 == 0;
+    // one 16-byte load of ids and one 8-byte load of codes a lane when
+    // every row and span start is aligned for them
+    const bool vec = W % 8 == 0 &&
+                     reinterpret_cast<uintptr_t>(comps) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(codes) % 8 == 0;
     if (vec) {
-      rescore_u8_kernel<true><<<B, kThreads, 0, stream>>>(
-          comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+      launch_u8<true>(comps, codes, vmin, vstep, doc_ids, qc, qv, B, R, SC,
+                      n_docs, W, skip != 0, out, stream);
     } else {
-      rescore_u8_kernel<false><<<B, kThreads, 0, stream>>>(
-          comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+      launch_u8<false>(comps, codes, vmin, vstep, doc_ids, qc, qv, B, R, SC,
+                       n_docs, W, skip != 0, out, stream);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -21,7 +21,9 @@ with val[d, w] = code[d, w] * step[d] + min[d] and 0 where the id is -1:
 what the JAX package scores from the i16 twin and the decoded codes
 (`pallas_rescore.py:147-159`, `search/engine.py:114-131`). It reads 3W + 8
 bytes a candidate row where the fused form reads 8W. `rescore_exact`
-dispatches on the index's form.
+dispatches on the index's form. Ids outside [0, n_docs) clamp, as in the
+JAX package; with `skip_out_of_range` (the block-pool tail, which masks
+those slots) they score -inf and the u8 kernel never reads their rows.
 """
 
 from __future__ import annotations
@@ -104,12 +106,22 @@ def score_docs_rowmajor_plain(fwd_fused, doc_ids, qc, qv, n_docs: int):
 
 
 def score_docs_rowmajor_u8_plain(comps16, codes, vmin, vstep, doc_ids, qc,
-                                 qv, n_docs: int):
+                                 qv, n_docs: int,
+                                 skip_out_of_range: bool = False):
     """Plain PyTorch version of the u8 form: gather + decode, then the
-    compare loop, as the fused form's."""
+    compare loop, as the fused form's; with `skip_out_of_range`, ids
+    outside [0, n_docs) score -inf instead of clamping."""
     safe = doc_ids.clamp(0, n_docs - 1)
     comps, vals = decode_u8_rows(comps16, codes, vmin, vstep, safe)
-    return _compare_sum(comps, vals, qc, qv)
+    out = _compare_sum(comps, vals, qc, qv)
+    if skip_out_of_range:
+        out = torch.where(in_range(doc_ids, n_docs), out, -torch.inf)
+    return out
+
+
+def in_range(doc_ids, n_docs: int):
+    """Where doc_ids lie in [0, n_docs)."""
+    return (doc_ids >= 0) & (doc_ids < n_docs)
 
 
 def _lib():
@@ -120,7 +132,7 @@ def _lib():
         lib.seismic_rescore_fused.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.seismic_rescore_fused.restype = ctypes.c_int
         lib.seismic_rescore_u8.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                           i, p, p]
+                                           i, i, p, p]
         lib.seismic_rescore_u8.restype = ctypes.c_int
         lib.seismic_rescore_max_terms.restype = ctypes.c_int
         _handle = lib
@@ -167,12 +179,13 @@ def score_docs_rowmajor(fwd_fused, doc_ids, qc, qv, n_docs: int):
 
 
 def score_docs_rowmajor_u8(comps16, codes, vmin, vstep, doc_ids, qc, qv,
-                           n_docs: int):
+                           n_docs: int, skip_out_of_range: bool = False):
     """The u8 form: comps16 int16 [n_docs, W] (-1 padded at each row's
     end: the kernel stops reading a row at its first -1), codes uint8
     [n_docs, W], vmin / vstep f32 [n_docs]; doc_ids int32 [B, R]; qc
     int32 / qv f32 [B, SC] (PAD_COMPONENT / 0 padded). Returns exact f32
-    [B, R]."""
+    [B, R]. Ids outside [0, n_docs) clamp, or with `skip_out_of_range`
+    score -inf, their rows never read."""
     global launches_u8
     req = _cuda.require
     req(comps16.dim() == 2 and comps16.dtype == torch.int16,
@@ -193,7 +206,7 @@ def score_docs_rowmajor_u8(comps16, codes, vmin, vstep, doc_ids, qc, qv,
     req(all(t.device == dev for t in ops),
         "all operands must be on one device")
     if dev.type == "cpu":
-        return score_docs_rowmajor_u8_plain(*ops, n_docs)
+        return score_docs_rowmajor_u8_plain(*ops, n_docs, skip_out_of_range)
     req(dev.type == "cuda", f"unsupported device {dev}")
     req(all(t.is_contiguous() for t in ops), "operands must be contiguous")
     lib = _lib()
@@ -203,36 +216,45 @@ def score_docs_rowmajor_u8(comps16, codes, vmin, vstep, doc_ids, qc, qv,
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     p = _cuda.ptr
     rc = lib.seismic_rescore_u8(
-        *(p(t) for t in ops), B, R, SC, n_docs, comps16.shape[1], p(out),
+        *(p(t) for t in ops), B, R, SC, n_docs, comps16.shape[1],
+        int(skip_out_of_range), p(out),
         ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "rescore_u8")
     launches_u8 += 1
     return out
 
 
-def _score_rows(index, ids, qc, qv):
-    """Exact scores of `ids` from the index's forward rows, by its form."""
+def _score_rows(index, ids, qc, qv, skip_out_of_range=False):
+    """Exact scores of `ids` from the index's forward rows, by its form
+    (out-of-range ids clamp, or score -inf with `skip_out_of_range`)."""
     if index.fwd_fused is not None:
-        return score_docs_rowmajor(index.fwd_fused, ids, qc, qv,
-                                   index.n_docs)
+        out = score_docs_rowmajor(index.fwd_fused, ids, qc, qv, index.n_docs)
+        if skip_out_of_range:
+            out = torch.where(in_range(ids, index.n_docs), out, -torch.inf)
+        return out
     return score_docs_rowmajor_u8(
         index.fwd_comps16, index.fwd_vals, index.fwd_val_min,
-        index.fwd_val_step, ids, qc, qv, index.n_docs)
+        index.fwd_val_step, ids, qc, qv, index.n_docs,
+        skip_out_of_range=skip_out_of_range)
 
 
-def rescore_exact(index, doc_ids, top_c, top_v, sc: int, chunk_r: int = 0):
+def rescore_exact(index, doc_ids, top_c, top_v, sc: int, chunk_r: int = 0,
+                  skip_out_of_range: bool = False):
     """Exact scores of `doc_ids` [B, R] against each row's query terms
     (top_c/top_v [B, >= sc]), from the fused forward rows or the lean u8
     form, whichever the index holds. `chunk_r > 0` scores R in sequential
     column chunks of that width (bounds live temporaries; one launch
-    each)."""
+    each). Ids outside [0, n_docs) clamp, as in the JAX package, or with
+    `skip_out_of_range` score -inf (the u8 kernel then never reads their
+    rows)."""
     R = doc_ids.shape[1]
     qc = top_c[:, :sc].to(torch.int32).contiguous()
     qv = top_v[:, :sc].to(torch.float32).contiguous()
     ids = doc_ids.to(torch.int32)
     if 0 < chunk_r < R:
         return torch.cat([
-            _score_rows(index, ids[:, c0:c0 + chunk_r].contiguous(), qc, qv)
+            _score_rows(index, ids[:, c0:c0 + chunk_r].contiguous(), qc, qv,
+                        skip_out_of_range)
             for c0 in range(0, R, chunk_r)
         ], dim=1)
-    return _score_rows(index, ids.contiguous(), qc, qv)
+    return _score_rows(index, ids.contiguous(), qc, qv, skip_out_of_range)

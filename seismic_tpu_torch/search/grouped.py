@@ -741,9 +741,10 @@ def _block_expand_tail(index: DeviceIndex, params: GroupedParams, top_c,
     pidx = (bs[:, :, None] + j).clamp(0, index.postings.shape[0] - 1)
     ids = torch.where(valid, index.postings[pidx.long()],
                       n_docs).reshape(B, P * E)
+    # the padding slots (id n_docs) score -inf, their rows never read
     exact = rescore_exact(index, ids, top_c, top_v, sc,
-                          chunk_r=params.rescore_chunk)
-    exact = torch.where(ids < n_docs, exact, -torch.inf)
+                          chunk_r=params.rescore_chunk,
+                          skip_out_of_range=True)
     dd = min(ids.shape[1], max(8 * k, 128))
     t2, pos2 = _top_k(exact, dd)
     ids2 = torch.gather(ids, 1, pos2)
