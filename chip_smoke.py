@@ -97,7 +97,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernel (`compare_lookup_kernel`) and of K13's and K14's kernels (the
    run fails if either is missing or spills); the run fails if any device
    time of K10-K18 or of its library call reads under the empty kernel's
-   device time; then the microbench once
+   device time; K11 / K15's one kernel (`row_gather_kernel`, a warp a
+   row): its ptxas lines (a spill fails), then `harness/
+   row_gather_probe.py` on the probe's operands, outside the counted
+   window: both entry points bit-exact against the plain version on
+   every row set (a mismatch fails), device times warm / write- /
+   read-flushed over 9 window pairs in turns with `index_select` and the
+   empty kernel, and the diagnostics (one 8 MB span, sorted rows, R 1024
+   / 4096 / 16,384), logged with the card and its power limit; then the
+   microbench once
    (`harness/microbench.py`).
 8. drive the k-NN graph, kNN refinement, exact search and the user API:
    (a) on phase 3's index (after phase 5) `SeismicIndexRaw.build_knn(16)`
@@ -243,16 +251,7 @@ def ptxas_of(lib: str, needle: str) -> dict:
     names hold `needle`, from phase 1's build."""
     from seismic_tpu_torch.ops import _cuda
 
-    out, fn = {}, None
-    for line in _cuda.ptxas_report.get(lib, "").splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1]
-            fn = fn if needle in fn else None
-            if fn:
-                out[fn] = []
-        elif fn and ("registers" in line or "spill" in line):
-            out[fn].append(line.split(":", 1)[-1].strip())
-    return out
+    return _cuda.ptxas_lines(_cuda.ptxas_report.get(lib, ""), needle)
 
 
 # one SASS instruction line of `cuobjdump -sass`: its opcode, after an
@@ -2007,10 +2006,13 @@ def probe_path(dev, record) -> list:
     """Phase 7: the device probe's `run` on the card at the JAX probes'
     own sizes (each of K10-K18 held against its plain version inside its
     probe), the launch counts of all nineteen wrappers set to 0 before and
-    read after, then the microbench once. Returns K10-K18's records."""
+    read after, K11 / K15's readings and diagnostics (`row_gather_probe.
+    readings`) after that window, then the microbench once. Returns
+    K10-K18's records."""
     import torch
 
-    from seismic_tpu_torch.harness import device_probe, microbench
+    from seismic_tpu_torch.harness import (device_probe, microbench,
+                                           row_gather_probe)
 
     t0 = time.time()
     floor_us, floor_device_us = device_probe.launch_floor_us(dev)
@@ -2073,6 +2075,31 @@ def probe_path(dev, record) -> list:
         f"{'; '.join(k17['ptxas'])}; error {k17['tolerance_share']:.4f} of "
         f"the tolerance; bound by its route (f32 operations on the CUDA "
         f"cores would take {k17['f32_ops_bound_ms'] * 1e3:.3f} us)")
+    # K11 and K15: one kernel, a warp a row of 16-byte loads (a ring of bulk
+    # copies and a few rows a warp were tried and did not beat it), no
+    # spill; then, outside the counted window, its readings in turns with
+    # index_select and the empty kernel and what its flushed time is made
+    # of (harness/row_gather_probe.py)
+    ptx11 = ptxas_of("device_probe", "row_gather_kernel")
+    if len(ptx11) != 2 or not all(ptx11.values()):
+        fail(f"phase 7: ptxas of K11 / K15's row_gather_kernel: {ptx11}")
+    spills = [ln for lns in ptx11.values() for ln in lns
+              if re.search(r"[1-9]\d* bytes spill", ln)]
+    if spills:
+        fail(f"phase 7: row_gather_kernel spills: {spills}")
+    for n_ in ("row_gather", "flat_row_gather"):
+        kernels[PROBE_KERNELS.index(n_)]["ptxas"] = ptx11
+    log(f"phase 7: K11 / K15 row_gather_kernel ptxas: {ptx11}")
+    probe_s = time.time() - t0  # K10-K18; the row gather times its own
+    t1 = time.time()
+    try:
+        gather = row_gather_probe.readings(dev)
+    except AssertionError as e:
+        fail(f"phase 7: {e}")
+    card = card_line()
+    for ln in row_gather_probe.lines(gather):
+        log(f"phase 7: row gather ({card}): {ln}")
+    gather.update(card=card, seconds=time.time() - t1)
     for r in kernels:
         r.update(launch_floor_us=floor_us,
                  launch_floor_device_us=floor_device_us)
@@ -2086,7 +2113,6 @@ def probe_path(dev, record) -> list:
             f"library {r['library_ms']} ms, on the card "
             f"{r['library_device_ms']} / {r['library_device_cold_ms']} / "
             f"{r['library_device_cold_read_ms']} ms)")
-    probe_s = time.time() - t0
     log(f"phase 7: launch floor {floor_us:.2f} us a call, "
         f"{floor_device_us:.2f} us on the card; probes {probe_s:.1f} s, "
         f"launches {counts}")
@@ -2100,6 +2126,7 @@ def probe_path(dev, record) -> list:
     record["probe"] = dict(
         launch_floor_us=floor_us, launch_floor_device_us=floor_device_us,
         probe_s=probe_s, microbench=mb, microbench_s=mb_s,
+        row_gather=gather,
         plain_probes=[r for r in records if "name" not in r])
     torch.cuda.empty_cache()
     return kernels

@@ -21,16 +21,17 @@
 // cores, 989 TFLOP/s bf16 on the tensor cores): every one of them moves
 // under 50 MB, so K10, K12-K14, K16 and K17 have bounds under 1 us, K11 /
 // K15 2.5 us (4096 rows of 1 KB), K18 about 14 us of int8 tiles; a launch
-// costs more than most. The designs are the simple right ones: a warp per
-// output row with 16-byte loads where rows are long, K18's query row
-// staged in shared memory, K10's and K14's tables read through the
-// caches, f32 FMAs on the CUDA cores; K13 and K14 are one round of loads
-// each, issued before any arithmetic, with no shared memory and no
-// barrier, over 4-warp blocks that fill the card; K12 and K16 are one
-// kernel that looks each element up in a shared-memory hash table of the
-// query's terms (term_table.cuh, as K1, K3, K8 and K9), over 4-warp
-// blocks that fill the card; K17's product runs on the bf16 tensor cores
-// (mma.sync) over a grid that fills the card.
+// costs more than most. The designs are the simple right ones: K11 / K15
+// a warp per output row with 16-byte loads (the card's loads gather what
+// the TPU needed a DMA ring for; a ring of bulk copies was measured and
+// lost, see below), K18's query row staged in shared memory, K10's and
+// K14's tables read through the caches, f32 FMAs on the CUDA cores; K13
+// and K14 are one round of loads each, issued before any arithmetic, with
+// no shared memory and no barrier, over 4-warp blocks that fill the card;
+// K12 and K16 are one kernel that looks each element up in a shared-memory
+// hash table of the query's terms (term_table.cuh, as K1, K3, K8 and K9),
+// over 4-warp blocks that fill the card; K17's product runs on the bf16
+// tensor cores (mma.sync) over a grid that fills the card.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -95,9 +96,34 @@ table_take_kernel(const float* __restrict__ table, int n_table,
 
 // ---- K11 / K15: out[r, :] = src[idx[r] * W : idx[r] * W + W] ----
 // K11 reads a [n, W] table (valid rows 0 <= j < n), K15 a flat one of n
-// elements (valid where j * W + W <= n); the addresses are the same. A
-// warp per row, float4 loads (W % 4 == 0, 16-byte aligned base), offsets
-// in 64 bits (the probe's tables hold 256M floats).
+// elements (valid where j * W + W <= n); the addresses are the same, so
+// one kernel serves both. It replaces row_dma_gather and flat_row_dma,
+// which keep a ring of 8 (K15: 16) row DMAs in flight through VMEM and
+// copy each arrived slot out: the TPU has no gather load, the card does.
+// A warp per row, 8 rows a block; each lane loads idx[r] (one sector for
+// the block), then its float4s of the row (W % 4 == 0, 16-byte aligned
+// base) and stores them; offsets in 64 bits (the probe's tables hold 256M
+// floats). At the probe's 4096 rows the 512 blocks are all resident at
+// once, so every row's loads are in flight together.
+//
+// Bound on an H100: the bytes, 8.4 MB at the probe's 4096 rows of 1 KB
+// (each distinct row read once, idx read, the rows written once), 2.51 us
+// at 3.35 TB/s. Each row is two dependent trips to device memory, idx and
+// then the row at a random place in 1 GB, and no design removes them. On
+// an H100 80GB HBM3 at 700 W, in turns in one process
+// (harness/row_gather_probe.py, 9 window pairs a flushed reading), this
+// kernel read 3.6 us warm and 7.2 with L2 flushed by a read, at 0.84 ns a
+// row over a 3.7 us intercept (R 1024-16,384; an empty kernel reads 1.8);
+// rows from one 8 MB span (4 pages, not most of 512) read 0.1 us less, so
+// address translation is not what costs. Tried and not kept: a ring of
+// bulk copies (cp.async.bulk in and out of shared memory, the DMA ring's
+// counterpart: 5.5-5.6 us warm and 7.8-8.7 flushed by a read with one
+// lane issuing a block's copies, 4.0-4.1 and 7.4-8.0 with them spread
+// over lanes or blocks; a warp issues the copies of its lanes one after
+// another and each row waits in shared memory for its barrier) and 1-2
+// rows a warp with no-allocate loads all issued before the stores
+// (3.2-4.0 warm, 6.9-7.2 flushed by a read: level with this one's build
+// timed in the same turns, 6.9-7.2, where it counts).
 template <bool kFlat>
 __global__ void __launch_bounds__(kThreads)
 row_gather_kernel(const float* __restrict__ src, int64_t n,

@@ -84,17 +84,17 @@ def mean_ms(fn, dev, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_ms(fn, dev, n: int = 50, evict=None):
+def device_ms(fn, dev, n: int = 50, evict=None, rounds=None):
     """Device ms per call of `fn`, without the host's cost of launching:
     `n` calls are queued behind a kernel that holds the stream for 20 ms,
     so they run back to back on the card, between one pair of CUDA events
     (raises if the host took longer to queue them). With `evict` (a pass
     over more than the 50 MB L2 cache, `flush_passes`), each call follows
     the pass, so it finds its operands in device memory; the time of the
-    passes alone is subtracted: the median over COLD_ROUNDS pairs of
-    windows taken in turns (a pass takes many times as long as a short
-    kernel, so one pair can be off by more than the kernel takes). None
-    on the CPU."""
+    passes alone is subtracted: the median over `rounds` (COLD_ROUNDS by
+    default) pairs of windows taken in turns (a pass takes many times as
+    long as a short kernel, so one pair can be off by more than the
+    kernel takes). None on the CPU."""
     if dev.type != "cuda":
         return None
     hold_ns = 20_000_000
@@ -125,7 +125,7 @@ def device_ms(fn, dev, n: int = 50, evict=None):
         fn()
 
     return statistics.median(window(flushed) - window(evict)
-                             for _ in range(COLD_ROUNDS))
+                             for _ in range(rounds or COLD_ROUNDS))
 
 
 def flush_passes(dev, nbytes: int = 1 << 28):

@@ -118,6 +118,22 @@ def build(names=KERNELS, force: bool = False) -> float:
     return time.time() - t0
 
 
+def ptxas_lines(report: str, needle: str) -> dict:
+    """{kernel instance: its `-Xptxas -v` lines (spills, registers, shared
+    memory)} of the entry functions in `report` (a build's compiler
+    output) whose mangled names hold `needle`."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            fn = fn if needle in fn else None
+            if fn:
+                out[fn] = []
+        elif fn and ("registers" in line or "spill" in line):
+            out[fn].append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def load(name: str):
     """The ctypes handle of kernel library `name`, built if needed."""
     lib = _libs.get(name)
