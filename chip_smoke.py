@@ -159,8 +159,42 @@ Phases (any failure exits non-zero, and no result line is printed):
    time by kernel, idle share), and K3-u8's device time in profiler
    windows of that batch, of the engine at budget 512 and of the n_knn
    batch.
+10. drive the rest of the grouped search: (a-d) inside phase 4 on its
+   index and queries, after phase 6: (a) hashed tiles, V=1024
+   (`hash_retile_torch` on the card, bit-equal to the NumPy `hash_retile`
+   on the first and last 65536 posting rows, timed; the upload with
+   `tile_hash`, no vocabulary): K1's hashed call bit-exact against its
+   plain version in its three entry points on the B=4096 batch's own
+   operands (one vocab row arange(V), the terms hashed mod V), the
+   headline program at B=4096/M=8 and B=16384/M=16 on the derived plan
+   (K1, K4, K3 launched, every other kernel never), every score exact,
+   the kernel path against the plain-scorer path on 256 queries (id sets
+   >= 98%), recall@10 beside phase 4's, a B=16384 call's device time by
+   kernel, the device bytes; (b) the streaming budget on phase 4's index
+   uploaded with `super_summaries=True` (its bounds equal the same
+   function's on the CPU on 1024 super-tiles): stream_frac 0.75 and 0.5
+   at B=4096 on the slot-major K2 (K1, K2, K3 launched), the work items
+   the scorer is given counted (max(128, round(frac * W_cap))), no
+   returned id outside a scored super-tile's postings, every score exact,
+   recall@10 beside stream_frac 1, busy time; (c) the weighted cut:
+   `plan_caps(weighted=True)` equal to the host planner's caps on the
+   weighted values, whose G / W equal the derived plan's, one B=4096
+   batch (K1, K4, K3), exact scores, recall beside unweighted; (d)
+   `return_margin` at B=4096 (diag [B, 5], column 0 the 10th score) and
+   `search_batch_twopass`: every query flagged equals the deep pass
+   alone (pool 256, rescore 128, query_cut 20), none flagged equals pass
+   1, and at the default eps_rel the flagged share, wall time, exact
+   scores and recall; (e, f) inside phase 9, on its arrays and queries:
+   (e) `SeismicIndexDotVByte` without dense summaries (the hashed block
+   view, V=512) through `batch_search` at heap_factor 0.7 (K1, K2, K3-u8
+   launched, K7 never), every score the exact dot of the decoded u8 row,
+   recall@10 beside the dense route's, QPS, p50, busy time, device bytes;
+   (f) phase 9's dense block view bin-packed (`pack_bins=True`): the
+   block route's ids equal the unpacked view's on the 4096 queries
+   (scores to 1e-5), the aligned rows' device bytes beside the unpacked
+   ones, busy time of both.
 
-Every profiler window (phases 3-9) is taken after one warm-up call of
+Every profiler window (phases 3-10) is taken after one warm-up call of
 what it profiles and is read only where it holds that phase's hand
 kernels (K1-K3 for the API, K1 / K4 / K3 for the headline, K7 for the
 engine and the graph, K6 for the modes' defaults batch and K4 for its
@@ -173,7 +207,9 @@ to 0 and reads all nineteen, and fails on a kernel that launched where it
 should not; the kernels' record takes `launches` (the kernel's own main
 path) and `launches_api` / `_engine` / `_headline` / `_modes` / `_probe` /
 `_knn_graph` / `_knn` / `_api_classes` / `_dotvbyte` / `_dotvbyte_engine`
-/ `_dotvbyte_knn` / `_knn_headline` from those readings.
+/ `_dotvbyte_knn` / `_knn_headline` / `_hashed` / `_stream_75` /
+`_stream_50` / `_weighted` / `_margin` / `_twopass` / `_dotvbyte_hashed` /
+`_packed` from those readings.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -1006,6 +1042,14 @@ def headline_path(ds, dev, record, kernels, graph) -> dict:
              qv_np=qvn[0], qc_t=qcd[0], qv_t=qvd[0], plan=plans[0][2],
              G=plans[0][0].G, W=plans[0][0].W, gt=gt[:256], docs=docs,
              ids_headline=i4[:BATCH]), dev, record, kernels)
+
+    # ---- phase 10 (a-d): hashed tiles, the streaming budget, the
+    # weighted cut, the margin and the two-pass driver, on this index ----
+    grouped_rest_path(
+        dict(arrays=arrays, dindex=dindex, ctx=ctx, docs=docs,
+             q_comps=q_comps, q_vals=q_vals, qcB=qcB, qvB=qvB,
+             qc_np=qcn[0], qv_np=qvn[0], qc_t=qcd[0], qv_t=qvd[0], gt=gt,
+             ids_headline=i4[:BATCH], rec16=rec16), dev, record, kernels)
     del docs, arrays
     gc.collect()
     torch.cuda.empty_cache()
@@ -1634,6 +1678,424 @@ def modes_path(env, dev, record, kernels) -> list:
         bound_by=main6["bound_by"], library_ms=lib6, cases=k6,
         routes=routes6, sass_mix_bf16=mix6, bytes_converted=W * ROWS * V0)
     return [rec5, rec6, rec8, rec9]
+
+
+# ---- phase 10: the rest of the grouped search ----
+# the hashed tile width of the JAX repo's bench (bench.py:63: HASH_V = V_CAP)
+HASH_V = V_CAP
+# the two-pass driver's deep pass: a deeper pool and rescore over 20 lists
+TWOPASS_QC2, TWOPASS_POOL2, TWOPASS_RESCORE2 = 20, 256, 128
+STREAM_FRACS = (0.75, 0.5)
+# the kernel path agrees with the plain-scorer path on this share of id
+# sets, as phase 6's gate
+GATE_SHARE = 0.98
+
+
+def id_set_share(a, b) -> float:
+    """Share of rows of ids a and b [B, k] (tensors) with equal id sets."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    return float(np.mean([set(x[x >= 0].tolist()) == set(y[y >= 0].tolist())
+                          for x, y in zip(a, b)]))
+
+
+def exact_scores_err(docs, qc_t, qv_t, s_, i_) -> float:
+    """Largest relative distance of the finite scores s_ [B, k] from the
+    exact dots of their documents i_."""
+    import torch
+
+    fin = torch.isfinite(s_) & (i_ >= 0)
+    ex = exact_of(docs, qc_t, qv_t, i_.clamp_min(0))
+    return max_rel_err(s_[fin], ex[fin])
+
+
+def counted(what: str, key: str, record, fn, positive, exact=None):
+    """fn() between a zero and a read of all nineteen launch counts, held
+    to `positive` / `exact`; the counts go to record's window `key`.
+    Returns (fn's output, wall ms with a synchronise, the counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = hold_launches(what, read_launches(), positive=positive,
+                           exact=exact)
+    record["launch_windows"][key] = counts
+    return out, wall, counts
+
+
+def busy_of(fn, wanted) -> dict:
+    """Device busy ms by kernel of one call of fn (a profiler window read
+    only where it holds `wanted`), or "not measured"."""
+    try:
+        prof, _ = profile_held(fn, wanted, top=8)
+        return prof
+    except NoProfile as e:
+        return {"profile": f"not measured: {e}"}
+
+
+def grouped_rest_path(env, dev, record, kernels) -> dict:
+    """Phase 10 (a)-(d), inside phase 4 on its index and queries: hashed
+    tiles, the streaming budget, the weighted list cut, the margin and the
+    two-pass driver. Returns its record."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+    from seismic_tpu_torch.ops import grouped_scorer_item, tiles_prep
+    from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
+    from seismic_tpu_torch.search import grouped
+    from seismic_tpu_torch.search.grouped import (
+        _query_terms,
+        derive_plan_device,
+        hashed_qloc_operands,
+        plan_caps,
+        search_grouped_derive,
+    )
+    from seismic_tpu_torch.search.planner import PlannerContext, plan_grouped
+    from seismic_tpu_torch.search.twopass import (
+        TwoPassParams,
+        search_batch_twopass,
+    )
+
+    rec = record.setdefault("rest", {})
+    t_phase = time.time()
+    arrays, dindex, ctx, docs = (env[k_] for k_ in (
+        "arrays", "dindex", "ctx", "docs"))
+    q_comps, q_vals, qcB, qvB = (env[k_] for k_ in (
+        "q_comps", "q_vals", "qcB", "qvB"))
+    qc0, qv0, qct0, qvt0 = (env[k_] for k_ in ("qc_np", "qv_np", "qc_t",
+                                               "qv_t"))
+    gt = env["gt"]
+    params = headline_params()
+    QC, hand = QUERY_CUT, ("qloc_kernel", "rescore_fused_kernel")
+
+    def recall(ids):  # against phase 4's product, the rows of `ids`
+        return recall_at(gt[:len(ids)], ids.cpu().numpy())
+
+    rec4_b0 = recall(env["ids_headline"])
+
+    # ---- (a) hashed tiles: the retile on the card, the upload ----
+    t0 = time.perf_counter()
+    harr = tiles_prep.hash_retile_torch(arrays, HASH_V, device=dev)
+    torch.cuda.synchronize()
+    retile_s = time.perf_counter() - t0
+    # bit for bit the NumPy version's, on the first and the last chunk of
+    # posting rows
+    H = tiles_prep.hash_docs(arrays, HASH_V)
+    posts = np.asarray(arrays.postings)
+    total = int((np.asarray(arrays.list_post_start, np.int64)
+                 + np.asarray(arrays.list_len)).max())
+    for s0 in sorted({0, max(0, total - 65536)}):
+        s1 = min(total, s0 + 65536)
+        codes, sc = tiles_prep.hash_quantize_rows(H[posts[s0:s1]])
+        if not (np.array_equal(codes, harr.doc_tiles[s0:s1])
+                and np.array_equal(sc.view(np.int32),
+                                   harr.doc_tile_scale[s0:s1].view(
+                                       np.int32))):
+            fail(f"phase 10a: hash_retile_torch differs from the NumPy "
+                 f"hash_retile on posting rows {s0}:{s1}")
+    del H
+    t0 = time.perf_counter()
+    hindex = harr.to_device(dev, tile_csub=CSUB, tile_hash=HASH_V)
+    hctx = PlannerContext.from_arrays(harr, csub=CSUB)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del harr
+    if hindex.vocab16 is not None or hindex.tile_hash != HASH_V:
+        fail("phase 10a: the hashed upload holds a vocabulary or no "
+             "tile_hash")
+    log(f"phase 10a: hash_retile_torch(V={HASH_V}) {retile_s:.2f} s on the "
+        f"card (bit-equal to the NumPy version on two chunks of 65536 "
+        f"posting rows), upload csub {CSUB} {upload_s:.2f} s, device bytes "
+        f"{hindex.nbytes()} (phase 4's index {dindex.nbytes()})")
+
+    # K1's hashed call on the batch's own operands, bit for bit
+    top_c, top_v, sc = _query_terms(qct0, qvt0, params.score_cut)
+    ops = hashed_qloc_operands(HASH_V, top_c[:, :sc], top_v[:, :sc])
+    k1h, _ = check_k1(ops, "hashed b4096")
+    qch = ops[2]
+    srt = torch.sort(qch, dim=1).values
+    rep = ((srt[:, 1:] == srt[:, :-1])
+           & (srt[:, 1:] != int(PAD_COMPONENT))).any(1).float().mean().item()
+    k1h["rows_with_a_repeated_id"] = rep
+    kernels[0]["at_hashed"] = k1h
+    log(f"phase 10a: K1 on the hashed batch's operands ([{qch.shape[0]}, "
+        f"{qch.shape[1]}] terms over one vocab row of {HASH_V}): bit-exact "
+        f"in its three entry points; {rep:.4f} of the rows repeat an id; "
+        f"{k1h['ms']:.4f} ms (bound {k1h['bound_ms']:.4f} ms, plain "
+        f"{k1h['plain_ms']:.3f} ms)")
+
+    # the batch and the big call on the derived plan
+    caps_h = plan_caps(qc0, qv0, hctx, QC, M=8)
+    caps_hB = plan_caps(q_comps, q_vals, hctx, QC, M=BIG_M)
+
+    def hashed_b4096():
+        return search_grouped_derive(hindex, qct0, qvt0, params, QC, 8,
+                                     *caps_h, hctx.zero_region)
+
+    def hashed_big():
+        return search_grouped_derive(hindex, qcB, qvB, params, QC, BIG_M,
+                                     *caps_hB, hctx.zero_region)
+
+    hashed_b4096(), hashed_big()  # warm-up
+    ((s_h4, i_h4), (s_h16, i_h16)), wall_h, counts_h = counted(
+        "phase 10a: the hashed headline", "hashed", record,
+        lambda: (hashed_b4096(), hashed_big()),
+        positive=("qloc", "score_grouped_i8_item", "rescore"))
+    err_h = max(exact_scores_err(docs, qct0, qvt0, s_h4, i_h4),
+                exact_scores_err(docs, qcB, qvB, s_h16, i_h16))
+    if not err_h <= 1e-5:
+        fail(f"phase 10a: hashed scores differ from exact dots by {err_h}")
+    # the kernel path against the plain-scorer path on 256 queries
+    n_g = 256
+    caps_g = plan_caps(qc0[:n_g], qv0[:n_g], hctx, QC, M=8)
+    args_g = (hindex, qct0[:n_g], qvt0[:n_g], params, QC, 8, *caps_g,
+              hctx.zero_region)
+    s_k, i_k = search_grouped_derive(*args_g)
+    kernel_scorer = grouped.score_grouped_i8_item
+    grouped.score_grouped_i8_item = \
+        grouped_scorer_item.score_grouped_i8_item_plain
+    try:
+        s_p, i_p = search_grouped_derive(*args_g)
+    finally:
+        grouped.score_grouped_i8_item = kernel_scorer
+    same_h = id_set_share(i_k, i_p)
+    if same_h < GATE_SHARE:
+        fail(f"phase 10a: the hashed kernel path and the plain-scorer path "
+             f"share id sets on {same_h} of {n_g} queries")
+    r_h4, r_h16 = recall(i_h4), recall(i_h16)
+    busy_h = busy_of(hashed_big, hand + ("score_item_kernel",))
+    rec["hashed"] = dict(
+        V=HASH_V, retile_s=retile_s, upload_s=upload_s,
+        device_index_bytes=hindex.nbytes(),
+        headline_device_index_bytes=dindex.nbytes(),
+        recall_at_10_b4096=r_h4, recall_at_10_b16384=r_h16,
+        headline_recall_at_10_b4096=rec4_b0,
+        headline_recall_at_10_b16384=env["rec16"], max_rel_score_err=err_h,
+        kernel_vs_plain_id_sets=same_h, wall_ms_b4096_and_b16384=wall_h,
+        launches=counts_h, busy_b16384=busy_h,
+        plans={"b4096": caps_h, "b16384": caps_hB})
+    log(f"phase 10a: hashed headline: recall@10 {r_h4:.4f} (B={BATCH} "
+        f"batch 0; the truncated tiles' {rec4_b0:.4f}) and {r_h16:.4f} "
+        f"(B={N_QUERIES}; theirs {env['rec16']:.4f}); scores exact to "
+        f"{err_h:.3g}; kernel vs plain-scorer path id sets equal on "
+        f"{same_h:.4f} of {n_g}; launches {counts_h}; one B={N_QUERIES} "
+        f"call's device time by kernel {json.dumps(busy_h)}")
+    del hindex
+    torch.cuda.empty_cache()
+
+    # ---- (b) the streaming budget on phase 4's index with super bounds
+    t0 = time.perf_counter()
+    sindex = arrays.to_device(dev, tile_csub=CSUB, super_summaries=True)
+    torch.cuda.synchronize()
+    sup_upload_s = time.perf_counter() - t0
+    # the card's bounds equal the same function's on the CPU (which the
+    # CPU tests hold to the JAX package's NumPy) on 1024 super-tiles
+    n_r = min(1024, sindex.super_summary.shape[0]) * CSUB * SUB
+    c_cpu, s_cpu = tiles_prep.super_tile_summaries(
+        sindex.doc_tiles_aligned[:n_r].cpu(), sindex.tile_scale[:n_r].cpu(),
+        CSUB)
+    if not (torch.equal(c_cpu, sindex.super_summary[:len(c_cpu)].cpu())
+            and torch.equal(s_cpu, sindex.super_scale[:len(s_cpu)].cpu())):
+        fail("phase 10b: the super-tile bounds differ between the card and "
+             "the CPU")
+    caps0 = plan_caps(qc0, qv0, ctx, QC, M=8)
+    seen = {}
+    k2 = grouped.score_grouped_i8
+
+    def keeping(*a, **kw):  # the work items the scorer is given
+        seen["work_region"] = a[3]
+        return k2(*a, **kw)
+
+    def stream(frac):
+        p_ = dataclasses.replace(params, kernel_unroll=1, stream_frac=frac)
+        return search_grouped_derive(sindex, qct0, qvt0, p_, QC, 8, *caps0,
+                                     ctx.zero_region)
+
+    dp0 = derive_plan_device(sindex, qct0, qvt0, QC, 8, *caps0,
+                             ctx.zero_region)
+    W_cap, W0 = dp0.work_region.shape[0], int(dp0.W)
+    LL = ll_pad_for(dindex.max_list_len, CSUB)
+    j_ = torch.arange(LL, device=dev)
+    n_super = sindex.super_summary.shape[0]
+    rows = (sindex.list_region_start[dp0.pair_list.long()].long()[..., None]
+            * SUB + j_)  # [B, QC, LL] aligned rows of each pair
+    real = dp0.pair_valid[..., None] & (j_ < dp0.pair_len[..., None])
+    pidx = (dp0.pair_pstart[..., None].long() + j_).clamp(
+        max=sindex.postings.shape[0] - 1)
+    pair_docs = torch.where(real, sindex.postings[pidx].long(), -1)
+    s_full, i_full = stream(1.0)
+    runs = {}
+    grouped.score_grouped_i8 = keeping
+    try:
+        stream(STREAM_FRACS[0])  # warm-up
+        for frac in STREAM_FRACS:
+            (s_, i_), wall, counts = counted(
+                f"phase 10b: stream_frac {frac}",
+                f"stream_{round(frac * 100)}", record,
+                lambda frac=frac: stream(frac),
+                positive=("qloc", "score_grouped_i8", "rescore"))
+            kept = seen["work_region"]
+            Wb = min(W_cap, max(128, int(round(frac * W_cap))))
+            if kept.shape[0] != Wb:
+                fail(f"phase 10b: stream_frac {frac} scored {kept.shape[0]} "
+                     f"work items, not max(128, round(frac * {W_cap}))")
+            kept_sup = torch.zeros(n_super, dtype=torch.bool, device=dev)
+            kept_sup[kept.long()] = True
+            ok_docs = torch.where(
+                real & kept_sup[(rows // (CSUB * SUB)).clamp(max=n_super - 1)],
+                pair_docs, -1).reshape(BATCH, -1)
+            srt = torch.sort(ok_docs, dim=1).values
+            pos = torch.searchsorted(srt, i_.contiguous()).clamp(
+                max=srt.shape[1] - 1)
+            inside = (srt.gather(1, pos) == i_) | (i_ < 0)
+            if not bool(inside.all()):
+                fail(f"phase 10b: stream_frac {frac} returned "
+                     f"{int((~inside).sum())} ids outside the scored "
+                     "super-tiles")
+            err = exact_scores_err(docs, qct0, qvt0, s_, i_)
+            if not err <= 1e-5:
+                fail(f"phase 10b: stream_frac {frac} scores differ from "
+                     f"exact dots by {err}")
+            runs[str(frac)] = dict(
+                recall_at_10=recall(i_), work_items=int(Wb), W=W0,
+                W_cap=W_cap, wall_ms=wall, max_rel_score_err=err,
+                launches=counts,
+                busy=busy_of(lambda frac=frac: stream(frac), hand + (
+                    "score_grouped_i8_kernel",)))
+    finally:
+        grouped.score_grouped_i8 = k2
+    r_full = recall(i_full)
+    rec["stream"] = dict(super_upload_s=sup_upload_s,
+                         super_summary_bytes=sindex.super_summary.numel(),
+                         recall_at_10_stream_frac_1=r_full, runs=runs,
+                         busy_stream_frac_1=busy_of(
+                             lambda: stream(1.0),
+                             hand + ("score_grouped_i8_kernel",)))
+    log(f"phase 10b: streaming budget (slot-major K2, upload with super "
+        f"bounds {sup_upload_s:.2f} s, bounds equal to the CPU's): "
+        + "; ".join(f"stream_frac {f_} keeps {r_['work_items']} of W_cap "
+                    f"{W_cap} (W {W0}), recall@10 {r_['recall_at_10']:.4f}, "
+                    f"{r_['wall_ms']:.2f} ms, device {r_['busy'].get('device_busy_ms')} ms"
+                    for f_, r_ in runs.items())
+        + f"; stream_frac 1: recall@10 {r_full:.4f}, device "
+        f"{rec['stream']['busy_stream_frac_1'].get('device_busy_ms')} ms; "
+        "every id inside the scored super-tiles, every score exact")
+    del sindex, rows, real, pidx, pair_docs
+    torch.cuda.empty_cache()
+
+    # ---- (c) the weighted list cut ----
+    w = np.where((qc0 >= 0) & (qc0 < ctx.n_lists),
+                 ctx.list_weight[np.clip(qc0, 0, ctx.n_lists - 1)], 0.0)
+    host_w = plan_grouped(qc0, qv0 * w, ctx, QC, M=8)
+    caps_w = plan_caps(qc0, qv0, ctx, QC, M=8, weighted=True)
+    dpw = derive_plan_device(dindex, qct0, qvt0, QC, 8, *caps_w,
+                             ctx.zero_region, weighted=True)
+    if caps_w != (host_w.G_cap, host_w.W_cap) or (
+            int(dpw.G), int(dpw.W)) != (host_w.G, host_w.W):
+        fail(f"phase 10c: weighted caps {caps_w} / host G, W "
+             f"{host_w.G, host_w.W} against the derived plan's "
+             f"{int(dpw.G), int(dpw.W)}")
+
+    def weighted():
+        return search_grouped_derive(dindex, qct0, qvt0, params, QC, 8,
+                                     *caps_w, ctx.zero_region, weighted=True)
+
+    weighted()
+    (s_w, i_w), wall_w, counts_w = counted(
+        "phase 10c: the weighted cut", "weighted", record, weighted,
+        positive=("qloc", "score_grouped_i8_item", "rescore"))
+    err_w = exact_scores_err(docs, qct0, qvt0, s_w, i_w)
+    if not err_w <= 1e-5:
+        fail(f"phase 10c: weighted scores differ from exact dots by {err_w}")
+    r_w = recall(i_w)
+    rec["weighted"] = dict(G=host_w.G, W=host_w.W, caps=caps_w,
+                           recall_at_10=r_w, unweighted_recall_at_10=rec4_b0,
+                           wall_ms=wall_w, max_rel_score_err=err_w,
+                           launches=counts_w)
+    log(f"phase 10c: weighted cut: caps {caps_w} = the host planner's, its "
+        f"G, W {host_w.G}, {host_w.W} = the derived plan's; recall@10 "
+        f"{r_w:.4f} (unweighted {rec4_b0:.4f}), {wall_w:.2f} ms, scores "
+        f"exact to {err_w:.3g}")
+
+    # ---- (d) the margin and the two-pass driver ----
+    pm = dataclasses.replace(params, return_margin=True)
+
+    def margin():
+        return search_grouped_derive(dindex, qct0, qvt0, pm, QC, 8, *caps0,
+                                     ctx.zero_region)
+
+    margin()
+    (s_m, i_m, diag), wall_m, counts_m = counted(
+        "phase 10d: return_margin", "margin", record, margin,
+        positive=("qloc", "score_grouped_i8_item", "rescore"))
+    if tuple(diag.shape) != (BATCH, 5) or not torch.equal(diag[:, 0],
+                                                          s_m[:, K - 1]):
+        fail(f"phase 10d: diag {tuple(diag.shape)} is not [{BATCH}, 5] or "
+             "its column 0 is not the 10th score")
+    p2 = dataclasses.replace(params, pool=TWOPASS_POOL2,
+                             rescore=TWOPASS_RESCORE2, pool_per_pair=32)
+    tp = TwoPassParams(pass1=params, pass2=p2, query_cut1=QC,
+                       query_cut2=TWOPASS_QC2)
+    tp_all = dataclasses.replace(tp, eps=np.inf, eps_rel=0.0, b2_frac=1.0)
+    tp_none = dataclasses.replace(tp, eps=-np.inf, eps_rel=0.0)
+    s_a, i_a, st_a = search_batch_twopass(dindex, ctx, qc0, qv0, tp_all)
+    caps2 = plan_caps(qc0, qv0, ctx, TWOPASS_QC2, M=8)
+    s_d, i_d = search_grouped_derive(dindex, qct0, qvt0, p2, TWOPASS_QC2, 8,
+                                     *caps2, ctx.zero_region)
+    # eps = inf flags every query whose pool was filled (an unfilled pool
+    # truncated nothing: margin +inf): those rows are the deep pass's, the
+    # rest pass 1's
+    fl = np.zeros(BATCH, bool)
+    fl[st_a["flagged_idx"]] = True
+    s_d, i_d = s_d.cpu().numpy(), i_d.cpu().numpy()
+    s_1, i_1 = s_m.cpu().numpy(), i_m.cpu().numpy()
+    if not (np.array_equal(i_a[fl], i_d[fl])
+            and np.array_equal(s_a[fl], s_d[fl])
+            and np.array_equal(i_a[~fl], i_1[~fl])
+            and np.array_equal(s_a[~fl], s_1[~fl])):
+        fail(f"phase 10d: two-pass with eps = inf ({int(fl.sum())} of "
+             f"{BATCH} flagged) differs from the deep pass alone on the "
+             "flagged rows or from pass 1 on the rest")
+    s_n, i_n, st_n = search_batch_twopass(dindex, ctx, qc0, qv0, tp_none)
+    if not (st_n["flagged"] == 0 and np.array_equal(i_n, i_1)
+            and np.array_equal(s_n, s_1)):
+        fail("phase 10d: two-pass with no query flagged differs from "
+             "pass 1")
+    search_batch_twopass(dindex, ctx, qc0, qv0, tp)  # warm-up
+    (s_t, i_t, st_t), wall_t, counts_t = counted(
+        "phase 10d: the two-pass driver", "twopass", record,
+        lambda: search_batch_twopass(dindex, ctx, qc0, qv0, tp),
+        positive=("qloc", "score_grouped_i8_item", "rescore"))
+    err_t = exact_scores_err(docs, qct0, qvt0, torch.from_numpy(s_t).to(dev),
+                             torch.from_numpy(i_t).to(dev))
+    if not err_t <= 1e-5:
+        fail(f"phase 10d: two-pass scores differ from exact dots by {err_t}")
+    r_t, r_deep = (recall(torch.from_numpy(i_t)),
+                   recall(torch.from_numpy(i_d)))
+    rec["margin_twopass"] = dict(
+        margin_wall_ms=wall_m, pool_bottom_finite_share=float(
+            torch.isfinite(diag[:, 1]).float().mean().item()),
+        flagged=st_t["flagged"], flag_frac=st_t["flag_frac"], b2=st_t["b2"],
+        flagged_at_eps_inf=int(fl.sum()),
+        eps_rel=tp.eps_rel, twopass_wall_ms=wall_t,
+        recall_at_10_twopass=r_t, recall_at_10_pass1=rec4_b0,
+        recall_at_10_deep=r_deep, max_rel_score_err=err_t,
+        launches=counts_t)
+    log(f"phase 10d: return_margin: diag [{BATCH}, 5], column 0 = the 10th "
+        f"score, {wall_m:.2f} ms; two-pass at eps = inf: {int(fl.sum())} "
+        f"flagged, those rows == the deep pass alone, the rest == pass 1; "
+        f"none flagged == pass 1; at eps_rel {tp.eps_rel}: "
+        f"{st_t['flagged']} of {BATCH} flagged (pass-2 batch {st_t['b2']}), "
+        f"{wall_t:.2f} ms, recall@10 {r_t:.4f} (pass 1 {rec4_b0:.4f}, deep "
+        f"{r_deep:.4f}), scores exact to {err_t:.3g}")
+    rec["phase_s"] = time.time() - t_phase
+    log(f"phase 10 (a-d): {rec['phase_s']:.1f} s")
+    return rec
 
 
 HEAP_FACTOR, BIG_BUDGET = 0.8, 512
@@ -2799,10 +3261,168 @@ def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
                    worst_b, worst_e, worst_k), engine_launches=ecounts,
                knn_launches=kcounts, breakdown=brk, k3_u8=k3u8,
                recall_queries=nq)
-    del vidx, bindex, eindex, args, out
+    del eindex, args, out
+    torch.cuda.empty_cache()
+
+    # ---- phase 10 (e, f): the hashed block view, the bin-packed one ----
+    dotvbyte_rest_path(
+        dict(vidx=vidx, arrays=arrays, bindex=bindex, bctx=bctx, E=E, tq=tq,
+             qids=qids, qvals=qvals, gt=gt, qc2=qc2, qv2=qv2, r_b=r_b,
+             qps=qps, p50=p50), dev, record)
+    del vidx, bindex
     gc.collect()
     torch.cuda.empty_cache()
     return k3u8
+
+
+def dotvbyte_rest_path(env, dev, record) -> dict:
+    """Phase 10 (e, f), inside phase 9 on its arrays and queries: the
+    DotVByte class on an index without dense summaries (the hashed block
+    view), and the bin-packed dense block view against phase 9's
+    unpacked one. Returns its record."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch import SeismicIndexDotVByte
+    from seismic_tpu_torch.api import block_pool_params
+    from seismic_tpu_torch.ops.tiles_prep import (
+        block_pool_arrays,
+        narrow_vocab,
+    )
+    from seismic_tpu_torch.search import engine
+    from seismic_tpu_torch.search.grouped import DevicePlan, _grouped_impl
+    from seismic_tpu_torch.search.planner import PlannerContext, plan_grouped
+
+    rec = record.setdefault("rest", {})
+    t_phase = time.time()
+    vidx, arrays, bindex, bctx, E = (env[k_] for k_ in (
+        "vidx", "arrays", "bindex", "bctx", "E"))
+    tq, qids, qvals, gt, qc2, qv2 = (env[k_] for k_ in (
+        "tq", "qids", "qvals", "gt", "qc2", "qv2"))
+    nq = len(gt)
+    hand = ("qloc_kernel", "score_grouped_i8_kernel", "rescore_u8_kernel")
+    qct, qvt = torch.from_numpy(qc2).to(dev), torch.from_numpy(qv2).to(dev)
+    top_c, top_v, _ = engine._query_terms(qct, qvt, 64)
+    docs8 = fwd_csr(arrays, dev)
+
+    # ---- (e) the DotVByte class without dense summaries: hashed blocks
+    hidx = SeismicIndexDotVByte(
+        dataclasses.replace(arrays, dense_summary=None), vidx._doc_ids,
+        vidx._token_to_id, vidx._contents, device=dev)
+    t0 = time.perf_counter()
+    hb, hctx, hE = hidx.block_device_index()
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t0
+    if hb.tile_hash != vidx._block_V or hb.vocab16 is not None or hE != E:
+        fail(f"phase 10e: the block view is not hashed {vidx._block_V} "
+             f"wide (tile_hash {hb.tile_hash}, block_expand {hE})")
+
+    def hrun():
+        return hidx.batch_search(qids, tq, qvals, k=K, query_cut=QUERY_CUT,
+                                 heap_factor=DOTV_HEAP_FACTOR)
+
+    hrun()  # warm-up
+    lat = []
+
+    def timed():
+        for _ in range(REPS):
+            t_ = time.perf_counter()
+            res_ = hrun()
+            lat.append(time.perf_counter() - t_)
+        return res_
+
+    res, _, counts_e = counted(
+        "phase 10e: the hashed block route", "dotvbyte_hashed", record,
+        timed, positive=("qloc", "score_grouped_i8", "rescore_u8"))
+    s_h = np.array([[x[1] for x in r] for r in res], np.float32)
+    i_h = np.array([[int(x[2][1:]) for x in r] for r in res], np.int64)
+    if s_h.shape != (BATCH, K) or not np.isfinite(s_h).all():
+        fail("phase 10e: the hashed block route's results are not finite "
+             f"[{BATCH}, {K}]")
+    err_e = max_rel_err(torch.from_numpy(s_h).to(dev), exact_of(
+        docs8, top_c, top_v, torch.from_numpy(i_h).to(dev)))
+    if not err_e <= 1e-5:
+        fail(f"phase 10e: hashed block scores differ from the exact dots of "
+             f"the u8 rows by {err_e}")
+    r_e = recall_at(gt, i_h[:nq])
+    plan_h = plan_grouped(qc2, qv2, hctx, QUERY_CUT, native=True)
+    args_h = (hb, DevicePlan.put(plan_h, dev), qct, qvt,
+              block_pool_params(K, E))
+    busy_e = busy_of(lambda: _grouped_impl(*args_h), hand)
+    p50_e = float(np.median(lat))
+    rec["dotvbyte_hashed"] = dict(
+        V=int(hb.tile_hash), view_upload_s=view_s,
+        block_index_bytes=hb.nbytes(),
+        dense_block_index_bytes=bindex.nbytes(), recall_at_10=r_e,
+        dense_recall_at_10=env["r_b"], qps=BATCH * REPS / sum(lat),
+        p50_ms=p50_e * 1e3, dense_qps=env["qps"],
+        dense_p50_ms=env["p50"] * 1e3, max_rel_score_err=err_e,
+        launches=counts_e, busy=busy_e, recall_queries=nq)
+    log(f"phase 10e: SeismicIndexDotVByte without dense summaries: hashed "
+        f"block view (V={hb.tile_hash}) {view_s:.2f} s, device bytes "
+        f"{hb.nbytes()} (dense view {bindex.nbytes()}); batch_search of "
+        f"{BATCH} at heap_factor {DOTV_HEAP_FACTOR}: QPS "
+        f"{rec['dotvbyte_hashed']['qps']:.1f}, p50 {p50_e * 1e3:.2f} ms "
+        f"(dense: {env['qps']:.1f}, {env['p50'] * 1e3:.2f} ms), recall@10 "
+        f"{r_e:.4f} on {nq} queries (dense {env['r_b']:.4f}), scores exact "
+        f"to {err_e:.3g}, launches {counts_e}; one batch's device time "
+        f"{json.dumps(busy_e)}")
+    del hidx, hb, args_h
+    torch.cuda.empty_cache()
+
+    # ---- (f) the bin-packed dense block view against phase 9's unpacked
+    # one: the same view (the members in the order phase 9's upload holds
+    # them), packed ----
+    t0 = time.perf_counter()
+    width = int(bindex.doc_tiles_aligned.shape[1])
+    bv = block_pool_arrays(narrow_vocab(arrays, width), width)
+    bvp = dataclasses.replace(bv, postings=bindex.postings.cpu().numpy(),
+                              pack_bins=True)
+    pidx = bvp.to_device(dev)
+    pctx = PlannerContext.from_arrays(bvp)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    params = block_pool_params(K, E)
+    args_p = (pidx, DevicePlan.put(plan_grouped(qc2, qv2, pctx, QUERY_CUT,
+                                                native=True), dev),
+              qct, qvt, params)
+    args_u = (bindex, DevicePlan.put(plan_grouped(qc2, qv2, bctx, QUERY_CUT,
+                                                  native=True), dev),
+              qct, qvt, params)
+    _grouped_impl(*args_p)  # warm-up
+    (s_p, i_p), wall_p, counts_f = counted(
+        "phase 10f: the bin-packed block view", "packed", record,
+        lambda: _grouped_impl(*args_p),
+        positive=("qloc", "score_grouped_i8", "rescore_u8"))
+    s_u, i_u = _grouped_impl(*args_u)
+    fin = torch.isfinite(s_u)
+    rel_f = max_rel_err(s_p[fin], s_u[fin]) if bool(fin.any()) else 0.0
+    if not (torch.equal(i_p, i_u) and torch.equal(fin, torch.isfinite(s_p))
+            and rel_f <= 1e-5):
+        fail(f"phase 10f: the packed view's results differ from the "
+             f"unpacked view's (ids equal {torch.equal(i_p, i_u)}, score "
+             f"rel err {rel_f})")
+    by_p, by_u = pidx.doc_tiles_aligned.numel(), \
+        bindex.doc_tiles_aligned.numel()
+    busy_f = busy_of(lambda: _grouped_impl(*args_p), hand)
+    busy_u = busy_of(lambda: _grouped_impl(*args_u), hand)
+    rec["packed"] = dict(
+        view_upload_s=pack_s, aligned_rows_bytes=by_p,
+        unpacked_aligned_rows_bytes=by_u, block_index_bytes=pidx.nbytes(),
+        unpacked_block_index_bytes=bindex.nbytes(), wall_ms=wall_p,
+        max_rel_score_err=rel_f, launches=counts_f, busy=busy_f,
+        unpacked_busy=busy_u)
+    log(f"phase 10f: bin-packed block view ({pack_s:.2f} s): ids equal to "
+        f"the unpacked view's on {BATCH} queries, scores to {rel_f:.3g}; "
+        f"aligned block rows {by_p} bytes (unpacked {by_u}); {wall_p:.2f} "
+        f"ms, launches {counts_f}; device time packed {json.dumps(busy_f)}, "
+        f"unpacked {json.dumps(busy_u)}")
+    rec["phase_ef_s"] = time.time() - t_phase
+    log(f"phase 10 (e, f): {rec['phase_ef_s']:.1f} s")
+    del pidx, args_p, args_u, docs8
+    torch.cuda.empty_cache()
+    return rec
 
 
 def knn_headline_path(env, dev, record):

@@ -16,7 +16,8 @@ Every index class routes as `seismic_tpu/api.py:300-419` routes on the
 accelerator. `SeismicIndexDotVByte` sends a request that sets no budget
 and no block or doc mode to the block-pool route (`block_device_index`:
 the blocks-as-rows view of its dense block summaries, narrowed to 512
-columns, its members ordered by value, with the lean u8 forward rows;
+columns, or without them the hashed view of its CSR summaries, 512
+columns wide; its members ordered by value, with the lean u8 forward rows;
 the C++ planner; `block_pool_params`): on every device, the card taking
 the TPU's part. A tiles-mode request that asks for exhaustive lists
 (`heap_factor <= 0` or `full_lists`) and sets no block/candidate budget
@@ -241,9 +242,11 @@ class _IndexBase:
         120-150`): the dense block summaries narrowed to `_block_V`
         columns when they are wider, the blocks-as-rows view with each
         block's members ordered by value, uploaded in the lean forward
-        form when the values are u8. It is a second device index: the
-        engine's copy (`device_index`) keeps the unordered postings.
-        block_expand is the index's max_block_len."""
+        form when the values are u8; without dense summaries (a build with
+        `summary_vocab_cap=0`) the hashed view of the u8 CSR summaries,
+        `_block_V` columns wide, uploaded with `tile_hash`. It is a second
+        device index: the engine's copy (`device_index`) keeps the
+        unordered postings. block_expand is the index's max_block_len."""
         from .ops.tiles_prep import block_pool_arrays, narrow_vocab
         from .search.planner import PlannerContext
 
@@ -251,10 +254,15 @@ class _IndexBase:
                              else self._device_arg)
         if dev not in self._block_index:
             arrays = self._arrays
-            if arrays.dense_summary is None:
-                # the JAX package hashes the CSR summaries here instead;
-                # that view raises, naming its ROADMAP item
-                bv = block_pool_arrays(arrays, self._block_V,
+            tile_hash = 0
+            layout = getattr(arrays.config, "layout", None)
+            if (arrays.dense_summary is None
+                    or getattr(layout, "summary_vocab_cap", 1) == 0):
+                # no dense summaries: a build with summary_vocab_cap=0
+                # keeps a one-column placeholder, which the JAX API takes
+                # for dense rows (and fails on); it gets the hashed view
+                tile_hash = self._block_V
+                bv = block_pool_arrays(arrays, tile_hash,
                                        order_members=True, mode="hash")
             else:
                 width = int(arrays.dense_summary.shape[1])
@@ -263,7 +271,7 @@ class _IndexBase:
                     width = self._block_V
                 bv = block_pool_arrays(arrays, width, order_members=True,
                                        mode="dense")
-            self._block_index[dev] = (bv.to_device(dev),
+            self._block_index[dev] = (bv.to_device(dev, tile_hash=tile_hash),
                                       PlannerContext.from_arrays(bv),
                                       int(self._arrays.max_block_len))
         return self._block_index[dev]
@@ -748,9 +756,10 @@ class SeismicIndexRawLV(SeismicIndexRaw):
 class SeismicIndexDotVByte(SeismicIndex):
     """The memory-lean variant (reference: src/pylib/dotvbyte.rs:32-426):
     u8 forward values with a per-document (min, step), no replicated doc
-    tiles, and searches on the block-pool route (dense block summaries
-    pool blocks, their members are exact-rescored from the u8 forward
-    rows by K3's u8 form); other requests take the engine path in its
+    tiles, and searches on the block-pool route (dense block summaries,
+    or hashed CSR summaries in a build without them, pool blocks; their
+    members are exact-rescored from the u8 forward rows by K3's u8 form);
+    other requests take the engine path in its
     rescore doc mode on the same forward rows."""
 
     _component_cap = _U16_CAP

@@ -8,11 +8,19 @@ scorer reads one contiguous `[csub*SUB, V]` block, and a zero tail of
 `ll_pad` rows lets any region be read `ll_pad` rows deep. The tiles stay
 u8 and the per-row scale stays a flat `[rows]` vector (the TPU layout's
 int8 view and `[n_super, 8, 128]` scale blocks were Mosaic constraints).
+Bin-packed views (`pack_bins`, set by `block_pool_arrays`) pack their
+short lists next-fit into shared `csub*SUB`-row bins
+(`packed_region_layout`), and the aligned layout then also returns each
+list's row offset inside its bin.
 `narrow_vocab` (a copy of `seismic_tpu/ops/pallas_tiles.py::narrow_vocab`)
 derives a narrower-vocabulary index from a built one; `block_pool_arrays`
 and `order_block_members` (copies of the functions of those names there,
-dense mode) take the blocks-as-rows view of the block-pool lean path;
-`residue_layout` and
+dense and hashed modes) take the blocks-as-rows view of the block-pool
+lean path; `hash_retile` (a copy) replaces the doc tiles by hashed ones
+(column = component mod V, collisions summed), and `hash_retile_torch`
+computes the same tiles bit for bit with torch on a device;
+`super_tile_summaries` bounds each super-tile of an uploaded aligned
+layout for the streaming budget; `residue_layout` and
 `residue_permute_arrays` (copies of the functions of those names there)
 reorder every list's vocabulary into residue groups for the bucketed
 projection kernel (ops/qloc_residue.py).
@@ -23,6 +31,8 @@ from __future__ import annotations
 from dataclasses import replace as dataclasses_replace
 
 import numpy as np
+
+from ..data.sparse import PAD_COMPONENT
 
 SUB = 128  # rows per subtile (one scorer work item when csub == 1)
 
@@ -35,8 +45,10 @@ def ll_pad_for(max_list_len: int, csub: int = 1) -> int:
 def tile_region_starts(arrays, csub: int = 1) -> np.ndarray:
     """Subtile (SUB-row unit) start of each list's region in the aligned
     tile layout. With csub > 1 every list's region is padded to a multiple
-    of csub subtiles. Pure metadata — does NOT materialize the tiles."""
-    _check_unpacked(arrays)
+    of csub subtiles; bin-packed views take `packed_region_layout`'s
+    starts. Pure metadata — does NOT materialize the tiles."""
+    if arrays.pack_bins:
+        return packed_region_layout(arrays.list_len, csub)[0]
     list_len = arrays.list_len.astype(np.int64)
     n_tiles_per_list = np.maximum(1, -(-list_len // SUB))
     if csub > 1:
@@ -46,6 +58,52 @@ def tile_region_starts(arrays, csub: int = 1) -> np.ndarray:
     return region_start
 
 
+def packed_region_layout(list_len, csub: int = 1):
+    """Bin-packed aligned layout (a copy of `seismic_tpu/ops/
+    pallas_tiles.py::packed_region_layout`) for views whose lists are tiny
+    next to the csub*SUB-row region grain (the block view: about a dozen
+    block rows a list against 128-256-row regions).
+
+    Lists are packed NEXT-FIT in id order into csub*SUB-row bins: a list
+    that does not fit the open bin's remainder starts a new bin; a list
+    longer than one bin gets an exclusive multi-super-tile region
+    (row_off 0), exactly like the unpacked layout. Each list therefore
+    spans rows [row_off, row_off + len) of ONE work item's window (or an
+    exclusive region), and the scorer's per-pair output carries
+    bin-mates' rows, which the grouped route's lower-bound masks drop.
+
+    Returns (region_start int64 [n_lists] in SUBTILE units, csub-aligned;
+    row_off int32 [n_lists] rows within the region; n_sub_total subtiles
+    in the packed body)."""
+    ll = np.asarray(list_len, np.int64)
+    n = len(ll)
+    cap = csub * SUB
+    region_start = np.zeros(n, np.int64)
+    row_off = np.zeros(n, np.int32)
+    cur_bin = 0  # super-tile index of the open bin
+    cur_fill = cap  # rows used in the open bin (cap => none open)
+    next_sup = 0  # next free super-tile index
+    for li in range(n):
+        ln = int(ll[li])
+        if ln == 0:
+            continue  # empty list: region 0 / row_off 0, never planned
+        if ln > cap:
+            # exclusive region (multi super-tile), standard alignment
+            nsup = -(-(-(-ln // SUB)) // csub)
+            region_start[li] = next_sup * csub
+            next_sup += nsup
+            cur_fill = cap  # bins never straddle an exclusive region
+            continue
+        if ln > cap - cur_fill:
+            cur_bin = next_sup
+            next_sup += 1
+            cur_fill = 0
+        region_start[li] = cur_bin * csub
+        row_off[li] = cur_fill
+        cur_fill += ln
+    return region_start, row_off, next_sup * csub
+
+
 def pallas_align_doc_tiles(arrays, ll_pad: int, csub: int = 1):
     """Re-pack `doc_tiles`/`doc_tile_scale` so every list's region starts at
     a multiple of SUB rows (csub*SUB rows when csub > 1); the tail is
@@ -53,17 +111,25 @@ def pallas_align_doc_tiles(arrays, ll_pad: int, csub: int = 1):
     bounds checks.
 
     Returns (tiles uint8 [n_sub_total*SUB, V], scale f32 [n_sub_total*SUB],
-    region_start_subtiles int32 [n_lists]). Host-side, one-off per index
-    (vectorized: one fancy-index row copy)."""
+    region_start_subtiles int32 [n_lists], row_off int32 [n_lists] or
+    None). row_off is set only for bin-packed views (`pack_bins`,
+    `packed_region_layout`): each list's rows then start at
+    region_start*SUB + row_off. Host-side, one-off per index (vectorized:
+    one fancy-index row copy)."""
     assert ll_pad % (csub * SUB) == 0
-    _check_unpacked(arrays)
     list_len = arrays.list_len.astype(np.int64)
-    n_tiles_per_list = np.maximum(1, -(-list_len // SUB))
-    if csub > 1:
-        n_tiles_per_list = csub * (-(-n_tiles_per_list // csub))
-    region_start = tile_region_starts(arrays, csub)
-    n_sub_body = int(n_tiles_per_list.sum())
-    dst_base = region_start * SUB
+    row_off = None
+    if arrays.pack_bins:
+        region_start, row_off, n_sub_body = packed_region_layout(
+            list_len, csub)
+        dst_base = region_start * SUB + row_off
+    else:
+        n_tiles_per_list = np.maximum(1, -(-list_len // SUB))
+        if csub > 1:
+            n_tiles_per_list = csub * (-(-n_tiles_per_list // csub))
+        region_start = tile_region_starts(arrays, csub)
+        n_sub_body = int(n_tiles_per_list.sum())
+        dst_base = region_start * SUB
     n_sub_total = n_sub_body + ll_pad // SUB
     total_rows = n_sub_total * SUB
     V = arrays.doc_tiles.shape[1]
@@ -81,7 +147,8 @@ def pallas_align_doc_tiles(arrays, ll_pad: int, csub: int = 1):
         dst_idx = np.repeat(dst_base, list_len) + intra
         tiles[dst_idx] = arrays.doc_tiles[src_idx]
         scale[dst_idx] = arrays.doc_tile_scale[src_idx]
-    return tiles, scale, region_start.astype(np.int32)
+    return (tiles, scale, region_start.astype(np.int32),
+            None if row_off is None else row_off.astype(np.int32))
 
 
 def prepare_pallas_tiles(arrays, csub: int = 1):
@@ -90,13 +157,169 @@ def prepare_pallas_tiles(arrays, csub: int = 1):
     )
 
 
-_PACK_BINS = ("bin-packed block views (pack_bins) need the packed region "
-              "layout; not ported yet (ROADMAP.md, modules to port, item 2c)")
+def super_tile_summaries(tiles, tile_scale, csub: int):
+    """Per-super-tile component-wise UPPER BOUNDS of an aligned layout (a
+    torch copy of `seismic_tpu/ops/pallas_tiles.py::super_tile_summaries`,
+    on the tensors' device): ub[s, v] = max_r code[r, v] * scale[r] over
+    the super-tile's csub * 128 rows, re-quantized to u8 with a
+    per-super-tile scale, rounding up. The streaming budget ranks work
+    items by query . ub. Every step is one IEEE f32 operation (a product,
+    a max, a true division, a ceiling), so the codes are the NumPy
+    version's bit for bit on any device.
+
+    tiles uint8 [rows, V] and tile_scale f32 [rows] with rows a multiple
+    of csub * 128. Returns (codes uint8 [n_super, V], scale f32
+    [n_super])."""
+    import torch
+
+    total_rows, V = tiles.shape
+    lanes = csub * SUB
+    n_super = total_rows // lanes
+    codes = torch.zeros((n_super, V), dtype=torch.uint8, device=tiles.device)
+    scales = torch.zeros(n_super, dtype=torch.float32, device=tiles.device)
+    chunk = max(1, (1 << 26) // (lanes * V))  # ~64 MB f32 working set
+    for s0 in range(0, n_super, chunk):
+        s1 = min(s0 + chunk, n_super)
+        t = (tiles[s0 * lanes: s1 * lanes].to(torch.float32)
+             * tile_scale[s0 * lanes: s1 * lanes, None])
+        ub = t.reshape(s1 - s0, lanes, V).amax(dim=1)  # [chunk, V]
+        sc = _div255(torch.clamp(ub.amax(dim=1), min=1e-20))
+        codes[s0:s1] = torch.ceil(ub / sc[:, None]).clamp(0, 255).to(
+            torch.uint8)
+        scales[s0:s1] = sc
+    return codes, scales
 
 
-def _check_unpacked(arrays):
-    if getattr(arrays, "pack_bins", False):
-        raise NotImplementedError(_PACK_BINS)
+def _div255(x):
+    """x / 255 rounded as one IEEE f32 division, on any device: the divisor
+    is a tensor because CUDA turns a division by a Python scalar into a
+    product with its reciprocal, which rounds differently from NumPy's
+    division."""
+    import torch
+
+    return x / torch.full_like(x, 255.0)
+
+
+def _hashed_doc_values(arrays):
+    """(values f32 [n_docs, W] with 0 at padding, comps [n_docs, W], the
+    mask of real entries) of the forward rows, decoded as `seismic_tpu/ops/pallas_tiles.py::hash_retile` decodes
+    them (u8 codes: code * step + min, one f32 product and one f32 sum)."""
+    fc = np.asarray(arrays.fwd_comps)
+    mask = fc != PAD_COMPONENT
+    vals = np.asarray(arrays.fwd_vals).astype(np.float32)
+    if arrays.fwd_val_step is not None:
+        vals = (vals * np.asarray(arrays.fwd_val_step)[:, None]
+                + np.asarray(arrays.fwd_val_min)[:, None])
+    return np.where(mask, vals, 0.0).astype(np.float32), fc, mask
+
+
+def _hash_rows(arrays):
+    """(number of real posting rows, rows of the new tile array): the
+    tiles keep the old row count, or (no doc tiles) room for the block
+    and list tails."""
+    lps = np.asarray(arrays.list_post_start, np.int64)
+    ll = np.asarray(arrays.list_len, np.int64)
+    total = int((lps + ll).max()) if len(lps) else 0
+    if arrays.doc_tiles is not None:
+        return total, arrays.doc_tiles.shape[0]
+    return total, total + arrays.max_block_len + arrays.max_list_len
+
+
+def hash_docs(arrays, V: int, chunk: int = 65536) -> np.ndarray:
+    """f32 [n_docs, V]: each document's values summed by column comp mod
+    V, in f64 (`np.bincount`), then rounded to f32 — the hashed document
+    matrix of `hash_retile`."""
+    vals, fc, mask = _hashed_doc_values(arrays)
+    n_docs, W = fc.shape
+    cols = np.where(mask, fc % V, 0).astype(np.int64)
+    H = np.zeros((n_docs, V), np.float32)
+    for s in range(0, n_docs, chunk):
+        e = min(n_docs, s + chunk)
+        r = np.repeat(np.arange(e - s, dtype=np.int64), W)
+        flat = r * V + cols[s:e].reshape(-1)
+        H[s:e] = np.bincount(
+            flat, weights=vals[s:e].reshape(-1), minlength=(e - s) * V
+        ).reshape(e - s, V)
+    return H
+
+
+def hash_quantize_rows(rows: np.ndarray):
+    """u8 codes and f32 scale of hashed rows f32 [n, V]: scale = max(row
+    max, 1e-20) / 255 (0 for an all-zero row), codes rounded half to
+    even."""
+    mx = rows.max(axis=1)
+    sc = np.maximum(mx, 1e-20) / 255.0
+    return (np.round(rows / sc[:, None]).astype(np.uint8),
+            np.where(mx > 0, sc, 0.0).astype(np.float32))
+
+
+def hash_retile(arrays, V: int, chunk: int = 65536):
+    """Replace the per-list truncated-vocab doc tiles with HASHED tiles (a
+    copy of `seismic_tpu/ops/pallas_tiles.py::hash_retile`, the plain
+    reference of `hash_retile_torch`): column b of a posting row holds
+    the SUM of that doc's values whose component id hashes to b (comp mod
+    V), u8-quantized per row. Hashing drops no term: collisions only add
+    mass (the values are non-negative), so hashed pool scores are upper
+    bounds that the exact rescore corrects, and the query projection
+    becomes one row per QUERY (the hash is list-independent).
+
+    Returns a new IndexArrays with doc_tiles / doc_tile_scale replaced
+    (every other field shared). Upload it with `to_device(tile_hash=V)`
+    so the grouped route hashes the query instead of projecting it per
+    pair."""
+    assert V % 128 == 0, "hashed tile width must be lane-aligned"
+    H = hash_docs(arrays, V, chunk)
+    total, n_rows = _hash_rows(arrays)
+    posts = np.asarray(arrays.postings)
+    tiles = np.zeros((n_rows, V), np.uint8)
+    scale = np.zeros(n_rows, np.float32)
+    for s in range(0, total, chunk):
+        e = min(total, s + chunk)
+        tiles[s:e], scale[s:e] = hash_quantize_rows(H[posts[s:e]])
+    return dataclasses_replace(arrays, doc_tiles=tiles, doc_tile_scale=scale)
+
+
+def hash_retile_torch(arrays, V: int, device=None, chunk: int = 65536):
+    """`hash_retile` computed with torch on `device` (None: the card), bit
+    for bit: the values decode with the same f32 product and sum, the
+    per-column sums accumulate in f64 (`index_add_`: a sum of f32 values
+    whose exponents span less than 29 bits is exact in f64, so its order
+    does not matter) before the f32 rounding, and the scale and the codes
+    are the same f32 division and the same round half to even. Returns
+    the IndexArrays `hash_retile` returns (NumPy tiles on the host)."""
+    import torch
+
+    from ..device import resolve_device
+
+    assert V % 128 == 0, "hashed tile width must be lane-aligned"
+    dev = resolve_device(device)
+    vals, fc, mask = _hashed_doc_values(arrays)
+    n_docs, W = fc.shape
+    cols = torch.from_numpy(np.where(mask, fc % V, 0).astype(np.int64)).to(
+        dev)
+    vals_t = torch.from_numpy(vals).to(dev)
+    H = torch.empty((n_docs, V), dtype=torch.float32, device=dev)
+    for s in range(0, n_docs, chunk):
+        e = min(n_docs, s + chunk)
+        flat = (torch.arange(e - s, device=dev)[:, None] * V
+                + cols[s:e]).reshape(-1)
+        acc = torch.zeros((e - s) * V, dtype=torch.float64, device=dev)
+        acc.index_add_(0, flat, vals_t[s:e].reshape(-1).to(torch.float64))
+        H[s:e] = acc.reshape(e - s, V).to(torch.float32)
+    del cols, vals_t
+    total, n_rows = _hash_rows(arrays)
+    posts = torch.from_numpy(np.asarray(arrays.postings, np.int64)).to(dev)
+    tiles = torch.zeros((n_rows, V), dtype=torch.uint8, device=dev)
+    scale = torch.zeros(n_rows, dtype=torch.float32, device=dev)
+    for s in range(0, total, chunk):
+        e = min(total, s + chunk)
+        rows = H[posts[s:e]]
+        mx = rows.amax(dim=1)
+        sc = _div255(torch.clamp(mx, min=1e-20))
+        tiles[s:e] = torch.round(rows / sc[:, None]).to(torch.uint8)
+        scale[s:e] = torch.where(mx > 0, sc, 0.0)
+    return dataclasses_replace(arrays, doc_tiles=tiles.cpu().numpy(),
+                               doc_tile_scale=scale.cpu().numpy())
 
 
 def order_block_members(arrays, chunk: int = 1 << 21):
@@ -154,43 +377,71 @@ def order_block_members(arrays, chunk: int = 1 << 21):
 def block_pool_arrays(arrays, V: int, order_members: bool = False,
                       mode: str = "dense", pack_bins: bool = False):
     """The blocks-as-rows VIEW of the index for the grouped scorer (a copy
-    of `seismic_tpu/ops/pallas_tiles.py::block_pool_arrays`, dense mode):
-    the builder's dense block summaries (exact u8 values over each list's
-    vocabulary, width V: `narrow_vocab` first for a narrower V) replace
-    the per-posting doc tiles, and the list geometry counts blocks:
+    of `seismic_tpu/ops/pallas_tiles.py::block_pool_arrays`): block
+    summary rows replace the per-posting doc tiles, and the list geometry
+    counts blocks:
 
-      doc_tiles / doc_tile_scale -> dense_summary / dense_scale
+      doc_tiles / doc_tile_scale -> the block rows and their scales
       list_post_start            -> list_block_start
       list_len                   -> list_n_blocks
       max_list_len               -> max_blocks_per_list
 
+    mode="dense": the rows are the builder's dense block summaries (exact
+    u8 values over each list's vocabulary, width V: `narrow_vocab` first
+    for a narrower V), scored through the per-pair projection. mode=
+    "hash": the u8 CSR summaries decoded (min + code * quant), summed by
+    column comp mod V in f64 (`np.bincount`), rounded to f32 and
+    re-quantized per row (max / 255, round half to even); upload it with
+    `to_device(tile_hash=V)`, which projects once per query.
+
     postings, block_start and block_len stay the real ones: the pool
     emits block ids and `GroupedParams.block_expand` expands them into
     member postings. `order_members` first orders each block's postings
-    by value (`order_block_members`). The hashed rows (`mode="hash"`,
-    uploaded with `tile_hash`) and the bin-packed regions (`pack_bins`)
-    are not ported."""
-    if mode != "dense":
-        raise NotImplementedError(
-            f"hashed block rows (mode={mode!r}) need the tile_hash upload; "
-            "not ported yet (ROADMAP.md, modules to port, item 2f)")
-    if pack_bins:
-        raise NotImplementedError(_PACK_BINS)
+    by value (`order_block_members`). `pack_bins` marks the view for the
+    bin-packed aligned layout (`packed_region_layout`: lists of a few
+    block rows share csub*128-row bins instead of padding one each); the
+    grouped route then refuses the window / stride pools and the
+    streaming budget on it, as the JAX package does."""
+    if mode not in ("dense", "hash"):
+        raise ValueError(f"block_pool_arrays: unknown mode {mode!r}")
     if order_members:
         arrays = order_block_members(arrays)
     assert V % 128 == 0
-    assert arrays.dense_summary is not None and (
-        arrays.dense_summary.shape[1] == V
-    ), ("mode='dense' uses the built dense_summary; narrow_vocab() first "
-        "for a narrower V", V,
-        None if arrays.dense_summary is None
-        else arrays.dense_summary.shape)
-    return _dc_replace_block_view(
-        arrays, np.asarray(arrays.dense_summary),
-        np.asarray(arrays.dense_scale, np.float32))
+    if mode == "dense":
+        assert arrays.dense_summary is not None and (
+            arrays.dense_summary.shape[1] == V
+        ), ("mode='dense' uses the built dense_summary; narrow_vocab() "
+            "first for a narrower V", V,
+            None if arrays.dense_summary is None
+            else arrays.dense_summary.shape)
+        return _dc_replace_block_view(
+            arrays, np.asarray(arrays.dense_summary),
+            np.asarray(arrays.dense_scale, np.float32), pack_bins)
+    sc_comps = np.asarray(arrays.summary_comps)
+    sc_codes = np.asarray(arrays.summary_codes)
+    s_min = np.asarray(arrays.summary_min, np.float32)
+    s_quant = np.asarray(arrays.summary_quant, np.float32)
+    nbp, S = sc_comps.shape
+    tiles = np.zeros((nbp, V), np.uint8)
+    scale = np.zeros(nbp, np.float32)
+    chunk = 262144  # blocks a bincount: a [chunk * V] f64 working set
+    for s in range(0, nbp, chunk):
+        e = min(nbp, s + chunk)
+        cc = sc_comps[s:e]
+        mask = cc != PAD_COMPONENT
+        vv = np.where(mask, s_min[s:e, None]
+                      + sc_codes[s:e].astype(np.float32) * s_quant[s:e, None],
+                      0.0)
+        cols = np.where(mask, cc % V, 0).astype(np.int64)
+        r = np.repeat(np.arange(e - s, dtype=np.int64), S)
+        H = np.bincount(r * V + cols.reshape(-1), weights=vv.reshape(-1),
+                        minlength=(e - s) * V).reshape(e - s, V).astype(
+                            np.float32)
+        tiles[s:e], scale[s:e] = hash_quantize_rows(H)
+    return _dc_replace_block_view(arrays, tiles, scale, pack_bins)
 
 
-def _dc_replace_block_view(arrays, tiles, scale):
+def _dc_replace_block_view(arrays, tiles, scale, pack_bins: bool):
     return dataclasses_replace(
         arrays,
         doc_tiles=tiles,
@@ -198,6 +449,7 @@ def _dc_replace_block_view(arrays, tiles, scale):
         list_post_start=np.asarray(arrays.list_block_start, np.int32),
         list_len=np.asarray(arrays.list_n_blocks, np.int32),
         max_list_len=int(arrays.max_blocks_per_list),
+        pack_bins=pack_bins,
     )
 
 

@@ -422,6 +422,11 @@ def _search_impl(index: DeviceIndex, q_comps, q_vals, heap_factor: float,
     QC = safe_lists.shape[1]
 
     if params.doc_mode == "tiles":
+        if index.tile_hash:
+            raise ValueError(
+                "doc_mode='tiles' reads per-list-vocab tiles; this index "
+                "was uploaded with HASHED tiles (tile_hash set) — use the "
+                "grouped path (search_grouped*), which hashes the query")
         return _tiles_search(index, params, q_comps, q_vals, safe_lists,
                              sel_valid, heap_factor)
 
@@ -442,6 +447,10 @@ def _search_impl(index: DeviceIndex, q_comps, q_vals, heap_factor: float,
         if index.dense_summary is None:
             raise ValueError("block_mode='dense' needs an index built with "
                              "dense summaries (summary_vocab_cap > 0)")
+        if index.vocab16 is None:
+            raise ValueError("block_mode='dense' reads the list "
+                             "vocabularies, which an upload with tile_hash "
+                             "leaves out; use block_mode='summary'")
         qloc = _lookup(qd, index.vocab16[lists])  # [B, QC, V]
         block_scores = _dense_block_scores(index, lbs, qloc, MB).reshape(
             B, QC * MB)

@@ -3,18 +3,22 @@
 Pipeline (planner -> device program), as in
 `seismic_tpu/search/grouped.py`:
 
-  plan   1. top-`query_cut` terms per query; (query, list) pairs grouped by
-            list into M-slot groups, exact per-super-tile work list: on
-            the host (search/planner.py, the C++ or NumPy planner) or
-            derived on the device from the queries (`derive_plan_device`,
-            torch sorts, scans and scatters), with the host supplying only
-            the static capacities (`plan_caps`)
+  plan   1. top-`query_cut` terms per query (or, with the weighted list
+            cut, the top by value * the list's max posting value); (query,
+            list) pairs grouped by list into M-slot groups, exact
+            per-super-tile work list: on the host (search/planner.py, the
+            C++ or NumPy planner) or derived on the device from the
+            queries (`derive_plan_device`, torch sorts, scans and
+            scatters), with the host supplying only the static capacities
+            (`plan_caps`)
   device 2. per-pair query projection onto each list's local vocabulary:
             K1 (ops/qloc.py; quantized to int8 per pair for the i8 scorer,
             f32 for the bf16/f32 one), K8 (ops/qloc_rowmajor.py,
             qloc_mode "rowmajor"), K9 (ops/qloc_residue.py, an index
             uploaded with vocab_residue), or a plain lookup (qloc_mode
-            "einsum")
+            "einsum"); on hashed tiles (an index uploaded with
+            tile_hash=V) ONE projection row per query instead: K1 over the
+            one vocab row arange(V), the query terms hashed to comp mod V
          3. slot expansion: each group's M projections side by side
          4. grouped scorer: each list's u8 doc tiles read once per group
             and scored for all M member queries: int8, slot-major
@@ -23,12 +27,17 @@ Pipeline (planner -> device program), as in
             `_item_regroup`); bf16 / f32, slot-major
             (ops/grouped_scorer_f.py, K6). For the "window" and "stride"
             pools the scorers pack each score with its row and take a
-            window max in their epilogue (ops/pack_epilogue.py, K5)
+            window max in their epilogue (ops/pack_epilogue.py, K5).
+            stream_frac < 1 (an index uploaded with super_summaries): only
+            the top stream_frac of the work items, ranked by the group's
+            projections . the super-tile's upper bounds, are scored, and
+            the rows of the others are masked
          5. regroup to query order in the pool dtype (f32 or bf16), per-pair
-            scale, length masks, candidate pool: "exact" / "approx" (exact
-            top-`pool` of the wall), "hier" and "slot" (top-t per pair, then
-            a merge), "seg" (two-level segment pool), "window" and "stride"
-            (packed pools)
+            scale, length masks (on bin-packed views also the rows before
+            each list's row offset, its bin-mates'), candidate pool:
+            "exact" / "approx" (exact top-`pool` of the wall), "hier" and
+            "slot" (top-t per pair, then a merge), "seg" (two-level segment
+            pool), "window" and "stride" (packed pools)
          6. rescore > 0: exact rescore of the top `rescore` candidates from
             the forward rows (ops/rescore.py, K3), with the id dedup before
             it ("pre") or after it ("post"); rescore == 0: the overflow
@@ -40,26 +49,31 @@ Pipeline (planner -> device program), as in
             up to block_expand member postings, all exact-rescored (K3),
             then a pre-rank, the id dedup and the top-k
          7. n_knn > 0: kNN refinement of the top-k (K3 on the neighbours)
+         8. return_margin (rescore > 0): a third output, per-query
+            pool-truncation diagnostics [B, 5] that the two-pass driver
+            (search/twopass.py) turns into its margin
 
 Two entry points: `search_grouped` (host plan) and
 `search_grouped_derive` (device-derived plan; the bench headline path of
 the JAX package, `bench.py:604-669`). Served: compute_dtype "i8", "bf16",
 "f32"; qloc_mode "pallas", "rowmajor" (i8, no vocab_residue), "einsum";
 an index uploaded with vocab_residue (qloc_mode "pallas" or "einsum");
-kernel_unroll 1, or > 1 with "i8" and pool_mode "exact", "approx", "hier",
-"seg" or "stride"; every pool_mode; pool_select "exact" and "approx"
-(every selection here is exact, as `approx_max_k` is on JAX's CPU
-backend); pool_dtype "f32", "bf16"; dedup_mode "pre", "post"; rescore > 0
-and the overflow tail (rescore == 0); kNN refinement (n_knn > 0 with a
-graph on the index: after the rescore tail, `knn_rounds` rounds of K3
+hashed tiles; kernel_unroll 1, or > 1 with "i8" and pool_mode "exact",
+"approx", "hier", "seg" or "stride"; every pool_mode; pool_select "exact"
+and "approx" (every selection here is exact, as `approx_max_k` is on JAX's
+CPU backend); pool_dtype "f32", "bf16"; dedup_mode "pre", "post"; rescore
+> 0 and the overflow tail (rescore == 0); kNN refinement (n_knn > 0 with
+a graph on the index: after the rescore tail, `knn_rounds` rounds of K3
 over the neighbours of the top `knn_top` results, `_knn_refine_grouped`;
-after the overflow tail, the engine's round); block_expand (the block-pool
-lean path; return_margin with it is refused, as in the JAX package);
-stop_after. Not served, each raising NotImplementedError with its
-ROADMAP.md item: stream_frac < 1, return_margin and the weighted list cut
-(2f; hashed tiles, also 2f, have no upload path here). The glue between
-the kernels (top-k, sorts, scans, gathers, masks) is plain torch, and none
-of it reads a device value back to the host.
+after the overflow tail, the engine's round); block_expand (the
+block-pool lean path) on dense, hashed and bin-packed block views;
+stream_frac < 1; return_margin; the weighted list cut; stop_after. What
+the JAX package refuses raises ValueError: the streaming budget without
+super summaries, with kernel_unroll > 1, with the window / stride pools
+or on a bin-packed view; those pools on a bin-packed view; return_margin
+with block_expand or without the rescore. The glue between the kernels
+(top-k, sorts, scans, gathers, masks, the streaming budget's priorities)
+is plain torch, and none of it reads a device value back to the host.
 """
 
 from __future__ import annotations
@@ -82,6 +96,7 @@ from ..ops.qloc import (
 from ..ops.qloc_residue import project_qloc_residue
 from ..ops.qloc_rowmajor import project_qloc_rowmajor
 from ..ops.rescore import rescore_exact
+from ..device import full_f32
 from ..ops.tiles_prep import SUB, ll_pad_for
 from ..types import DeviceIndex
 from .engine import (
@@ -133,29 +148,18 @@ class GroupedParams:
     return_margin: bool = False
 
 
-_R2 = "ROADMAP.md, modules to port, item 2"
 _STOPS = ("", "qloc", "expand", "kernel", "regroup", "pool", "prerank")
 _POOL_MODES = ("exact", "approx", "hier", "slot", "seg", "window", "stride")
 
 
-def _check_supported(params: GroupedParams) -> None:
-    """Raise NotImplementedError for every mode this package does not serve
-    yet, naming the ROADMAP item that brings it (2f: stream_frac,
-    return_margin, the weighted cut), and ValueError for values and
-    combinations the JAX package refuses too."""
-    if params.return_margin and params.block_expand > 0:
-        # the JAX package's assert in `_grouped_tail`
-        raise ValueError("grouped search: return_margin is only implemented "
-                         "on the rescore path, not with block_expand")
-    unsupported = [
-        (params.stream_frac < 1.0,
-         f"stream_frac={params.stream_frac} ({_R2}f)"),
-        (params.return_margin, f"return_margin ({_R2}f)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"grouped search: {what}")
+def _check_supported(params: GroupedParams, index=None) -> None:
+    """Raise ValueError for values and combinations the JAX package
+    refuses too; with `index`, also for those it refuses on that index
+    (the streaming budget without super summaries or on a bin-packed
+    view, the window / stride pools on a bin-packed view)."""
     i8 = params.compute_dtype == "i8"
+    pack_idx = params.pool_mode in ("window", "stride")
+    stream = params.stream_frac < 1.0
     invalid = [
         (params.compute_dtype not in ("i8", "bf16", "f32"),
          f"compute_dtype={params.compute_dtype!r}"),
@@ -178,7 +182,30 @@ def _check_supported(params: GroupedParams) -> None:
          f"kernel_unroll > 1 with pool_mode={params.pool_mode!r}"),
         (params.qloc_mode == "rowmajor" and not i8,
          "rowmajor qloc is i8-only"),
+        (params.return_margin and params.block_expand > 0,
+         "return_margin is only implemented on the rescore path, not with "
+         "block_expand"),
+        (params.return_margin and params.block_expand <= 0
+         and params.rescore <= 0,
+         "return_margin requires rescore > 0 (the margin's bias estimate "
+         "needs the exact-vs-approx rescore gap)"),
+        (stream and params.kernel_unroll > 1,
+         "kernel_unroll with stream_frac < 1 is unsupported"),
+        (stream and pack_idx,
+         f"pool_mode={params.pool_mode!r} with stream_frac < 1 is "
+         "unsupported"),
     ]
+    if index is not None:
+        packed = index.list_row_off is not None
+        invalid += [
+            (stream and index.super_summary is None,
+             "stream_frac < 1 needs to_device(super_summaries=True)"),
+            (packed and pack_idx,
+             "pool_mode 'window'/'stride' folds bin-mates' rows in the "
+             "scorer; unsupported with bin-packed (pack_bins) views"),
+            (packed and stream,
+             "stream_frac < 1 is unsupported with bin-packed views"),
+        ]
     for bad, what in invalid:
         if bad:
             raise ValueError(f"grouped search: {what}")
@@ -240,6 +267,25 @@ def _scatter_drop(n: int, fill, idx, src):
     return buf.scatter_(0, idx, src)[:n]
 
 
+def _weighted_terms(index: DeviceIndex, q_comps, q_vals, QC: int):
+    """(list ids int32 [B, QC], their values f32 [B, QC]) of each query's
+    top-QC terms ranked by value * list_weight[term] (0 for a term that
+    names no list), padding valued 0."""
+    if index.list_weight is None:
+        raise ValueError("the weighted list cut needs list weights (an "
+                         "index uploaded with doc tiles)")
+    n_lists = index.list_len.shape[0]
+    valid = q_comps != int(PAD_COMPONENT)
+    qv = torch.where(valid, q_vals, 0.0)
+    if QC == q_comps.shape[1]:
+        return q_comps, qv
+    okc = valid & (q_comps >= 0) & (q_comps < n_lists)
+    w = torch.where(
+        okc, index.list_weight[q_comps.clamp(0, n_lists - 1).long()], 0.0)
+    _, top_p = _top_k(qv * w, QC)
+    return torch.gather(q_comps, 1, top_p), torch.gather(qv, 1, top_p)
+
+
 def derive_plan_device(
     index: DeviceIndex,
     q_comps,  # int32 [B, Q] PAD_COMPONENT padded
@@ -249,13 +295,16 @@ def derive_plan_device(
     G_cap: int,
     W_cap: int,
     zero_region: int,  # SUPER-tile units (PlannerContext.zero_region)
+    weighted: bool = False,
 ) -> DevicePlan:
     """Build the grouped plan ON THE DEVICE from the queries (sorts, scans,
-    scatters; `seismic_tpu/search/grouped.py::derive_plan_device` without
-    the weighted cut): the host only supplies the static capacities
-    (G_cap, W_cap, from `plan_caps`). Group composition equals the host
-    planner's whenever both pick the same top-QC lists. Nothing is read
-    back to the host."""
+    scatters; `seismic_tpu/search/grouped.py::derive_plan_device`): the
+    host only supplies the static capacities (G_cap, W_cap, from
+    `plan_caps`). With `weighted`, each query's lists are its top-QC
+    terms by value * the list's max posting value (`list_weight`), as
+    `plan_caps(weighted=True)` selects them. Group composition equals the
+    host planner's whenever both pick the same top-QC lists. Nothing is
+    read back to the host."""
     B, Q = q_comps.shape
     QC = min(query_cut, Q)
     P = B * QC
@@ -263,7 +312,10 @@ def derive_plan_device(
     n_lists = index.list_len.shape[0]
     dev = q_comps.device
 
-    lids, top_v, _ = _query_terms(q_comps, q_vals, QC)
+    if weighted:
+        lids, top_v = _weighted_terms(index, q_comps, q_vals, QC)
+    else:
+        lids, top_v, _ = _query_terms(q_comps, q_vals, QC)
     safe_l = lids.clamp(0, n_lists - 1)
     llen = index.list_len[safe_l.long()]
     valid = ((top_v > 0) & (lids >= 0) & (lids < n_lists)
@@ -414,8 +466,9 @@ class _Stopped:
 def _grouped_impl(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
                   params: GroupedParams):
     """The device program of the grouped route; returns (scores f32 [B, k],
-    ids int64 [B, k], -1 where no result), or with `stop_after` the named
-    stage's output twice, as the JAX program does."""
+    ids int64 [B, k], -1 where no result), with `return_margin` also the
+    diagnostics f32 [B, 5] (`_margin_diag`), or with `stop_after` the
+    named stage's output twice, as the JAX program does."""
     pooled = _grouped_pool(index, plan, q_comps, q_vals, params)
     if isinstance(pooled, _Stopped):
         return pooled.out, pooled.out
@@ -428,12 +481,15 @@ def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
              params: GroupedParams):
     """Per-pair projections on the compact [P] pair grid: (q_i8 int8 [P, V],
     pair_scale f32 [P]) for the i8 scorer, (qloc f32 [P, V], None)
-    otherwise."""
+    otherwise. On hashed tiles one row per QUERY ([B, V]; the i8 scale
+    broadcast to the [P] pair grid)."""
     QC = plan.pair_list.shape[1]
     i8 = params.compute_dtype == "i8"
     pair_list = plan.pair_list.reshape(-1)
     tc = top_c[:, :scq].contiguous()
     tv = top_v[:, :scq].contiguous()
+    if index.tile_hash:
+        return _project_hashed(index.tile_hash, tc, tv, QC, i8)
     R = index.vocab_residue
     if params.qloc_mode == "rowmajor":
         if R:
@@ -460,6 +516,31 @@ def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
     return project_qloc_f32(index.vocab16, pair_list, tc, tv, QC), None
 
 
+def hashed_qloc_operands(V: int, tc, tv):
+    """K1's operands of the hashed projection (`seismic_tpu/search/
+    grouped.py:614-640`): one shared vocab row arange(V) (int16), a zero
+    pair list of length B (QC = 1) and the query terms hashed to comp mod
+    V, padding kept. tc int32 / tv f32 [B, SC]."""
+    dev = tc.device
+    pad = int(PAD_COMPONENT)
+    qch = torch.where(tc == pad, pad, tc % V).to(torch.int32).contiguous()
+    return (torch.arange(V, dtype=torch.int16, device=dev).reshape(1, V),
+            torch.zeros(tc.shape[0], dtype=torch.int32, device=dev), qch,
+            tv.contiguous(), 1)
+
+
+def _project_hashed(V: int, tc, tv, QC: int, i8: bool):
+    """The hashed projection, one row per query: K1 on
+    `hashed_qloc_operands`. Returns (q_i8 int8 [B, V], the per-query
+    scale repeated to the [B * QC] pair grid) or (qloc f32 [B, V],
+    None)."""
+    ops = hashed_qloc_operands(V, tc, tv)
+    if not i8:
+        return project_qloc_f32(*ops), None
+    q_i8, scale = project_qloc_quantize(*ops)
+    return q_i8, scale.repeat_interleave(QC)
+
+
 def _candidates(index: DeviceIndex, plan: DevicePlan, top_scores, sel,
                 LLMAX: int):
     """Pool positions `sel` (qc slot * LLMAX + row) to (f32 scores, doc
@@ -479,13 +560,13 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
                   params: GroupedParams):
     """The grouped program up to its candidate pool: `_grouped_tail`'s
     arguments after (index, params), or a `_Stopped` stage output."""
-    _check_supported(params)
+    _check_supported(params, index)
     if index.doc_tiles_aligned is None:
         raise ValueError("the grouped route needs an index built with doc "
                          "tiles (layout.summary_vocab_cap > 0)")
     B = q_comps.shape[0]
     G_cap, M = plan.slot_b.shape
-    V = index.vocab16.shape[1]
+    V = index.doc_tiles_aligned.shape[1]
     k = params.k
     csub = index.tile_csub
     LLMAX = ll_pad_for(index.max_list_len, csub)
@@ -502,6 +583,8 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
     if stop == "qloc":
         return _Stopped(qloc_pairs)
     slot_src = plan.slot_pair.long()
+    if index.tile_hash:
+        slot_src = torch.div(slot_src, QC, rounding_mode="floor")  # query
     qloc = qloc_pairs[slot_src].reshape(G_cap, M, V)
     qsum = None
     if pair_scale is None:
@@ -509,6 +592,14 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
         qsum = (128.0 * qloc_pairs.sum(dim=-1))[slot_src].reshape(G_cap, M)
     if stop == "expand":
         return _Stopped(qloc)
+
+    # ---- the streaming budget: the top stream_frac of the work items ----
+    work_region, work_g, work_s = plan.work_region, plan.work_g, plan.work_s
+    NSUP = LLMAX // (csub * SUB)
+    streamed = None
+    if params.stream_frac < 1.0:
+        work_region, work_g, work_s, streamed = _stream_budget(
+            index, plan, qloc, pair_scale, params.stream_frac, NSUP)
 
     # ---- grouped tile scoring (K2 / K4 / K6), K5 epilogue when packed ----
     pack_idx = params.pool_mode in ("window", "stride")
@@ -525,20 +616,28 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
             raise ValueError(f"W_cap={W_cap} is not a multiple of "
                              f"kernel_unroll={params.kernel_unroll}")
         scores = score_grouped_i8_item(
-            tiles, tscale, qloc, plan.work_region, plan.work_g, csub,
-            plan.work_s, LLMAX, pack_window)  # [W_cap, M, csub*128 / rk]
+            tiles, tscale, qloc, work_region, work_g, csub, work_s, LLMAX,
+            pack_window)  # [W_cap, M, csub*128 / rk]
     elif pair_scale is not None:
         scores = score_grouped_i8(
-            tiles, tscale, qloc, plan.work_region, plan.work_g, plan.work_s,
-            LLMAX, csub, pack_window)  # [G_cap, M, LLMAX / rk], unmasked
+            tiles, tscale, qloc, work_region, work_g, work_s, LLMAX, csub,
+            pack_window)  # [G_cap, M, LLMAX / rk], unmasked
     else:
         scores = score_grouped_f(
-            tiles, tscale, qloc, qsum, plan.work_region, plan.work_g,
-            plan.work_s, LLMAX, csub, params.compute_dtype, pack_window)
+            tiles, tscale, qloc, qsum, work_region, work_g, work_s, LLMAX,
+            csub, params.compute_dtype, pack_window)
     if stop == "kernel":
         return _Stopped(scores)
-    NSUP = LLMAX // (csub * SUB)
     pslot = plan.pair_slot.reshape(P).long()
+    # bin-packed views: rows [0, row_off) of a pair's window are its
+    # bin-mates', scored against the wrong projection (plan.pair_len and
+    # group_nrows are already the effective row_off + len)
+    roff_pair = roff_group = None
+    if index.list_row_off is not None:
+        nl = index.list_row_off.shape[0]
+        roff_pair = index.list_row_off[plan.pair_list.clamp(0, nl - 1).long()]
+        roff_group = index.list_row_off[
+            plan.group_list.clamp(0, nl - 1).long()]
     pool = min(params.pool if params.pool > 0 else 8 * k, QC * LLMAX)
 
     def done(top_scores, sel, pool):
@@ -605,8 +704,12 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
     if params.pool_mode == "slot":
         # ---- pool on the scorer's slot grid, then regroup [P, t] ----
         t = min(params.pool_per_pair, LLMAX)
-        m3 = ((rows[None, :] < plan.group_nrows[:, None])[:, None, :]
-              & (plan.slot_b < B)[:, :, None])
+        rows_ok_slot = rows[None, :] < plan.group_nrows[:, None]
+        if roff_group is not None:
+            rows_ok_slot &= rows[None, :] >= roff_group[:, None]
+        if streamed is not None:
+            rows_ok_slot &= streamed.repeat_interleave(csub * SUB, dim=-1)
+        m3 = rows_ok_slot[:, None, :] & (plan.slot_b < B)[:, :, None]
         sl = torch.where(m3, scores, -torch.inf).reshape(G_cap * M, LLMAX)
         v1, i1 = _top_k(sl, t)
         v1p = v1[pslot].reshape(B, QC, t)
@@ -634,6 +737,13 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
         pv = pv * pair_scale.reshape(B, QC, 1).to(pdt)
     rows_ok = (rows[None, None, :] < plan.pair_len[..., None]) & (
         plan.pair_valid[..., None])
+    if roff_pair is not None:
+        rows_ok &= rows[None, None, :] >= roff_pair[..., None]
+    if streamed is not None:
+        # rows of the super-tiles the budget skipped were never written
+        pair_group = torch.div(plan.pair_slot, M, rounding_mode="floor")
+        st = streamed[pair_group.clamp(max=G_cap - 1).long()]  # [B, QC, NS]
+        rows_ok &= st.repeat_interleave(csub * SUB, dim=-1)
     pv = torch.where(rows_ok, pv, -torch.inf).reshape(B, QC * LLMAX)
     if stop == "regroup":
         return _Stopped(pv)
@@ -666,6 +776,45 @@ def _grouped_pool(index: DeviceIndex, plan: DevicePlan, q_comps, q_vals,
     else:
         top_scores, sel = torch.topk(pv, pool, dim=1)
     return done(top_scores, sel, pool)
+
+
+def _stream_budget(index: DeviceIndex, plan: DevicePlan, qloc, pair_scale,
+                   frac: float, NSUP: int):
+    """The streaming budget (`seismic_tpu/search/grouped.py:813-846`):
+    work item w's priority is max over its group's slots m of qloc[g_w, m]
+    . super_summary[region_w] (bf16 operands, f32 sums; the i8 slots
+    re-scaled by their pair's scale) times the super-tile's scale; the
+    top max(128, round(frac * W_cap)) items (ties to the lower index, as
+    `lax.top_k`) are kept in work-list order. Padding items point at the
+    all-zero region, priority 0. Returns (work_region, work_g, work_s of
+    the kept items, streamed bool [G_cap, NSUP]: the super-tiles
+    scored)."""
+    G_cap, M, _ = qloc.shape
+    W_cap = plan.work_region.shape[0]
+    region = plan.work_region.long()
+    wg = plan.work_g.long()
+    ub = index.super_summary[region].to(torch.bfloat16).float()  # [W, V]
+    qg = qloc[wg].to(torch.bfloat16).float()  # [W, M, V]
+    # bf16 products are exact in f32; TF32 off keeps them so on the card
+    with full_f32():
+        pr_wm = torch.bmm(qg, ub[:, :, None])[..., 0]  # [W_cap, M]
+    del qg, ub
+    if pair_scale is not None:
+        # i8 slots are in per-pair quantized units: re-apply each slot's
+        # scale so priorities compare across the pairs of a group
+        slot_scale = pair_scale[plan.slot_pair.long()].reshape(G_cap, M)
+        pr_wm = pr_wm * slot_scale[wg]
+    pr = pr_wm.amax(dim=1) * index.super_scale[region]
+    Wb = min(max(128, int(round(frac * W_cap))), W_cap)
+    keep = torch.sort(_top_k(pr, Wb)[1]).values  # group-major order
+    work_region = plan.work_region[keep]
+    work_g = plan.work_g[keep]
+    work_s = plan.work_s[keep]
+    # lax's mode="drop": a slot past NSUP goes to a dump column, cut off
+    streamed = torch.zeros((G_cap, NSUP + 1), dtype=torch.bool,
+                           device=qloc.device)
+    streamed[work_g.long(), work_s.clamp(max=NSUP).long()] = True
+    return work_region, work_g, work_s, streamed[:, :NSUP]
 
 
 def _dedup_with_payload(scores, ids, payload, n_docs: int):
@@ -789,6 +938,7 @@ def _grouped_tail(index, params, q_comps, q_vals, top_c, top_v, sc,
             ids2 = torch.gather(dids, 1, pos2)
         if params.stop_after == "prerank":
             return t2, ids2
+        approx2 = t2
         exact = rescore_exact(index, ids2, top_c, top_v, sc,
                               chunk_r=params.rescore_chunk)
         t2 = torch.where(torch.isfinite(t2), exact, -torch.inf)
@@ -823,7 +973,29 @@ def _grouped_tail(index, params, q_comps, q_vals, top_c, top_v, sc,
                 index, SearchParams(k=k, n_knn=params.n_knn), qd,
                 out_scores, out_ids)
     out_ids = torch.where(torch.isfinite(out_scores), out_ids.long(), -1)
+    if params.return_margin:
+        return out_scores, out_ids, _margin_diag(approx2, exact, top_scores,
+                                                 out_scores[:, k - 1])
     return out_scores, out_ids
+
+
+def _margin_diag(approx2, exact, top_scores, kth):
+    """Per-query pool-truncation diagnostics f32 [B, 5] (`seismic_tpu/
+    search/grouped.py:1243-1270`): a doc the pool missed has an approx
+    score under the pool bottom, and an exact one at most the bottom plus
+    this query's approx -> exact gap. Columns: 0 the kth exact score, 1
+    the pool bottom (-inf when the pool was not filled), 2 the mean and 3
+    the max exact - approx gap over the rescored set, 4 the score range
+    of the pool's bottom quarter."""
+    finite2 = torch.isfinite(approx2) & torch.isfinite(exact)
+    cnt = finite2.sum(dim=1).clamp(min=1)
+    gap = torch.where(finite2, exact - approx2, 0.0)
+    bias_mean = gap.sum(dim=1) / cnt
+    bias_max = torch.where(finite2, gap, -torch.inf).amax(dim=1)
+    pool_bottom = top_scores[:, -1]
+    q4range = top_scores[:, (3 * top_scores.shape[1]) // 4] - pool_bottom
+    return torch.stack([kth, pool_bottom, bias_mean, bias_max, q4range],
+                       dim=1)
 
 
 def _to_numpy(t):
@@ -842,18 +1014,18 @@ def search_grouped(
 ):
     """Convenience wrapper: plan on the host (the C++ planner), execute on
     the index's device, numpy out (with `stop_after`, the named stage's
-    output twice)."""
-    _check_supported(params)
+    output twice; with `return_margin`, the diagnostics third)."""
+    _check_supported(params, index)
     dev = index.device
     plan = plan_grouped(q_comps, q_vals, ctx, query_cut, M=M)
     dplan = DevicePlan.put(plan, dev)
-    scores, ids = _grouped_impl(
+    out = _grouped_impl(
         index, dplan,
         torch.from_numpy(np.ascontiguousarray(q_comps, np.int32)).to(dev),
         torch.from_numpy(np.ascontiguousarray(q_vals, np.float32)).to(dev),
         params,
     )
-    return _to_numpy(scores), _to_numpy(ids)
+    return tuple(_to_numpy(t) for t in out)
 
 
 def search_grouped_derive(index: DeviceIndex, q_comps, q_vals,
@@ -861,33 +1033,37 @@ def search_grouped_derive(index: DeviceIndex, q_comps, q_vals,
                           G_cap: int, W_cap: int, zero_region: int,
                           weighted: bool = False):
     """One device program: the plan derived on the device from the queries
-    (`derive_plan_device`), then the grouped search (the JAX package's
-    `search_grouped_derive_jit`). q_comps int32 / q_vals f32 [B, Q] are
-    tensors on the index's device; (G_cap, W_cap) come from `plan_caps`.
-    Returns (scores f32 [B, k], ids int64 [B, k]) on the device, without
-    a host sync."""
-    if weighted:
-        raise NotImplementedError(
-            "weighted=True: the weighted list cut (ROADMAP.md, modules to "
-            "port, item 2f)")
-    _check_supported(params)
+    (`derive_plan_device`, with the weighted list cut when `weighted`),
+    then the grouped search (the JAX package's `search_grouped_derive_jit`).
+    q_comps int32 / q_vals f32 [B, Q] are tensors on the index's device;
+    (G_cap, W_cap) come from `plan_caps` (with the same `weighted`).
+    Returns (scores f32 [B, k], ids int64 [B, k]) on the device, and the
+    diagnostics f32 [B, 5] with `return_margin`, without a host sync."""
+    _check_supported(params, index)
     dev = index.device
     if not (torch.is_tensor(q_comps) and torch.is_tensor(q_vals)
             and q_comps.device == dev and q_vals.device == dev):
         raise ValueError("q_comps / q_vals must be tensors on the index's "
                          f"device ({dev})")
     plan = derive_plan_device(index, q_comps, q_vals, query_cut, M, G_cap,
-                              W_cap, zero_region)
+                              W_cap, zero_region, weighted=weighted)
     return _grouped_impl(index, plan, q_comps, q_vals, params)
 
 
 def plan_caps(q_comps, q_vals, ctx: PlannerContext, query_cut: int,
               M: int = 8, weighted: bool = False):
     """Host-side (G_cap, W_cap) for the device-derived plan: exact G and W
-    from the C++ planner, rounded to the planner's buckets."""
+    from the C++ planner, rounded to the planner's buckets. With
+    `weighted`, the values are scaled by the list weights first, so the
+    planner's top-QC is the weighted selection of `derive_plan_device`
+    (validity, v > 0, is kept: the weights are >= 0)."""
     if weighted:
-        raise NotImplementedError(
-            "weighted=True: the weighted list cut (ROADMAP.md, modules to "
-            "port, item 2f)")
+        if ctx.list_weight is None:
+            raise ValueError("weighted caps need ctx.list_weight")
+        q_comps = np.asarray(q_comps)
+        w = np.where((q_comps >= 0) & (q_comps < ctx.n_lists),
+                     ctx.list_weight[np.clip(q_comps, 0, ctx.n_lists - 1)],
+                     0.0)
+        q_vals = np.asarray(q_vals) * w
     p = plan_grouped(q_comps, q_vals, ctx, query_cut, M=M)
     return p.G_cap, p.W_cap

@@ -16,7 +16,12 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..data.sparse import PAD_COMPONENT
-from ..ops.tiles_prep import SUB, ll_pad_for, tile_region_starts
+from ..ops.tiles_prep import (
+    SUB,
+    ll_pad_for,
+    packed_region_layout,
+    tile_region_starts,
+)
 from ..types import _list_weights
 
 
@@ -43,19 +48,30 @@ class PlannerContext:
     @staticmethod
     def from_arrays(arrays, region_start=None, csub: int = 1):
         """Build from IndexArrays (+ the aligned-layout region starts that
-        `prepare_pallas_tiles` computes). Bin-packed block views are not
-        served by this package yet (`tile_region_starts` raises)."""
-        if region_start is None:
-            region_start = tile_region_starts(arrays, csub)
-        list_len = arrays.list_len.astype(np.int64)
-        n_tiles = np.maximum(1, -(-list_len // SUB))
-        if csub > 1:
-            n_tiles = csub * (-(-n_tiles // csub))
-        n_sub_total = int(
-            region_start[-1] + n_tiles[-1]
-            if len(region_start)
-            else 0
-        )
+        `prepare_pallas_tiles` computes).
+
+        Bin-packed views (arrays.pack_bins) get the same EFFECTIVE list
+        geometry the DeviceIndex serves — list_len := row_off + len,
+        list_post_start := start - row_off — so the planners (NumPy, C++
+        and the device-derived plan) emit packed-correct plans
+        unchanged."""
+        packed = arrays.pack_bins
+        row_off = None
+        if packed:
+            region_start, row_off, n_sub_total = packed_region_layout(
+                arrays.list_len, csub)
+        else:
+            if region_start is None:
+                region_start = tile_region_starts(arrays, csub)
+            list_len = arrays.list_len.astype(np.int64)
+            n_tiles = np.maximum(1, -(-list_len // SUB))
+            if csub > 1:
+                n_tiles = csub * (-(-n_tiles // csub))
+            n_sub_total = int(
+                region_start[-1] + n_tiles[-1]
+                if len(region_start)
+                else 0
+            )
         # pallas_align_doc_tiles pads ll_pad rows of zeros at the tail; the
         # last super-tile of the buffer is guaranteed zero.
         total_sub = (
@@ -71,6 +87,9 @@ class PlannerContext:
             )
         ll = np.asarray(arrays.list_len, np.int32)
         ps = np.asarray(arrays.list_post_start, np.int32)
+        if row_off is not None:
+            ll = ll + row_off
+            ps = ps - row_off
         return PlannerContext(
             list_region_start=np.asarray(region_start, np.int32),
             list_len=ll,

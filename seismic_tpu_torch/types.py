@@ -8,7 +8,10 @@ tensors (`DeviceIndex`):
 - the list-aligned doc tiles, u8 `[rows, V]`, with one f32 scale per row
   (the TPU layout's int8 view and 8x-replicated scale blocks were Mosaic
   constraints and are not carried over);
-- the per-list local vocabularies (`vocab16`, int16 with -1 padding);
+- the per-list local vocabularies (`vocab16`, int16 with -1 padding;
+  none for hashed tiles, `tile_hash`), each list's max posting value
+  (`list_weight`, the weighted list cut) and, on request, per-super-tile
+  upper bounds of the tiles (`super_summary`, the streaming budget);
 - the forward rows read by the exact rescore, in one of two forms: the
   fused rows `fwd_fused` `[n_docs, 2W]` int32 (component ids | f32 value
   bits), or, for an index with u8 values (`fwd_val_min` set: the lean
@@ -16,7 +19,8 @@ tensors (`DeviceIndex`):
   the u8 codes `fwd_vals` and each document's f32 `fwd_val_min` /
   `fwd_val_step` (value = code * step + min), with no fused rows and no
   int32 ids;
-- the posting array and the list geometry;
+- the posting array and the list geometry (effective, with each list's
+  row offset `list_row_off`, on bin-packed views);
 - what the engine path reads on top of those, each `None` when the build
   left it out: the block geometry, the dense and the u8 CSR block
   summaries, each posting's block index within its list, the per-posting
@@ -354,7 +358,8 @@ class IndexArrays:
 
     # ------------------------------------------------------------- device
     def to_device(self, device=None, tile_csub: int = 1,
-                  vocab_residue: int = 0) -> "DeviceIndex":
+                  vocab_residue: int = 0, tile_hash: int = 0,
+                  super_summaries: bool = False) -> "DeviceIndex":
         """Upload what the search routes read to `device` (None means
         "cuda"; raises when CUDA is absent rather than falling back to the
         CPU). Builds the list-aligned tile layout on the host when the
@@ -362,19 +367,31 @@ class IndexArrays:
         work item (every list's region padded to a multiple of them), as
         in the JAX package. `vocab_residue=R` first reorders every list's
         vocabulary and tile columns into R residue groups for the bucketed
-        projection kernel (upload time only). Fields the build left out
-        stay `None`."""
+        projection kernel (upload time only). `tile_hash=V` marks tiles
+        that `ops/tiles_prep.py::hash_retile` (or a hashed block view)
+        made V wide: the grouped route then projects once per query, and
+        no vocabulary is uploaded. `super_summaries` adds the per-super-tile
+        upper bounds of the streaming budget (`super_summary` /
+        `super_scale`, computed on the device from the uploaded layout);
+        refused on bin-packed views, whose bins mix lists. A bin-packed
+        view (`pack_bins`) is served with its EFFECTIVE geometry, as in
+        the JAX package: `list_row_off` holds each list's row offset in
+        its bin, `list_len` is row_off + len and `list_post_start` is
+        start - row_off, so every planner works on it unchanged. Fields
+        the build left out stay `None`."""
         import torch
 
         from .ops.tiles_prep import (
             prepare_pallas_tiles,
             residue_permute_arrays,
+            super_tile_summaries,
         )
         from .device import resolve_device
 
         if vocab_residue and self.vocab_residue == 0:
             return residue_permute_arrays(self, vocab_residue).to_device(
-                device, tile_csub)
+                device, tile_csub, tile_hash=tile_hash,
+                super_summaries=super_summaries)
         dev = resolve_device(device)
         if tile_csub < 1:
             raise ValueError(f"tile_csub={tile_csub} must be >= 1")
@@ -391,6 +408,15 @@ class IndexArrays:
                 "forward form reads u8 codes only (ROADMAP.md, modules to "
                 "port, item 5b)"
             )
+        if tile_hash and (self.doc_tiles is None
+                          or self.doc_tiles.shape[1] != tile_hash):
+            raise ValueError("tile_hash requires hash_retile'd doc tiles of "
+                             "that width")
+        if super_summaries and (self.doc_tiles is None or self.pack_bins):
+            raise ValueError(
+                "super_summaries=True needs doc tiles, and is unsupported on "
+                "bin-packed (pack_bins) views: super-tile bounds would mix "
+                "bin-mates' rows")
 
         def put(a, dtype=None):
             if a is None:
@@ -399,14 +425,16 @@ class IndexArrays:
                                      np.asarray(a, dtype=dtype))
             return torch.from_numpy(a).to(dev)
 
-        tiles_u8 = tile_scale = region_start = None
+        tiles_u8 = tile_scale = region_start = row_off = None
         if self.doc_tiles is not None:
-            tiles_u8, tile_scale, region_start = prepare_pallas_tiles(
-                self, tile_csub)
+            tiles_u8, tile_scale, region_start, row_off = (
+                prepare_pallas_tiles(self, tile_csub))
         lv = self.list_vocab
-        if lv is not None:
+        if lv is not None and not tile_hash:
             lv = np.asarray(lv)
             lv = np.where(lv == PAD_COMPONENT, -1, lv)
+        else:
+            lv = None  # hashed tiles never read the vocabulary
         fc = np.asarray(self.fwd_comps, dtype=np.int32)
         fwd = {}
         if self.fwd_val_min is None:
@@ -422,15 +450,36 @@ class IndexArrays:
                 fwd_vals=put(self.fwd_vals, np.uint8),
                 fwd_val_min=put(self.fwd_val_min, np.float32),
                 fwd_val_step=put(self.fwd_val_step, np.float32))
+        list_weight = None
+        if (self.doc_tile_scale is not None
+                and self.list_post_start is not None):
+            # per-list max posting value (code 255 * row scale): the
+            # weighted list cut ranks lists by value * list_weight
+            list_weight = _list_weights(np.asarray(self.doc_tile_scale),
+                                        np.asarray(self.list_post_start),
+                                        np.asarray(self.list_len))
+        ll = np.asarray(self.list_len, np.int32)
+        ps = np.asarray(self.list_post_start, np.int32)
+        if row_off is not None:
+            ll, ps = row_off + ll, ps - row_off
+        tiles_t, scale_t = put(tiles_u8), put(tile_scale)
+        sup = sup_scale = None
+        if super_summaries:
+            sup, sup_scale = super_tile_summaries(tiles_t, scale_t,
+                                                  tile_csub)
         return DeviceIndex(
-            doc_tiles_aligned=put(tiles_u8),
-            tile_scale=put(tile_scale),
+            doc_tiles_aligned=tiles_t,
+            tile_scale=scale_t,
             list_region_start=put(region_start, np.int32),
             vocab16=put(lv, np.int16),
             **fwd,
             postings=put(self.postings, np.int32),
-            list_post_start=put(self.list_post_start, np.int32),
-            list_len=put(self.list_len, np.int32),
+            list_post_start=put(ps),
+            list_len=put(ll),
+            list_row_off=put(row_off),
+            list_weight=put(list_weight),
+            super_summary=sup,
+            super_scale=sup_scale,
             block_start=put(self.block_start, np.int32),
             block_len=put(self.block_len, np.int32),
             list_block_start=put(self.list_block_start, np.int32),
@@ -452,6 +501,7 @@ class IndexArrays:
             max_list_len=self.max_list_len,
             tile_csub=tile_csub,
             vocab_residue=self.vocab_residue,
+            tile_hash=tile_hash,
         )
 
 
@@ -464,10 +514,21 @@ class DeviceIndex:
     tile_scale: object  # f32 [n_sub_total * 128] dequant scale per row
     # int32 [n_lists] subtile start of each list (a multiple of tile_csub)
     list_region_start: object
-    vocab16: object  # int16 [n_lists, V] (-1 padded)
+    vocab16: object  # int16 [n_lists, V] (-1 padded); None when hashed
     postings: object  # int32 [total_postings_pad] doc ids
-    list_post_start: object  # int32 [n_lists]
-    list_len: object  # int32 [n_lists]
+    # int32 [n_lists]; EFFECTIVE on bin-packed views (start - row_off,
+    # row_off + len)
+    list_post_start: object
+    list_len: object
+    # int32 [n_lists] row offset of each list in its bin (bin-packed
+    # views only; the grouped route masks the rows before it)
+    list_row_off: object = None
+    # f32 [n_lists] max posting value of each list (the weighted cut)
+    list_weight: object = None
+    # u8 [n_super, V] / f32 [n_super] per-super-tile upper bounds
+    # (to_device(super_summaries=True), the streaming budget)
+    super_summary: object = None
+    super_scale: object = None
     # --- the forward rows: fused, or the lean u8 form (the other None) ---
     fwd_fused: object = None  # int32 [n_docs, 2W]: comps | f32 value bits
     fwd_comps16: object = None  # int16 [n_docs, W], -1 padded
@@ -498,6 +559,8 @@ class DeviceIndex:
     tile_csub: int = 1
     # > 0: vocab16 and the tile columns are residue-R ordered
     vocab_residue: int = 0
+    # > 0: the tiles are hashed, column = component mod tile_hash
+    tile_hash: int = 0
 
     @property
     def device(self):

@@ -14,8 +14,12 @@ against the JAX package, all on the CPU, on one synthetic u8 index
 - `SeismicIndexDotVByte` on the block-pool route against JAX's class with
   `SEISMIC_BLOCK_POOL=force` (the JAX package's own test hook), and on
   the engine path (a block budget) against JAX's engine, the same gate;
+- the hashed block rows, the bin-packed view (and its aligned layout)
+  and the hashed upload of an index without dense summaries equal to
+  JAX's, and `SeismicIndexDotVByte` built without dense summaries on the
+  hashed block route against JAX's class;
 - the lean upload, the engine's exact scores on it, `build_knn` refused,
-  and what is not ported raising with its ROADMAP item."""
+  and u16 codes raising with their ROADMAP item."""
 
 import dataclasses
 import json
@@ -339,21 +343,112 @@ def test_dotvbyte_refuses_build_knn(setup):
 @pytest.mark.parametrize("case", ["hash", "pack_bins", "no_dense",
                                   "u16_codes"])
 def test_unported_parts_raise(setup, case):
-    """The hashed block rows (2f), the bin-packed regions (2c) and u16
-    codes beside a per-doc min / step (5b) raise naming their ROADMAP
-    items; an index without dense summaries reaches the hashed view on
-    the API route and raises the same way."""
-    _, _, ta, _, _ = setup
-    item = {"pack_bins": "2c", "u16_codes": "5b"}.get(case, "2f")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*item {item}"):
-        if case == "u16_codes":
+    """The hashed block rows, the bin-packed view and an index without
+    dense summaries (which the API route serves on the hashed view) equal
+    the JAX package's: the views array for array, the packed aligned
+    layout with its row offsets, the hashed block upload. u16 codes
+    beside a per-doc min / step (ROADMAP item 5b) still raise."""
+    from seismic_tpu.ops.pallas_tiles import block_pool_arrays as j_view
+    from seismic_tpu.ops_pallas_prep import prepare_pallas_tiles as j_prep
+
+    _, ja, ta, _, _ = setup
+    if case == "u16_codes":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5b"):
             dataclasses.replace(
                 ta, fwd_vals=ta.fwd_vals.astype(np.uint16)).to_device("cpu")
-        elif case == "hash":
-            tiles_prep.block_pool_arrays(ta, 128, mode="hash")
-        elif case == "pack_bins":
-            tiles_prep.block_pool_arrays(ta, 256, pack_bins=True)
-        else:
-            port.SeismicIndexDotVByte(
-                dataclasses.replace(ta, dense_summary=None),
-                device="cpu").block_device_index()
+        return
+    if case == "no_dense":
+        import seismic_tpu as jax_pkg
+
+        jix = jax_pkg.SeismicIndexDotVByte(
+            dataclasses.replace(ja, dense_summary=None))
+        jix._block_V = 128
+        tix = port.SeismicIndexDotVByte(
+            dataclasses.replace(ta, dense_summary=None), device="cpu")
+        tix._block_V = 128
+        jd = jix._block_device_index()
+        td, tctx, E = tix.block_device_index()
+        assert td.tile_hash == jd.tile_hash == 128 and td.vocab16 is None
+        assert E == ja.max_block_len
+        np.testing.assert_array_equal(
+            td.doc_tiles_aligned.numpy(),
+            np.asarray(jd.doc_tiles_aligned).view(np.uint8))
+        np.testing.assert_array_equal(tctx.list_len, jix._block_ctx.list_len)
+        return
+    kw = (dict(V=128, mode="hash") if case == "hash"
+          else dict(V=256, pack_bins=True))
+    jv = j_view(ja, order_members=True, **kw)
+    tv = tiles_prep.block_pool_arrays(ta, order_members=True, **kw)
+    for f in dataclasses.fields(jv):
+        a, b = getattr(tv, f.name), getattr(jv, f.name)
+        if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+            np.testing.assert_array_equal(a, np.asarray(b), err_msg=f.name)
+        elif f.name != "config":
+            assert a == b, f.name
+    j_tiles, j_scale, j_region, j_off = j_prep(jv, 2)
+    t_tiles, t_scale, t_region, t_off = tiles_prep.prepare_pallas_tiles(tv,
+                                                                        2)
+    np.testing.assert_array_equal(t_tiles, j_tiles.view(np.uint8))
+    np.testing.assert_array_equal(t_scale, j_scale[:, 0, :].reshape(-1))
+    np.testing.assert_array_equal(t_region, j_region)
+    assert (t_off is None) == (j_off is None) == (case == "hash")
+    if t_off is not None:
+        np.testing.assert_array_equal(t_off, j_off)
+
+
+def test_dotvbyte_hashed_api_matches_jax(setup, tmp_path, monkeypatch):
+    """`SeismicIndexDotVByte` built with `summary_vocab_cap=0` (no dense
+    summaries: the block route runs on the hashed view of the CSR
+    summaries, one projection row per query) from a JSONL against JAX's
+    class on its block route (`SEISMIC_BLOCK_POOL=force`): the same gate
+    as the dense route, every score the exact dot of the decoded u8
+    row. The build keeps a one-column placeholder of dense summaries,
+    which JAX's API takes for dense rows and fails on (`assert V % 128
+    == 0`), so JAX's class gets the same arrays without it, which it
+    serves on its hashed view."""
+    import seismic_tpu as jax_pkg
+
+    ds, _, _, qc, qv = setup
+    path = str(tmp_path / "docs.jsonl")
+    _write_jsonl(ds, path)
+
+    class JNarrow(jax_pkg.SeismicIndexDotVByte):
+        _block_V = 128
+
+    class TNarrow(port.SeismicIndexDotVByte):
+        _block_V = 128
+
+    layout = dict(LAYOUT, summary_vocab_cap=0)
+    kw = dict(n_postings=100, max_fraction=1.5)
+    j_index = JNarrow.build(path, layout=jax_pkg.TpuLayout(**layout), **kw)
+    t_index = TNarrow.build(path, layout=TpuLayout(**layout), device="cpu",
+                            **kw)
+    assert t_index.arrays.dense_summary.shape[1] == 1  # the placeholder
+    j_index = JNarrow(dataclasses.replace(j_index.arrays, dense_summary=None),
+                      j_index._doc_ids, j_index._token_to_id,
+                      j_index._contents)
+    tq = [np.array([f"t{c}" for c in q], dtype="U30") for q in qc]
+    qids = np.array([f"q{i}" for i in range(len(qc))], dtype="U30")
+    monkeypatch.setenv("SEISMIC_BLOCK_POOL", "force")
+    j_res = j_index.batch_search(qids, tq, qv, k=K, query_cut=QC,
+                                 heap_factor=0.7)
+    t_res = t_index.batch_search(qids, tq, qv, k=K, query_cut=QC,
+                                 heap_factor=0.7)
+    s_t, i_t = _as_arrays(t_res)
+    _assert_gate(s_t, i_t, *_as_arrays(j_res))
+    bindex = t_index.block_device_index()[0]
+    assert bindex.tile_hash == 128 and bindex.fwd_fused is None
+    a = t_index.arrays
+    vals = (a.fwd_vals.astype(np.float32) * a.fwd_val_step[:, None]
+            + a.fwd_val_min[:, None])
+    tmap = t_index._token_to_id
+    for c, v, srow, irow in zip(qc, qv, s_t, i_t):
+        q = {tmap[f"t{x}"]: y for x, y in zip(c.tolist(), v.tolist())
+             if f"t{x}" in tmap}
+        for sc_, d in zip(srow, irow):
+            if d < 0:
+                continue
+            exact = sum(float(x) * q.get(int(t), 0.0)
+                        for t, x in zip(a.fwd_comps[d], vals[d])
+                        if t != PAD_COMPONENT)
+            assert abs(sc_ - exact) <= 1e-5 * abs(exact), (sc_, exact)

@@ -105,8 +105,8 @@ def test_aligned_tiles_match_jax(built):
 
     ja, ta = built
     tiles_i8, scale3d, region_j, row_off = j_prep(ja, 1)
-    tiles, scale, region = prepare_pallas_tiles(ta, 1)
-    assert row_off is None
+    tiles, scale, region, t_row_off = prepare_pallas_tiles(ta, 1)
+    assert row_off is None and t_row_off is None
     assert tiles.dtype == np.uint8
     assert np.array_equal(tiles, tiles_i8.view(np.uint8))
     # the TPU's [n_sub, 8, 128] replicated scale is one row per tile row

@@ -217,24 +217,19 @@ def test_device_plan_put_keeps_every_field(setup):
     {"stream_frac": 0.5}, {"block_expand": 8, "return_margin": True},
     {"pool_mode": "slot", "kernel_unroll": 2},
     {"compute_dtype": "bf16", "qloc_mode": "rowmajor"},
-    {"return_margin": True},
+    {"return_margin": True, "rescore": 0},
 ])
 def test_other_modes_raise(change):
-    """Modes still to be ported raise NotImplementedError naming their
-    ROADMAP item; values and combinations the JAX package refuses too
-    raise ValueError."""
+    """Values and combinations the JAX package refuses raise ValueError:
+    among them the streaming budget on an index without super summaries,
+    and return_margin with block_expand or without the rescore."""
+    import types
+
     base = _api_params(tgrouped.GroupedParams, K)
     params = dataclasses.replace(base, **change)
-    to_port = {"stream_frac": "item 2f", "return_margin": "item 2f"}
-    # return_margin with block_expand is refused by the JAX package too
-    item = None if "block_expand" in change else next(
-        (v for f, v in to_port.items() if f in change), None)
-    if item:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            tgrouped._check_supported(params)
-    else:
-        with pytest.raises(ValueError, match="grouped search"):
-            tgrouped._check_supported(params)
+    no_super = types.SimpleNamespace(super_summary=None, list_row_off=None)
+    with pytest.raises(ValueError, match="grouped search"):
+        tgrouped._check_supported(params, no_super)
 
 
 def test_engine_path_requests_raise(setup):

@@ -222,9 +222,11 @@ def test_item_major_equals_slot_major(setup, pool_mode, unroll):
 
 def test_slot_major_refuses_csub2(setup, port_index):
     """The slot-major scorer (K2) no longer refuses csub 2: it gives the
-    item-major scorer's results there. The weighted list cut still raises,
-    naming its ROADMAP item."""
-    _, _, _, ctx, q_comps, q_vals = setup
+    item-major scorer's results there. The weighted list cut's caps equal
+    the JAX package's."""
+    from seismic_tpu.search.grouped import plan_caps as j_caps
+
+    _, _, jctx, ctx, q_comps, q_vals = setup
     item = _headline(tgrouped.GroupedParams)
     s_i, i_i = tgrouped.search_grouped(port_index, ctx, q_comps, q_vals,
                                        item, query_cut=QC)
@@ -233,8 +235,8 @@ def test_slot_major_refuses_csub2(setup, port_index):
         dataclasses.replace(item, kernel_unroll=1), query_cut=QC)
     np.testing.assert_array_equal(i_s, i_i)
     np.testing.assert_allclose(s_s, s_i, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 2f"):
-        tgrouped.plan_caps(q_comps, q_vals, ctx, QC, weighted=True)
+    assert (tgrouped.plan_caps(q_comps, q_vals, ctx, QC, weighted=True)
+            == j_caps(q_comps, q_vals, jctx, QC, weighted=True))
 
 
 def test_top_k_tie_order():
