@@ -193,6 +193,42 @@ Phases (any failure exits non-zero, and no result line is printed):
    block route's ids equal the unpacked view's on the 4096 queries
    (scores to 1e-5), the aligned rows' device bytes beside the unpacked
    ones, busy time of both.
+11. drive the forward-row and vocabulary forms, the sketch ranking,
+   `convert` and `FlatTermIndex`: (a) inside phase 4, after phase 10, its
+   forward rows uploaded again half-width (`types.py::fused16_rows`, the
+   rows of `to_device(fwd_f16=True)`; the rest shared), the headline at
+   B=4096/M=8 and B=16384/M=16 (K1, K4, K3-f16 launched, the fused K3
+   never), K3-f16 against its plain version on the path's own operands at
+   both shapes (1e-5), every score the exact dot of the f16-rounded row,
+   recall@10 beside phase 4's, busy and K3 device ms; (c) after phase 5 on
+   its index, block sketches made from the index's CSR summaries as the
+   NumPy build path makes them (the native build keeps none) on the device
+   copy, and the engine at heap_factor 0.8 in gather doc mode with
+   `block_mode="sketch"` and with `cand_budget` 256 and 1024: no hand
+   kernel, no host sync (one fails), every score exact, recall@10 on 256
+   queries recorded with no floor, the sketch products' device ms; (b, e)
+   after phase 9 on phase 3's corpus: `convert("u8")`, `convert("u16")`
+   and `convert("f16")` of a second instance over phase 3's arrays, each
+   on the 4096 queries at heap_factor 0 (K3-u8, K3-u16, K3 fused), every
+   score the exact dot of the decoded row, the lean forms against their
+   plain versions on the path's operands, recall@10 beside phase 3's,
+   device bytes; `FlatTermIndex` of the corpus (3.05 GB u8) on 256
+   queries: top-10 agreement with `exact_search` >= 0.9 and scores within
+   2% of the exact dots (u8 quantization), wall time; (d) last, every
+   earlier index freed: `SeismicIndexRawLV.build_from_csr` on
+   `synth_dataset(n, dim=250_002, seed=7)` (XLM-RoBERTa's vocabulary, BGE-
+   M3's sparse head) at the API cell's pruning and layout with
+   summary_vocab_cap 512, its bytes printed first; 4096 queries at
+   heap_factor 0 (K1 on the int32 vocabulary, K2, K3), K1 and K8 on int32
+   rows bit-exact against their plain versions on the route's operands,
+   the row-major projection's batch (K8 on int32 rows) equal to the
+   lane-major one, every score exact, the kernel path against the
+   plain-scorer path on 256 queries (id sets >= 98%), recall@10 against a
+   brute-force product; `convert("u8")` and the same batch (K3 on int32
+   ids beside u8 codes, against its plain version); one engine batch at
+   heap_factor 0.8 (K7). Every rescore_lean_kernel instance's ptxas report
+   (twenty: five forms x two load variants x two contracts) is read in
+   phase 9; a spill fails.
 
 Every profiler window (phases 3-10) is taken after one warm-up call of
 what it profiles and is read only where it holds that phase's hand
@@ -202,14 +238,16 @@ residue batch, K3 for phase 8c, K1 / K2 / K3-u8 for phase 9; up to three
 windows): where none holds them, the busy time and the idle share are
 recorded as null.
 
-Every one of these windows sets the launch counts of all nineteen wrappers
-to 0 and reads all nineteen, and fails on a kernel that launched where it
+Every one of these windows sets the twenty-four launch counts (the
+nineteen wrappers, and the phase 11 forms' own counts in the wrappers of
+K1, K3 and K8) to 0 and reads them all, and fails on a kernel that launched where it
 should not; the kernels' record takes `launches` (the kernel's own main
 path) and `launches_api` / `_engine` / `_headline` / `_modes` / `_probe` /
 `_knn_graph` / `_knn` / `_api_classes` / `_dotvbyte` / `_dotvbyte_engine`
 / `_dotvbyte_knn` / `_knn_headline` / `_hashed` / `_stream_75` /
 `_stream_50` / `_weighted` / `_margin` / `_twopass` / `_dotvbyte_hashed` /
-`_packed` from those readings.
+`_packed` / `_fwd16` / `_convert_*` / `_sketch_*` / `_flat` / `_lv*` from
+those readings.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -319,19 +357,34 @@ def sass_of(lib: str):
     return out
 
 
-# the nineteen kernel wrappers, in the order of the `kernels` line: K1-K9
-# each with a module of its own, K10-K18 in `ops/probe_kernels.py`, then
-# K3's u8 form (its own count in `ops/rescore.py`)
+# the twenty-four kernel wrappers' counts, in the order of the `kernels`
+# line: K1-K9 each with a module of its own, K10-K18 in
+# `ops/probe_kernels.py`, then K3's u8 form (its own count in
+# `ops/rescore.py`), then the forms of phase 11: K3 on half-width rows, on
+# u16 codes and on int32 ids, K1 and K8 on int32 vocabularies (each a
+# count of its own in its module)
 COUNTED = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
            "score_tiles", "pack_epilogue", "score_grouped_f", "qloc_rowmajor",
            "qloc_residue", "table_take", "row_gather", "compare_intersect",
            "u8_matvec", "take_along_axis", "flat_row_gather",
-           "compare_term_loop", "i8_matmul", "tile_matvec", "rescore_u8")
+           "compare_term_loop", "i8_matmul", "tile_matvec", "rescore_u8",
+           "rescore_f16", "rescore_u16", "rescore_i32", "qloc_i32",
+           "qloc_rowmajor_i32")
+# K3-u8's instances of the lean kernel template, by their mangled names
+# (rescore.cu: rescore_lean_kernel<Form<false, Val::kU8, 4>, ...>)
+U8_FORM_MANGLED = "rescore_lean_kernelINS_4FormILb0ELNS_3ValE0E"
+# the phase 11 forms, each with its count in the module of row 1, 3 or 8
+FORM_COUNTS = {"rescore_f16": ("rescore", "launches_f16"),
+               "rescore_u16": ("rescore", "launches_u16"),
+               "rescore_i32": ("rescore", "launches_i32"),
+               "qloc_i32": ("qloc", "launches_i32"),
+               "qloc_rowmajor_i32": ("qloc_rowmajor", "launches_i32")}
 PROBE_KERNELS = COUNTED[9:18]
 
 
 def _counted_modules() -> dict:
-    """{wrapper: (module, name of its count)} of K1-K9 and K3's u8 form."""
+    """{wrapper: (module, name of its count)} of K1-K9, K3's u8 form and
+    the phase 11 forms."""
     import importlib
 
     from seismic_tpu_torch import ops
@@ -343,6 +396,8 @@ def _counted_modules() -> dict:
     out = {n_: (importlib.import_module(f"{ops.__name__}.{f_}"), "launches")
            for n_, f_ in files.items()}
     out["rescore_u8"] = (out["rescore"][0], "launches_u8")
+    for n_, (row, attr) in FORM_COUNTS.items():
+        out[n_] = (out[row][0], attr)
     return out
 
 
@@ -432,7 +487,8 @@ def check_k1(a1, tag: str, reps: int = 20):
     # bytes: each distinct vocab row once, the pair list, the terms, the
     # int8 output and the scales; operations: one lookup a slot (the
     # former design's compare of every slot with every term beside it)
-    nbytes = (torch.unique(pair_list).numel() * V * 2 + P * 4
+    nbytes = (torch.unique(pair_list).numel() * V * vocab16.element_size()
+              + P * 4
               + top_c.numel() * 8 + P * V + P * 4)
     b, bb = bound(nbytes, float(P * V), PEAK_F32)
     compare_ops = 2.0 * V * QC * float(n_terms.sum().item())
@@ -713,8 +769,8 @@ def align_pair_order(host, derived):
 def headline_path(ds, dev, record, kernels, graph) -> dict:
     """Phase 4: the bench headline path through `plan_caps` and
     `search_grouped_derive` on an index that carries `graph` (phase 8a's);
-    returns K4's record and leaves the path's launch counts of all
-    nineteen kernels in `record["launch_windows"]["headline"]`. Phases 6
+    returns K4's record and leaves the path's twenty-four launch counts
+    in `record["launch_windows"]["headline"]`. Phases 6
     and 8 (c, d) run inside it, on its index."""
     import torch
 
@@ -1050,6 +1106,12 @@ def headline_path(ds, dev, record, kernels, graph) -> dict:
              q_comps=q_comps, q_vals=q_vals, qcB=qcB, qvB=qvB,
              qc_np=qcn[0], qv_np=qvn[0], qc_t=qcd[0], qv_t=qvd[0], gt=gt,
              ids_headline=i4[:BATCH], rec16=rec16), dev, record, kernels)
+
+    # ---- phase 11a: the half-width forward rows, on this index ----
+    half_width_path(
+        dict(arrays=arrays, dindex=dindex, ctx=ctx, gt=gt, qcn=qcn, qvn=qvn,
+             qcd=qcd, qvd=qvd, qcB=qcB, qvB=qvB, gcB=gcB, wcB=wcB,
+             rec16=rec16), dev, record)
     del docs, arrays
     gc.collect()
     torch.cuda.empty_cache()
@@ -1131,7 +1193,7 @@ F32_VS_I8_FLOOR = 0.98
 def modes_path(env, dev, record, kernels) -> list:
     """Phase 6: the grouped-search modes of K5, K6, K8 and K9 on the
     headline cell's index, one B=4096 / M=8 batch; returns the four new
-    kernels' records and leaves the phase's launch counts of all nineteen
+    kernels' records and leaves the phase's launch counts of all twenty-four
     kernels in `record["launch_windows"]["modes"]`."""
     import dataclasses
 
@@ -1709,7 +1771,7 @@ def exact_scores_err(docs, qc_t, qv_t, s_, i_) -> float:
 
 
 def counted(what: str, key: str, record, fn, positive, exact=None):
-    """fn() between a zero and a read of all nineteen launch counts, held
+    """fn() between a zero and a read of all twenty-four launch counts, held
     to `positive` / `exact`; the counts go to record's window `key`.
     Returns (fn's output, wall ms with a synchronise, the counts)."""
     import torch
@@ -2467,7 +2529,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
 def probe_path(dev, record) -> list:
     """Phase 7: the device probe's `run` on the card at the JAX probes'
     own sizes (each of K10-K18 held against its plain version inside its
-    probe), the launch counts of all nineteen wrappers set to 0 before and
+    probe), the launch counts of all twenty-four wrappers set to 0 before and
     read after, K11 / K15's readings and diagnostics (`row_gather_probe.
     readings`) after that window, then the microbench once. Returns
     K10-K18's records."""
@@ -2621,13 +2683,13 @@ def fwd_csr(arrays, dev):
               + np.asarray(arrays.fwd_val_min, np.float32)[:, None])
     return torch.sparse_csr_tensor(
         torch.from_numpy(crow), torch.from_numpy(fc[real].astype(np.int64)),
-        torch.from_numpy(fv[real]), size=(len(fc), DIM)).to(dev)
+        torch.from_numpy(fv[real]), size=(len(fc), arrays.dim)).to(dev)
 
 
 def exact_of(docs, qc_t, qv_t, ids):
     """Exact dots of each query (padded qc_t int32 / qv_t f32 [B, Q] on
     the card) with its result docs ids [B, k] (>= 0): the brute-force
-    sparse x dense product, 2048 queries at a time."""
+    sparse x dense product, 2048 queries at a time, over docs' columns."""
     import torch
 
     from seismic_tpu_torch.data.sparse import PAD_COMPONENT
@@ -2638,7 +2700,8 @@ def exact_of(docs, qc_t, qv_t, ids):
         n = qc.shape[0]
         ok = qc != int(PAD_COMPONENT)
         col = torch.arange(n, device=qc.device)[:, None].expand_as(qc)
-        qd = torch.zeros((DIM, n), dtype=torch.float32, device=qc.device)
+        qd = torch.zeros((docs.shape[1], n), dtype=torch.float32,
+                         device=qc.device)
         qd[qc[ok].long(), col[ok]] = qv[ok]
         out.append(torch.sparse.mm(docs, qd).t().gather(1, ids[c0:c0 + n]))
         del qd
@@ -3015,7 +3078,7 @@ def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
 
     # ---- K3's u8 form on one batch's own expanded candidates; K1's and
     # K2's operands of the same batch, timed alone below ----
-    wrapped = ((rescore, "score_docs_rowmajor_u8"),
+    wrapped = ((rescore, "score_docs_rowmajor_lean"),
                (grouped, "project_qloc_quantize"),
                (grouped, "score_grouped_i8"))
     calls = {name_: [] for _, name_ in wrapped}
@@ -3037,7 +3100,7 @@ def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
     if any(len(c_) != 1 for c_ in calls.values()):
         fail(f"phase 9: calls in one block-route batch "
              f"{ {n_: len(c_) for n_, c_ in calls.items()} }, not one each")
-    a8, kw8 = calls.pop("score_docs_rowmajor_u8").pop()
+    a8, kw8 = calls.pop("score_docs_rowmajor_lean").pop()
     if kw8 != {"skip_out_of_range": True}:
         fail(f"phase 9: the block-route tail called K3-u8 with {kw8}, not "
              "with the skip of its padding slots")
@@ -3082,16 +3145,22 @@ def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
         f"{k3u8['plain_ms']:.3f} ms in 256-query slices")
     # its ptxas lines (registers, spills) from phase 1's build: both
     # variants, no spill
-    ptx8 = ptxas_of("rescore", "rescore_u8_kernel")
+    # K3-u8 is the instances of rescore_lean_kernel<FormU8, ...>; the
+    # other forms (phase 11) are the same template: twenty instances, five
+    # forms x two load variants x two contracts, none may spill
+    ptx8 = ptxas_of("rescore", U8_FORM_MANGLED)
     if len(ptx8) != 4 or not all(ptx8.values()):
-        fail(f"phase 9: not four ptxas reports of rescore_u8_kernel (two "
-             f"load variants x two contracts): {ptx8}")
+        fail(f"phase 9: not four ptxas reports of K3-u8's rescore_lean_kernel "
+             f"(two load variants x two contracts): {ptx8}")
     k3u8["ptxas"] = ptx8
-    log(f"phase 9: K3-u8 rescore_u8_kernel ptxas: {ptx8}")
-    spills = [ln for lns in ptx8.values() for ln in lns
+    log(f"phase 9: K3-u8 rescore_lean_kernel<FormU8> ptxas: {ptx8}")
+    ptx_all = ptxas_of("rescore", "rescore_lean_kernel")
+    spills = [ln for lns in ptx_all.values() for ln in lns
               if re.search(r"[1-9]\d* bytes spill", ln)]
-    if spills:
-        fail(f"phase 9: rescore_u8_kernel spills: {spills}")
+    if len(ptx_all) != 20 or spills:
+        fail(f"phase 9: {len(ptx_all)} ptxas reports of rescore_lean_kernel "
+             f"(20 expected), spills: {spills}")
+    record["phase11"]["ptxas_rescore_lean"] = ptx_all
     del a8
     torch.cuda.empty_cache()
 
@@ -3194,7 +3263,7 @@ def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
     torch.cuda.empty_cache()
 
     def u8_ms(kern):  # K3-u8's device ms in a profiler window
-        ms = sum(v for k_, v in kern.items() if "rescore_u8_kernel" in k_)
+        ms = sum(v for k_, v in kern.items() if "rescore_lean_kernel" in k_)
         return ms if ms else "not measured"
 
     # ---- where one block-route batch's time goes ----
@@ -3230,7 +3299,7 @@ def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
     # (cold windows lost K1 and K2)
     try:
         prof, kern = profile_held(lambda: _grouped_impl(*args), (
-            "qloc_kernel", "score_grouped_i8_kernel", "rescore_u8_kernel"))
+            "qloc_kernel", "score_grouped_i8_kernel", "rescore_lean_kernel"))
         brk.update(prof, device_idle_share=idle_share(
             prof["device_busy_ms"], brk["device_program_ms"]))
         k3u8["device_ms_in_batch"] = u8_ms(kern)
@@ -3239,7 +3308,7 @@ def dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt, dev,
         for name_, kw_ in (("engine_512", dict(
                 block_budget=DOTV_ENGINE_BUDGET)), ("knn", dict(n_knn=NKNN))):
             _, kern_ = profile_held(lambda kw_=kw_: run(**kw_),
-                                    ("rescore_u8_kernel",))
+                                    ("rescore_lean_kernel",))
             k3u8[f"device_ms_{name_}"] = u8_ms(kern_)
     except NoProfile as e:  # informational only
         brk["profile"] = f"not measured: {e}"
@@ -3301,7 +3370,7 @@ def dotvbyte_rest_path(env, dev, record) -> dict:
     tq, qids, qvals, gt, qc2, qv2 = (env[k_] for k_ in (
         "tq", "qids", "qvals", "gt", "qc2", "qv2"))
     nq = len(gt)
-    hand = ("qloc_kernel", "score_grouped_i8_kernel", "rescore_u8_kernel")
+    hand = ("qloc_kernel", "score_grouped_i8_kernel", "rescore_lean_kernel")
     qct, qvt = torch.from_numpy(qc2).to(dev), torch.from_numpy(qv2).to(dev)
     top_c, top_v, _ = engine._query_terms(qct, qvt, 64)
     docs8 = fwd_csr(arrays, dev)
@@ -3423,6 +3492,658 @@ def dotvbyte_rest_path(env, dev, record) -> dict:
     del pidx, args_p, args_u, docs8
     torch.cuda.empty_cache()
     return rec
+
+
+# ---- phase 11: the forward-row and vocabulary forms, sketches, flat ----
+# the large-vocabulary cell: XLM-RoBERTa's vocabulary, the one BGE-M3's
+# sparse head emits over, at local vocabularies 512 wide
+LV_DIM, LV_V = 250_002, 512
+# K3's tolerance against its plain version (phases 2 and 9)
+K3_RTOL = 1e-5
+# the cand_budget values of phase 11c
+CAND_BUDGETS = (256, 1024)
+
+
+def p11(record, key: str) -> dict:
+    return record.setdefault("phase11", {}).setdefault(key, {})
+
+
+def kernel_ms_of(kern: dict, needle: str):
+    """Device ms of the profiled kernels whose names hold `needle`, or
+    None."""
+    ms = [v for k_, v in kern.items() if needle in k_]
+    return float(sum(ms)) if ms else None
+
+
+def k3_form_bounds(real, ids, qc, entry_bytes, row_extra: int) -> dict:
+    """K3's bounds for one form of the rows: `real` bool [n_docs, W] the
+    real entries, `entry_bytes` the bytes an entry takes in each array
+    the kernel reads (e.g. (4,) half-width words, (2, 1) int16 ids and u8
+    codes), `row_extra` the bytes a row reads beside them ((min, step)).
+    `bound_ms`: each distinct row's real entries once, each array's run
+    rounded up to 32-byte sectors, its extra bytes, the doc ids, the terms
+    and the output, against a lookup and a multiply-add an entry of every
+    row at the f32 rate; `bound_as_scheduled_ms`: every row read once."""
+    import torch
+
+    safe = ids.long().clamp(0, real.shape[0] - 1)
+    nnz = real.sum(-1)
+
+    def row_bytes(n):
+        return sum(int(((n * b + 31) // 32 * 32).sum().item())
+                   for b in entry_bytes) + row_extra * n.numel()
+
+    other = ids.numel() * 8 + qc.numel() * 8
+    nbytes = row_bytes(nnz[torch.unique(safe)]) + other
+    row_nnz = nnz[safe]
+    sched = row_bytes(row_nnz) + other
+    b, bb = bound(nbytes, 2.0 * float(row_nnz.sum().item()), PEAK_F32)
+    return dict(bound_ms=b, bound_by=bb,
+                bound_as_scheduled_ms=sched / PEAK_BYTES * 1e3,
+                bytes=nbytes, bytes_as_scheduled=sched)
+
+
+def keep_calls(module, name: str, n: int):
+    """Wrap module.name so its first n calls' arguments are kept; returns
+    (the kept list, a function restoring the original)."""
+    orig = getattr(module, name)
+    kept = []
+
+    def keeping(*a, **kw):
+        if len(kept) < n:
+            kept.append((a, kw))
+        return orig(*a, **kw)
+
+    setattr(module, name, keeping)
+    return kept, lambda: setattr(module, name, orig)
+
+
+def check_k3_form(a, kw, tag: str, plain_fn, kernel_fn, real, entry_bytes,
+                  row_extra, reps: int = 20) -> dict:
+    """One of K3's forms against its plain version on the call's own
+    operands `a` (kernel_fn(*a, **kw)): 1e-5 relative, exactly 0 where
+    the plain score is 0, -inf at the same slots; both timed beside the
+    form's bounds."""
+    import torch
+
+    k = kernel_fn(*a, **kw)
+    p = plain_fn(*a, **kw)
+    if not torch.equal(torch.isneginf(k), torch.isneginf(p)):
+        fail(f"K3 {tag}: -inf at other slots than its plain version's")
+    fin = torch.isfinite(p)
+    rel = max_rel_err(k[fin], p[fin]) if fin.any() else 0.0
+    if not rel <= K3_RTOL or not (k[p == 0] == 0).all():
+        fail(f"K3 {tag} disagrees with its plain version: max relative "
+             f"error {rel}")
+    ids, qc = a[-4], a[-3]
+    return dict(
+        max_abs_err=float((k[fin] - p[fin]).abs().max().item()),
+        max_rel_err=rel, B=ids.shape[0], R=ids.shape[1],
+        ms=time_ms(lambda: kernel_fn(*a, **kw), reps),
+        plain_ms=time_ms(lambda: plain_fn(*a, **kw), 3), library_ms=None,
+        **k3_form_bounds(real, ids, qc, entry_bytes, row_extra))
+
+
+def result_tensors(res, dev):
+    """API results (lists of (score, doc)) as (scores f32, ids int64)
+    [B, K] tensors on the card, -inf / -1 where a row is short."""
+    import torch
+
+    s = np.full((len(res), K), -np.inf, np.float32)
+    i = np.full((len(res), K), -1, np.int64)
+    for r, row in enumerate(res):
+        for j, (sc, d) in enumerate(row):
+            s[r, j], i[r, j] = sc, d
+    return torch.from_numpy(s).to(dev), torch.from_numpy(i).to(dev)
+
+
+def half_width_path(env, dev, record) -> None:
+    """Phase 11a, inside phase 4 on its index: the forward rows uploaded
+    again in the half-width form (`to_device(fwd_f16=True)`'s rows,
+    `types.py::fused16_rows`), the rest of the upload shared; the
+    headline at both batch shapes, K3-f16 against its plain version on
+    the path's own operands, every score the exact dot of the f16-rounded
+    row, recall@10 beside phase 4's, busy ms and K3's device ms."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch.ops import rescore
+    from seismic_tpu_torch.search.grouped import (
+        plan_caps,
+        search_grouped_derive,
+    )
+    from seismic_tpu_torch.types import fused16_rows
+
+    rec = p11(record, "fwd16")
+    t_phase = time.time()
+    arrays, dindex, ctx, gt = (env[k_] for k_ in ("arrays", "dindex", "ctx",
+                                                  "gt"))
+    qcn, qvn, qcd, qvd = (env[k_] for k_ in ("qcn", "qvn", "qcd", "qvd"))
+    qcB, qvB, gcB, wcB = (env[k_] for k_ in ("qcB", "qvB", "gcB", "wcB"))
+    params, QC = headline_params(), QUERY_CUT
+    t0 = time.perf_counter()
+    d16 = dataclasses.replace(
+        dindex, fwd_fused=None, fwd_fused16=torch.from_numpy(
+            fused16_rows(arrays.fwd_comps, arrays.fwd_vals)).to(dev))
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    rows_b, fused_b = (d16.fwd_fused16.numel() * 4,
+                       dindex.fwd_fused.numel() * 4)
+
+    def b4096():
+        return [search_grouped_derive(
+            d16, qcd[b], qvd[b], params, QC, 8,
+            *plan_caps(qcn[b], qvn[b], ctx, QC, M=8), ctx.zero_region)
+            for b in range(len(qcn))]
+
+    def big():
+        return search_grouped_derive(d16, qcB, qvB, params, QC, BIG_M, gcB,
+                                     wcB, ctx.zero_region)
+
+    kept, restore = keep_calls(rescore, "score_docs_rowmajor_fused16", 8)
+    try:
+        b4096()
+        big()
+    finally:
+        restore()
+    (outs, (s16, i16)), wall, counts = counted(
+        "phase 11a: the headline on half-width rows", "fwd16", record,
+        lambda: (b4096(), big()),
+        positive=("qloc", "score_grouped_i8_item", "rescore_f16"))
+    s4 = torch.cat([o[0] for o in outs])
+    i4 = torch.cat([o[1] for o in outs])
+    docs16 = fwd_csr(dataclasses.replace(
+        arrays, fwd_vals=np.asarray(arrays.fwd_vals).astype(np.float16)),
+        dev)
+    err = max(exact_scores_err(docs16, qcB, qvB, s4, i4),
+              exact_scores_err(docs16, qcB, qvB, s16, i16))
+    del docs16
+    if not err <= 1e-5:
+        fail(f"phase 11a: scores differ from the exact dots of the "
+             f"f16-rounded rows by {err}")
+    r4, r16 = (recall_at(gt, x.cpu().numpy()) for x in (i4, i16))
+    real = d16.fwd_fused16 >> 16 >= 0
+    k3 = {}
+    for (a, kw) in (kept[0], kept[-1]):
+        tag = f"b{a[1].shape[0]}"
+        k3[tag] = check_k3_form(
+            a, kw, f"f16 ({tag})", rescore.score_docs_rowmajor_fused16_plain,
+            rescore.score_docs_rowmajor_fused16, real, (4,), 0)
+    try:
+        busy, kern = profile_held(big, ("qloc_kernel", "score_item_kernel",
+                                        "rescore_lean_kernel"), top=8)
+    except NoProfile as e:
+        busy, kern = {"profile": f"not measured: {e}"}, {}
+    k3_dev = kernel_ms_of(kern, "rescore_lean_kernel")
+    rec.update(upload_s=upload_s, rows_bytes=rows_b,
+               fused_rows_bytes=fused_b, wall_ms=wall, launches=counts,
+               max_rel_score_err=err, recall_at_10_b4096=r4,
+               recall_at_10_b16384=r16,
+               recall_at_10_phase4=env["rec16"], k3=k3, busy=busy,
+               k3_device_ms_b16384=k3_dev, phase_s=time.time() - t_phase)
+    main = k3[f"b{BATCH}"]
+    record["phase11_kernels"]["rescore_f16"] = dict(
+        name="rescore_fused16", route="cuda",
+        source="seismic_tpu_torch/csrc/rescore.cu",
+        replaces="seismic_tpu/ops/pallas_rescore.py:30",
+        **{k_: main[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+        at_b16384=k3[f"b{N_QUERIES}"])
+    log(f"phase 11a: half-width rows ({rows_b} bytes against the fused "
+        f"rows' {fused_b}, uploaded in {upload_s:.2f} s): launches "
+        f"{ {n_: c for n_, c in counts.items() if c} }; every score the "
+        f"exact dot of the f16 row to {err:.3g}; recall@10 {r4:.4f} / "
+        f"{r16:.4f} (phase 4: {env['rec16']:.4f}); K3-f16 == plain "
+        f"({main['max_rel_err']:.3g}), {main['ms']:.4f} ms at B={BATCH} "
+        f"(bound {main['bound_ms']:.4f} by {main['bound_by']}), "
+        f"{k3[f'b{N_QUERIES}']['ms']:.4f} ms at B={N_QUERIES} (bound "
+        f"{k3[f'b{N_QUERIES}']['bound_ms']:.4f}); busy "
+        f"{busy.get('device_busy_ms')} ms, K3 device {k3_dev} ms; "
+        f"{rec['phase_s']:.1f} s")
+
+
+def convert_path(index, qcomps, qvals, gt, dev, record) -> None:
+    """Phase 11b, on phase 3's API index (a second instance over its
+    arrays, so the index itself stays f16): `convert("u8")`,
+    `convert("u16")` and `convert("f16")`, each searched on 4096 queries
+    at heap_factor 0 (K3-u8, K3-u16, K3 fused), every score exact against
+    the decoded rows, K3's form against its plain version on the path's
+    operands, recall@10 on 256 queries beside phase 3's, device bytes."""
+    import torch
+
+    from seismic_tpu_torch import SeismicIndexRaw
+    from seismic_tpu_torch.data.sparse import pad_queries
+    from seismic_tpu_torch.ops import rescore
+
+    rec = p11(record, "convert")
+    t_phase = time.time()
+    q_comps, q_vals = pad_queries(qcomps, qvals, 128)
+    qct, qvt = (torch.from_numpy(x).to(dev) for x in (q_comps, q_vals))
+    for dt, count, form in (("u8", "rescore_u8", (2, 1)),
+                            ("u16", "rescore_u16", (2, 2)),
+                            ("f16", "rescore", None)):
+        idx = SeismicIndexRaw(index.arrays, device=dev)
+        if idx.convert(dt) is not idx:
+            fail("phase 11b: convert did not return the index")
+        t0 = time.perf_counter()
+        dix = idx.device_index()
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+
+        def run():
+            return idx.batch_search(qcomps, qvals, k=K, query_cut=QUERY_CUT,
+                                    heap_factor=0.0)
+
+        wrapped = (rescore, "score_docs_rowmajor_lean" if form
+                   else "score_docs_rowmajor")
+        kept, restore = keep_calls(*wrapped, 1)
+        try:
+            run()
+        finally:
+            restore()
+        res, wall, counts = counted(f"phase 11b: convert({dt!r})",
+                                    f"convert_{dt}", record, run,
+                                    positive=("qloc", "score_grouped_i8",
+                                              count))
+        s_, i_ = result_tensors(res, dev)
+        docs = fwd_csr(idx.arrays, dev)
+        err = exact_scores_err(docs, qct, qvt, s_, i_)
+        del docs
+        if not err <= 1e-5:
+            fail(f"phase 11b: convert({dt!r}) scores differ from the exact "
+                 f"dots of the decoded rows by {err}")
+        r = recall_at(gt, i_[:len(gt)].cpu().numpy())
+        one = dict(upload_s=upload_s, device_index_bytes=dix.nbytes(),
+                   wall_ms=wall, launches=counts, max_rel_score_err=err,
+                   recall_at_10=r)
+        if form:
+            a, kw = kept[0]
+            real = a[0] >= 0
+            one["k3"] = check_k3_form(
+                a, kw, f"{dt} (convert)",
+                rescore.score_docs_rowmajor_lean_plain,
+                rescore.score_docs_rowmajor_lean, real, form, 8)
+        rec[dt] = one
+        log(f"phase 11b: convert({dt!r}): device bytes "
+            f"{one['device_index_bytes']}, launches "
+            f"{ {n_: c for n_, c in counts.items() if c} }, every score "
+            f"the exact dot of the decoded row to {err:.3g}, recall@10 "
+            f"{r:.4f}" + (f", K3 form == plain, {one['k3']['ms']:.4f} ms "
+                          f"(bound {one['k3']['bound_ms']:.4f})"
+                          if form else ""))
+        del idx, dix
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec.update(recall_at_10_phase3=record["recall_at_10"],
+               phase_s=time.time() - t_phase)
+    k = rec["u16"]["k3"]
+    record["phase11_kernels"]["rescore_u16"] = dict(
+        name="rescore_u16", route="cuda",
+        source="seismic_tpu_torch/csrc/rescore.cu",
+        replaces="seismic_tpu/ops/pallas_rescore.py:30",
+        **{k_: k[k_] for k_ in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")})
+    log(f"phase 11b: {rec['phase_s']:.1f} s")
+
+
+def sketch_path(index, qcomps, qvals, gt, dev, record) -> None:
+    """Phase 11c, on phase 5's engine index: block sketches made from the
+    index's CSR summaries as the NumPy build path makes them (the native
+    build keeps doc sketches but no block sketches), then the engine at
+    heap_factor 0.8, gather doc mode, with `block_mode="sketch"` and with
+    `cand_budget` 256 and 1024 on dense block ranking: no hand kernel, no
+    host sync, every score exact, recall@10 on 256 queries (no floor),
+    the sketch products' device ms."""
+    import torch
+
+    from seismic_tpu_torch.build.builder import summary_block_sketches
+    from seismic_tpu_torch.data.sparse import pad_queries
+    from seismic_tpu_torch.search import engine
+    from seismic_tpu_torch.search.engine import SearchParams
+
+    rec = p11(record, "sketch")
+    t_phase = time.time()
+    arrays = index.arrays
+    layout = arrays.config.layout
+    sd, seed = layout.sketch_dim, layout.sketch_seed
+    t0 = time.perf_counter()
+    bsk, bsc = summary_block_sketches(arrays, sd, seed)
+    sketch_s = time.perf_counter() - t0
+    # on the device copy only: the host arrays stay the build's (phase 8e
+    # holds them equal to a JSONL build's)
+    dix = index.device_index()
+    if dix.doc_sketch is None:
+        fail("phase 11c: the upload holds no doc sketches")
+    dix.block_sketch = torch.from_numpy(bsk).to(dev)
+    dix.block_sketch_scale = torch.from_numpy(bsc).to(dev)
+    q_comps, q_vals = pad_queries(qcomps, qvals, 128)
+    qct, qvt = (torch.from_numpy(x).to(dev) for x in (q_comps, q_vals))
+    docs = fwd_csr(arrays, dev)
+    base = dict(k=K, query_cut=QUERY_CUT, block_budget=max(4 * K, 64),
+                doc_mode="gather")
+    cases = [("sketch", SearchParams(block_mode="sketch", **base))] + [
+        (f"cand_{c}", SearchParams(cand_budget=c, **base))
+        for c in CAND_BUDGETS]
+    hf = float(np.float32(0.8))
+    for name, sp in cases:
+        def run():
+            return engine.search_batch(dix, q_comps, q_vals, sp,
+                                       heap_factor=0.8, sketch_dim=sd,
+                                       sketch_seed=seed)
+
+        kept, restore = keep_calls(engine, "_sketch_scores", 2)
+        try:
+            run()
+        finally:
+            restore()
+        (s_, i_), wall, counts = counted(f"phase 11c: {name}",
+                                         f"sketch_{name}", record, run,
+                                         positive=())
+        syncs = count_syncs(lambda: engine._search_impl(
+            dix, qct, qvt, hf, sp, sd, seed))
+        if syncs:
+            fail(f"phase 11c: the engine program with {name} synchronised "
+                 f"with the host {syncs} times")
+        st, it = (torch.from_numpy(x).to(dev) for x in (s_, i_))
+        err = exact_scores_err(docs, qct, qvt, st, it)
+        if not err <= 1e-5:
+            fail(f"phase 11c: {name} scores differ from exact dots by {err}")
+        r = recall_at(gt, i_[:len(gt)])
+        prods = {("block" if a[0] is dix.block_sketch else "doc"): dict(
+            shape=list(a[2].shape),
+            ms=time_ms(lambda a=a: engine._sketch_scores(*a), 10))
+            for a, _ in kept}
+        rec[name] = dict(wall_ms=wall, host_syncs=syncs,
+                         max_rel_score_err=err, recall_at_10=r,
+                         sketch_products=prods)
+        log(f"phase 11c: {name}: recall@10 {r:.4f}, wall {wall:.1f} ms, "
+            f"{syncs} host syncs, scores exact to {err:.3g}, sketch "
+            f"products {json.dumps(prods)}")
+    del docs
+    dix.block_sketch = dix.block_sketch_scale = None
+    rec.update(block_sketch_s=sketch_s, block_sketch_bytes=bsk.nbytes,
+               recall_at_10_engine_dense=record["engine"]["recall_at_10"],
+               phase_s=time.time() - t_phase)
+    log(f"phase 11c: {rec['phase_s']:.1f} s (block sketches from the "
+        f"summaries {sketch_s:.2f} s)")
+
+
+def flat_path(ds, qcomps, qvals, dev, record) -> None:
+    """Phase 11e: `FlatTermIndex` of phase 3's corpus on the card, 256
+    queries held against `exact_search` (top-10 agreement, exact up to u8
+    quantization), wall time."""
+    import torch
+
+    from seismic_tpu_torch.data.sparse import pad_queries
+    from seismic_tpu_torch.search.exact import exact_search
+    from seismic_tpu_torch.search.flat import FlatTermIndex
+
+    rec = p11(record, "flat")
+    t0 = time.perf_counter()
+    flat = FlatTermIndex.build(ds)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat.device_arrays(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    nq = 256
+    q_comps, q_vals = pad_queries(qcomps[:nq], qvals[:nq], 128)
+    (s_f, i_f), wall, _ = counted(
+        "phase 11e: FlatTermIndex", "flat", record,
+        lambda: flat.search_batch(q_comps, q_vals, K, device=dev),
+        positive=())
+    s_e, i_e = exact_search(ds, q_comps, q_vals, K, device=dev)
+    agree = recall_at(i_e, i_f)
+    docs = torch.sparse_csr_tensor(
+        torch.from_numpy(ds.offsets), torch.from_numpy(
+            ds.components.astype(np.int64)),
+        torch.from_numpy(ds.values.astype(np.float32)),
+        size=(len(ds), DIM)).to(dev)
+    qct, qvt = (torch.from_numpy(x).to(dev) for x in (q_comps, q_vals))
+    st, it = (torch.from_numpy(x).to(dev) for x in (s_f, i_f))
+    err = exact_scores_err(docs, qct, qvt, st, it)
+    del docs
+    rec.update(build_s=build_s, upload_s=upload_s, wall_ms=wall,
+               host_bytes=int(flat.columns.nbytes), top10_agreement=agree,
+               max_rel_score_err=err, queries=nq)
+    log(f"phase 11e: FlatTermIndex [{flat.columns.shape[0]} x "
+        f"{flat.columns.shape[1]}] u8 ({flat.columns.nbytes} bytes), build "
+        f"{build_s:.1f} s, upload {upload_s:.2f} s, {nq} queries in "
+        f"{wall:.1f} ms; top-10 agreement with exact_search {agree:.4f}, "
+        f"scores within {err:.3g} of the exact dots")
+    if agree < 0.9 or not err <= 0.02:
+        fail(f"phase 11e: FlatTermIndex agrees with exact_search on "
+             f"{agree} of the top-10 and its scores within {err}: past u8 "
+             "quantization")
+    del flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lv_path(n_docs: int, dev, record) -> None:
+    """Phase 11d, last: `SeismicIndexRawLV.build_from_csr` on a
+    250,002-term collection (the API cell's pruning and layout, local
+    vocabularies 512 wide), `batch_search` of 4096 queries at heap_factor
+    0 (K1 on the int32 vocabulary, K2, K3 fused) and one batch with the
+    row-major projection (K8 on int32 rows), then `convert("u8")` and the
+    same batch (K3 on int32 ids beside u8 codes), then one engine batch at
+    heap_factor 0.8; every score exact, the kernel path against the
+    plain-scorer path on 256 queries, recall@10 against a brute-force
+    product, the K1 / K8 / K3 forms against their plain versions."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch import (
+        Configuration,
+        GlobalThresholdPruning,
+        SeismicIndexRawLV,
+    )
+    from seismic_tpu_torch.api import route_params
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT, pad_queries
+    from seismic_tpu_torch.harness.synth import synth_dataset, synth_queries
+    from seismic_tpu_torch.ops import grouped_scorer, qloc_rowmajor
+    from seismic_tpu_torch.ops import rescore
+    from seismic_tpu_torch.search import grouped
+    from seismic_tpu_torch.search.grouped import DevicePlan, _grouped_impl
+    from seismic_tpu_torch.search.planner import plan_grouped
+
+    rec = p11(record, "lv")
+    t_phase = time.time()
+    # every list holds at least one 128-row subtile: the aligned tiles
+    # alone take LV_DIM * 128 * LV_V bytes on the host and on the card
+    floor_b = LV_DIM * 128 * LV_V
+    log(f"phase 11d: dim {LV_DIM}, V {LV_V}: the aligned tiles take at "
+        f"least {floor_b} bytes (128 rows a list), against "
+        f"{30522 * 128 * 1024} at dim 30522, V 1024")
+    t0 = time.perf_counter()
+    ds = synth_dataset(n_docs, dim=LV_DIM, seed=7)
+    qcomps, qvals = synth_queries(BATCH, dim=LV_DIM, seed=11)
+    synth_s = time.perf_counter() - t0
+    cfg = Configuration(
+        pruning=GlobalThresholdPruning(n_postings=200, max_fraction=2.0),
+        layout=dataclasses.replace(cell_layout(), summary_vocab_cap=LV_V))
+    t0 = time.perf_counter()
+    index = SeismicIndexRawLV.build_from_csr(ds, cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    arrays = index.arrays
+    host_b = int(arrays.doc_tiles.nbytes)
+    t0 = time.perf_counter()
+    dix = index.device_index()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if not (dix.vocab16 is None and dix.list_vocab.dtype == torch.int32
+            and dix.fwd_fused is not None):
+        fail("phase 11d: the upload holds no int32 vocabulary or no fused "
+             "rows")
+    aligned_b = int(dix.doc_tiles_aligned.numel())
+    log(f"phase 11d: synth {synth_s:.1f} s, build {build_s:.1f} s (doc "
+        f"tiles {host_b} bytes on the host), upload {upload_s:.1f} s: "
+        f"device index {dix.nbytes()} bytes, aligned tiles {aligned_b}")
+    q_comps, q_vals = pad_queries(qcomps, qvals, 128)
+    qct, qvt = (torch.from_numpy(x).to(dev) for x in (q_comps, q_vals))
+
+    def run(qc_=qcomps, qv_=qvals, hf=0.0):
+        return index.batch_search(qc_, qv_, k=K, query_cut=QUERY_CUT,
+                                  heap_factor=hf)
+
+    # the route calls K1 through the name search/grouped.py imported
+    kept1, restore1 = keep_calls(grouped, "project_qloc_quantize", 1)
+    try:
+        run()
+    finally:
+        restore1()
+    res, wall, counts = counted(
+        "phase 11d: the LV grouped route", "lv", record, run,
+        positive=("qloc_i32", "score_grouped_i8", "rescore"))
+    s_, i_ = result_tensors(res, dev)
+    docs = fwd_csr(arrays, dev)
+    err = exact_scores_err(docs, qct, qvt, s_, i_)
+    if not err <= 1e-5:
+        fail(f"phase 11d: LV scores differ from exact dots by {err}")
+    # recall@10 on 256 queries against a brute-force product
+    nq = 256
+    full = torch.sparse_csr_tensor(
+        torch.from_numpy(ds.offsets), torch.from_numpy(
+            ds.components.astype(np.int64)),
+        torch.from_numpy(ds.values.astype(np.float32)),
+        size=(len(ds), LV_DIM)).to(dev)
+    ok = qct[:nq] != int(PAD_COMPONENT)
+    col = torch.arange(nq, device=dev)[:, None].expand(nq, qct.shape[1])
+    qd = torch.zeros((LV_DIM, nq), dtype=torch.float32, device=dev)
+    qd[qct[:nq][ok].long(), col[ok]] = qvt[:nq][ok]
+    gt = torch.topk(torch.sparse.mm(full, qd), K, dim=0).indices.t()
+    gt = gt.cpu().numpy()
+    del full, qd
+    r0 = recall_at(gt, i_[:nq].cpu().numpy())
+    # the kernel path against the plain-scorer path on 256 queries
+    sub = (qcomps[:nq], qvals[:nq])
+    _, i_k = result_tensors(run(*sub), dev)
+    kernel_scorer = grouped.score_grouped_i8
+    grouped.score_grouped_i8 = grouped_scorer.score_grouped_i8_plain
+    try:
+        _, i_p = result_tensors(run(*sub), dev)
+    finally:
+        grouped.score_grouped_i8 = kernel_scorer
+    same = id_set_share(i_k, i_p)
+    if same < GATE_SHARE:
+        fail(f"phase 11d: the kernel path and the plain-scorer path share "
+             f"id sets on {same} of {nq} queries")
+    # K1 on the int32 vocabulary (with K8 on the same rows) against its
+    # plain versions on the route's own operands
+    a1 = kept1[0][0]
+    k1, _ = check_k1(a1, "LV int32")
+    # K8 on int32 rows, on the main path: the route's program with the
+    # row-major projection
+    plan = plan_grouped(q_comps, q_vals, index._grouped_ctx(), QUERY_CUT,
+                        native=True)
+    rp = dataclasses.replace(route_params(K), qloc_mode="rowmajor")
+    (s_r, i_r), wall_r, counts_r = counted(
+        "phase 11d: the LV route with the row-major projection",
+        "lv_rowmajor", record,
+        lambda: _grouped_impl(dix, DevicePlan.put(plan, dev), qct, qvt, rp),
+        positive=("qloc_rowmajor_i32", "score_grouped_i8", "rescore"))
+    if not torch.equal(i_r.cpu(), i_.cpu()):
+        fail("phase 11d: the row-major projection's results differ from "
+             "the lane-major route's")
+    vocab, pair_list, top_c, top_v, QC = a1
+    a8 = (vocab[pair_list.long()], top_c.repeat_interleave(QC, dim=0),
+          top_v.repeat_interleave(QC, dim=0))
+    P, V = a8[0].shape
+    n8 = a8[0].numel() * 4 + a8[1].numel() * 8 + P * V + P * 4
+    b8, bb8 = bound(n8, float(P * V), PEAK_F32)
+    k8 = dict(max_abs_err=0.0,
+              ms=time_ms(lambda: qloc_rowmajor.project_qloc_rowmajor(*a8),
+                         20),
+              plain_ms=time_ms(
+                  lambda: qloc_rowmajor.project_qloc_rowmajor_plain(*a8), 3),
+              bound_ms=b8, bound_by=bb8, library_ms=None, P=P, V=V)
+    del a8
+    rec.update(n_docs=len(ds), nnz=int(ds.nnz), synth_s=synth_s,
+               build_s=build_s, upload_s=upload_s,
+               aligned_tiles_floor_bytes=floor_b, host_doc_tiles_bytes=host_b,
+               device_index_bytes=dix.nbytes(), aligned_tiles_bytes=aligned_b,
+               wall_ms=wall, launches=counts, max_rel_score_err=err,
+               recall_at_10=r0, plain_scorer_id_sets_equal=same,
+               rowmajor=dict(wall_ms=wall_r, launches=counts_r),
+               k1=k1, k8=k8)
+    log(f"phase 11d: grouped route: {wall:.1f} ms, launches "
+        f"{ {n_: c for n_, c in counts.items() if c} }, scores exact to "
+        f"{err:.3g}, recall@10 {r0:.4f} on {nq}, kernel vs plain-scorer "
+        f"id sets {same:.4f}; K1 int32 == plain, {k1['ms']:.4f} ms (bound "
+        f"{k1['bound_ms']:.4f}); row-major: ids equal, K8 int32 "
+        f"{k8['ms']:.4f} ms (bound {k8['bound_ms']:.4f})")
+    del dix, docs
+    # ---- convert("u8"): int32 ids beside u8 codes ----
+    if index.convert("u8") is not index:
+        fail("phase 11d: convert did not return the index")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dix = index.device_index()
+    torch.cuda.synchronize()
+    upload8_s = time.perf_counter() - t0
+    if not (dix.fwd_comps is not None and dix.fwd_comps.dtype == torch.int32
+            and dix.fwd_vals.dtype == torch.uint8):
+        fail("phase 11d: the u8 upload holds no int32 ids beside u8 codes")
+    kept3, restore3 = keep_calls(rescore, "score_docs_rowmajor_lean", 1)
+    try:
+        run()
+    finally:
+        restore3()
+    res8, wall8, counts8 = counted(
+        "phase 11d: the LV grouped route on u8 codes", "lv_u8", record, run,
+        positive=("qloc_i32", "score_grouped_i8", "rescore_i32"))
+    s8, i8 = result_tensors(res8, dev)
+    docs8 = fwd_csr(index.arrays, dev)
+    err8 = exact_scores_err(docs8, qct, qvt, s8, i8)
+    del docs8
+    if not err8 <= 1e-5:
+        fail(f"phase 11d: u8 scores differ from the exact dots of the "
+             f"decoded rows by {err8}")
+    a3, kw3 = kept3[0]
+    k3 = check_k3_form(a3, kw3, "int32 ids, u8 codes",
+                       rescore.score_docs_rowmajor_lean_plain,
+                       rescore.score_docs_rowmajor_lean,
+                       a3[0] != int(PAD_COMPONENT), (4, 1), 8)
+    r8 = recall_at(gt, i8[:nq].cpu().numpy())
+    # ---- one engine batch at heap_factor 0.8 ----
+    res_e, wall_e, counts_e = counted(
+        "phase 11d: the LV engine batch", "lv_engine", record,
+        lambda: run(hf=0.8), positive=("score_tiles",))
+    s_e, i_e = result_tensors(res_e, dev)
+    if not torch.isfinite(s_e).any():
+        fail("phase 11d: the engine batch returned no result")
+    r_e = recall_at(gt, i_e[:nq].cpu().numpy())
+    rec.update(upload_u8_s=upload8_s, device_index_bytes_u8=dix.nbytes(),
+               u8=dict(wall_ms=wall8, launches=counts8,
+                       max_rel_score_err=err8, recall_at_10=r8, k3=k3),
+               engine=dict(wall_ms=wall_e, launches=counts_e,
+                           recall_at_10=r_e),
+               phase_s=time.time() - t_phase)
+    log(f"phase 11d: convert('u8') upload {upload8_s:.1f} s ("
+        f"{rec['device_index_bytes_u8']} bytes): {wall8:.1f} ms, launches "
+        f"{ {n_: c for n_, c in counts8.items() if c} }, scores exact to "
+        f"{err8:.3g}, recall@10 {r8:.4f}; K3 int32/u8 == plain, "
+        f"{k3['ms']:.4f} ms (bound {k3['bound_ms']:.4f}); engine at 0.8: "
+        f"{wall_e:.1f} ms, recall@10 {r_e:.4f}; {rec['phase_s']:.1f} s")
+    kp = record["phase11_kernels"]
+    for key, name, rep, kr in (
+            ("qloc_i32", "qloc_quantize_i32", "pallas_qloc.py:25", k1),
+            ("qloc_rowmajor_i32", "qloc_rowmajor_i32", "pallas_qloc.py:77",
+             k8),
+            ("rescore_i32", "rescore_i32_u8", "pallas_rescore.py:30", k3)):
+        kp[key] = dict(
+            name=name, route="cuda",
+            source=("seismic_tpu_torch/csrc/rescore.cu" if "rescore" in key
+                    else "seismic_tpu_torch/csrc/qloc.cu"),
+            replaces=f"seismic_tpu/ops/{rep}",
+            **{k_: kr[k_] for k_ in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")})
+    del dix, index, arrays, ds
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def knn_headline_path(env, dev, record):
@@ -3743,6 +4464,8 @@ def api_path(ds, dev, record):
     # ---------------- phase 5: the engine path, same index ----------------
     torch.cuda.reset_peak_memory_stats()
     k7 = engine_path(index, qcomps, qvals, gt, dev, record, kernels)
+    # ---- phase 11c: the sketch ranking, on the engine's index ----
+    sketch_path(index, qcomps, qvals, gt, dev, record)
 
     # ------- phase 8 (a, b, e): the graph, refinement, the user API -------
     del dindex, a2, a2u  # the copy build_knn replaces with one that has it
@@ -3754,6 +4477,11 @@ def api_path(ds, dev, record):
         graph_path = knn_mod.save_knn(graph, os.path.join(tmp, "graph"))
         k3u8 = dotvbyte_path(jsonl, tmap, graph_path, qcomps, qvals, gt,
                              dev, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # ---- phase 11 (b, e): convert, and FlatTermIndex, on this corpus ----
+    convert_path(index, qcomps, qvals, gt, dev, record)
+    flat_path(ds, qcomps, qvals, dev, record)
     return kernels, k7, graph, k3u8
 
 
@@ -3781,7 +4509,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    record = {"card": card, "device": torch.cuda.get_device_name(0)}
+    record = {"card": card, "device": torch.cuda.get_device_name(0),
+              "phase11": {}, "phase11_kernels": {}}
     log(f"card: {card}  torch {torch.__version__} cuda {torch.version.cuda}")
     if args.n_docs < N_DOCS:
         log(f"REHEARSAL: n_docs {args.n_docs} < {N_DOCS}, the cell's corpus "
@@ -3828,15 +4557,23 @@ def main():
 
     # ---------------- phase 7: the device probe and microbench ------------
     kernels += probe_path(dev, record) + [k3u8]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------- phase 11d, last: the large vocabulary (every index freed) -----
+    lv_path(args.n_docs, dev, record)
+    kernels += [record["phase11_kernels"][n_] for n_ in FORM_COUNTS]
     # every count below was read from a wrapper's counter after a window that
-    # set all nineteen to 0 first; `launches` is the count on the kernel's
+    # set all twenty-four to 0 first; `launches` is the count on the kernel's
     # own main path
     windows = record["launch_windows"]
     main_window = dict.fromkeys(COUNTED, "modes")
     main_window.update(qloc="api", score_grouped_i8="api", rescore="api",
                        score_grouped_i8_item="headline", score_tiles="engine")
     main_window.update(dict.fromkeys(PROBE_KERNELS, "probe"),
-                       rescore_u8="dotvbyte")
+                       rescore_u8="dotvbyte", rescore_f16="fwd16",
+                       rescore_u16="convert_u16", rescore_i32="lv_u8",
+                       qloc_i32="lv", qloc_rowmajor_i32="lv_rowmajor")
     for kr, n_ in zip(kernels, COUNTED, strict=True):
         kr["launches"] = windows[main_window[n_]][n_]
         kr.update({f"launches_{w_}": windows[w_][n_] for w_ in windows})

@@ -425,8 +425,11 @@ class _IndexBase:
             return scores.cpu().numpy()[:B], ids.cpu().numpy()[:B]
         from .search.engine import search_batch
 
+        layout = getattr(self._arrays.config, "layout", None) or TpuLayout()
         scores, ids = search_batch(index, q_comps, q_vals, params,
-                                   heap_factor=heap_factor)
+                                   heap_factor=heap_factor,
+                                   sketch_dim=layout.sketch_dim,
+                                   sketch_seed=layout.sketch_seed)
         return scores[:B], ids[:B]
 
     # ------------------------------------------------------------- knn
@@ -447,6 +450,19 @@ class _IndexBase:
     def load_knn(self, path: str, nknn: Optional[int] = None) -> None:
         self._arrays.knn = knn_mod.load_knn(path, nknn)
         self._invalidate_device()
+
+    def convert(self, value_dtype: str) -> "_IndexBase":
+        """Re-encode the built forward rows' values in `value_dtype`
+        ("f32" / "f16" / "bf16" / "u8" / "u16", the fixedu8 / fixedu16
+        names accepted) without re-running the build
+        (`build/convert.py`); the device copies are dropped, so the next
+        search uploads the new form (u8 / u16: the lean form). Returns
+        self."""
+        from .build.convert import convert_index
+
+        self._arrays = convert_index(self._arrays, value_dtype)
+        self._invalidate_device()
+        return self
 
     # ---------------------------------------------------------- save/load
     def save(self, path: str) -> str:

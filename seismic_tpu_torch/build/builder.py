@@ -738,6 +738,23 @@ def _summary_csr(summaries):
     return flat_comps, flat_vals, np.asarray(lengths, dtype=np.int64)
 
 
+def summary_block_sketches(arrays, sketch_dim: int, seed: int):
+    """(block_sketch int8 [n_blocks_pad, sketch_dim], block_sketch_scale
+    f32) from the index's own u8 CSR block summaries: what the NumPy build
+    path computes (`_summary_csr` of the dequantized summaries, sketched,
+    then quantized; the padding rows zero), for an index whose build kept
+    no block sketches (the native core keeps none)."""
+    comps = np.asarray(arrays.summary_comps)
+    mask = comps != PAD_COMPONENT
+    vals = (np.asarray(arrays.summary_codes).astype(np.float32)
+            * np.asarray(arrays.summary_quant, np.float32)[:, None]
+            + np.asarray(arrays.summary_min, np.float32)[:, None])
+    offs = np.concatenate([[0], np.cumsum(mask.sum(axis=1))]).astype(
+        np.int64)
+    sk = sketch_csr_np(offs, comps[mask], vals[mask], sketch_dim, seed)
+    return quantize_sketch_int8(sk)
+
+
 def _encode_values(vals_f32: np.ndarray, comps: np.ndarray, value_dtype: str):
     """Encode forward-index values in the requested storage dtype."""
     if value_dtype == "f32":

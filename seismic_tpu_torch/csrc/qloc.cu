@@ -55,6 +55,16 @@
 // the amax with shuffles, then quantizes and stores 8 codes a store.
 // Wider rows look their remaining chunks up twice.
 //
+// The vocabulary is int16 (-1 padded) up to dim 32766 and int32
+// (PAD_COMPONENT padded) past it, the JAX package's vocab16 / list_vocab
+// (search/grouped.py:669-672, 705-710): the body is a template on the
+// code type (Codes below). A chunk of 8 codes is one 16-byte load of
+// int16 or two of int32, and the lookup is the same, since the table keys
+// by int32: an int32 PAD code is the empty key, whose walk ends on an
+// empty slot with value bits 0, so a padding slot reads 0.0f as the -1 of
+// int16 does (no staged term is PAD: stage_terms drops it). The int32
+// rows double the vocab bytes, the bound's largest term.
+//
 // K9 is the same body over one table of two kinds of key
 // (qloc_residue_kernel). Warp 0 stages the row's plain terms and then its
 // real bucket entries (id >= 0, so the -2 padding stays out), each in
@@ -93,6 +103,39 @@ namespace {
 
 constexpr int kMaxWarps = kQlocThreads / 32;
 constexpr int kHeld = 4;  // chunks of 8 codes whose values a lane keeps
+
+// A chunk of 8 vocab codes of type T: one int4 of int16 codes, two of
+// int32 codes; `load` reads chunk c of a row, `decode` widens to int32.
+template <class T>
+struct Codes;
+
+template <>
+struct Codes<int16_t> {
+  int4 v;
+  __device__ __forceinline__ static Codes load(const int16_t* row, int c) {
+    return {reinterpret_cast<const int4*>(row)[c]};
+  }
+  __device__ __forceinline__ static Codes zero() {
+    return {make_int4(0, 0, 0, 0)};
+  }
+  __device__ __forceinline__ void decode(int (&k)[8]) const { decode8(v, k); }
+};
+
+template <>
+struct Codes<int32_t> {
+  int4 a, b;
+  __device__ __forceinline__ static Codes load(const int32_t* row, int c) {
+    const int4* p = reinterpret_cast<const int4*>(row) + 2 * c;
+    return {p[0], p[1]};
+  }
+  __device__ __forceinline__ static Codes zero() {
+    return {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+  }
+  __device__ __forceinline__ void decode(int (&k)[8]) const {
+    k[0] = a.x; k[1] = a.y; k[2] = a.z; k[3] = a.w;
+    k[4] = b.x; k[5] = b.y; k[6] = b.z; k[7] = b.w;
+  }
+};
 
 __device__ __forceinline__ float amax8(const float (&x)[8], float m) {
 #pragma unroll
@@ -140,9 +183,9 @@ __device__ __forceinline__ int key_of(int c, int t) {
 
 // The kernels' body: a block per query row; lane l of a pair's warp holds
 // chunks l + 32 i, i < kHeldN.
-template <bool kResidue, int kHeldN>
+template <bool kResidue, int kHeldN, class T>
 __device__ __forceinline__ void qloc_body(
-    const int16_t* __restrict__ vocab,  // [n_lists, V] or [P, V]
+    const T* __restrict__ vocab,        // [n_lists, V] or [P, V]
     const int* __restrict__ pair_list,  // [P], or null: row p
     const int* __restrict__ qc,         // [B, SC] or [P, SC]
     const float* __restrict__ qv,       // same shape as qc
@@ -199,9 +242,9 @@ __device__ __forceinline__ void qloc_body(
     return 8 * c < n_group ? 8 * c / bk.VRS : bk.R;
   };
   // chunk c's 8 values: its codes' keys looked up, key(code, tag) for K9
-  auto find8 = [&](int tag, int4 chunk, float (&x)[8]) {
+  auto find8 = [&](int tag, const Codes<T>& chunk, float (&x)[8]) {
     int k[8];
-    decode8(chunk, k);
+    chunk.decode(k);
     if constexpr (kResidue) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) k[j] = key_of(k[j], tag);
@@ -220,14 +263,14 @@ __device__ __forceinline__ void qloc_body(
   for (int j = tid >> 5; j < QC; j += blockDim.x >> 5) {
     const int64_t p = static_cast<int64_t>(b) * QC + j;
     const int64_t vr = pair_list != nullptr ? pair_list[p] : p;
-    const int4* vrow = reinterpret_cast<const int4*>(vocab + vr * V);
+    const T* vrow = vocab + vr * V;
     int8_t* orow = out_f32 == nullptr ? out + p * V : nullptr;
     float* frow = out_f32 == nullptr ? nullptr : out_f32 + p * V;
-    int4 held[kHeldN];
+    Codes<T> held[kHeldN];
 #pragma unroll
     for (int i = 0; i < kHeldN; ++i) {
       const int c = lane + 32 * i;
-      held[i] = c < nch ? vrow[c] : make_int4(0, 0, 0, 0);
+      held[i] = c < nch ? Codes<T>::load(vrow, c) : Codes<T>::zero();
     }
     float xs[kHeldN][8];
     float amax = 0.0f;
@@ -241,7 +284,7 @@ __device__ __forceinline__ void qloc_body(
     }
     for (int c = lane + 32 * kHeldN; c < nch; c += 32) {
       float x[8];
-      find8(tag_of(c), vrow[c], x);
+      find8(tag_of(c), Codes<T>::load(vrow, c), x);
       amax = amax8(x, amax);
       if (frow != nullptr) store8(x, 0.0f, orow, frow, c);
     }
@@ -258,21 +301,22 @@ __device__ __forceinline__ void qloc_body(
     }
     for (int c = lane + 32 * kHeldN; c < nch; c += 32) {
       float x[8];
-      find8(tag_of(c), vrow[c], x);
+      find8(tag_of(c), Codes<T>::load(vrow, c), x);
       store8(x, sc, orow, frow, c);
     }
   }
 }
 
 #define QLOC_PARAMS                                                     \
-  const int16_t* __restrict__ vocab, const int* __restrict__ pair_list,  \
+  const T* __restrict__ vocab, const int* __restrict__ pair_list,        \
       const int* __restrict__ qc, const float* __restrict__ qv, int V,  \
       int SC, int QC, int8_t* __restrict__ out, float* __restrict__ scale, \
       float* __restrict__ out_f32, Buckets bk
 #define QLOC_ARGS vocab, pair_list, qc, qv, V, SC, QC, out, scale, out_f32, bk
 
+template <class T>
 __global__ void __launch_bounds__(kQlocThreads) qloc_kernel(QLOC_PARAMS) {
-  qloc_body<false, kHeld>(QLOC_ARGS);
+  qloc_body<false, kHeld, T>(QLOC_ARGS);
 }
 
 // K9 keeps more in registers than K1 (its chunks' tags, the key
@@ -282,13 +326,14 @@ __global__ void __launch_bounds__(kQlocThreads) qloc_kernel(QLOC_PARAMS) {
 constexpr int kResidueBlocks = 4;
 constexpr int kResidueHeld = 2;
 
+template <class T>
 __global__ void __launch_bounds__(kQlocThreads, kResidueBlocks)
     qloc_residue_kernel(QLOC_PARAMS) {
-  qloc_body<true, kResidueHeld>(QLOC_ARGS);
+  qloc_body<true, kResidueHeld, T>(QLOC_ARGS);
 }
 
-template <bool kResidue>
-int launch(const int16_t* vocab, const int* pair_list, const int* qc,
+template <bool kResidue, class T>
+int launch(const T* vocab, const int* pair_list, const int* qc,
            const float* qv, int P, int V, int SC, int QC, int8_t* out,
            float* scale, float* out_f32, const Buckets& bk,
            cudaStream_t stream) {
@@ -304,9 +349,9 @@ int launch(const int16_t* vocab, const int* pair_list, const int* qc,
       // the table, then the staged keys and values
       const size_t smem = (sizeof(int2) << bk.bits) +
                           static_cast<size_t>(SC + bk.R * bk.scb) * 8;
-      qloc_residue_kernel<<<grid, block, smem, stream>>>(QLOC_ARGS);
+      qloc_residue_kernel<T><<<grid, block, smem, stream>>>(QLOC_ARGS);
     } else {
-      qloc_kernel<<<grid, block, 0, stream>>>(QLOC_ARGS);
+      qloc_kernel<T><<<grid, block, 0, stream>>>(QLOC_ARGS);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -324,29 +369,51 @@ extern "C" {
 int seismic_qloc_max_terms() { return kQlocMaxTerms; }
 int seismic_qloc_residue_max_bucket_slots() { return kMaxBucketSlots; }
 
-// vocab int16 [n_lists, V] (-1 padded); qc / qv [B, SC], P = B * QC
-int seismic_qloc_quantize(const int16_t* vocab, const int* pair_list,
-                          const int* qc, const float* qv, int P, int V,
-                          int SC, int QC, int8_t* out, float* scale,
-                          cudaStream_t stream) {
-  return launch<false>(vocab, pair_list, qc, qv, P, V, SC, QC, out, scale,
-                       nullptr, kNoBuckets, stream);
+// K1 over vocab [n_lists, V] of vocab_bytes 2 (int16, -1 padded) or 4
+// (int32, PAD_COMPONENT padded); qc / qv [B, SC], P = B * QC
+int seismic_qloc_quantize(const void* vocab, int vocab_bytes,
+                          const int* pair_list, const int* qc,
+                          const float* qv, int P, int V, int SC, int QC,
+                          int8_t* out, float* scale, cudaStream_t stream) {
+  if (vocab_bytes == 4) {
+    return launch<false>(static_cast<const int32_t*>(vocab), pair_list, qc,
+                         qv, P, V, SC, QC, out, scale, nullptr, kNoBuckets,
+                         stream);
+  }
+  return launch<false>(static_cast<const int16_t*>(vocab), pair_list, qc,
+                       qv, P, V, SC, QC, out, scale, nullptr, kNoBuckets,
+                       stream);
 }
 
 // the same projection, unquantized: out f32 [P, V]
-int seismic_qloc_f32(const int16_t* vocab, const int* pair_list,
-                     const int* qc, const float* qv, int P, int V, int SC,
-                     int QC, float* out, cudaStream_t stream) {
-  return launch<false>(vocab, pair_list, qc, qv, P, V, SC, QC, nullptr,
-                       nullptr, out, kNoBuckets, stream);
+int seismic_qloc_f32(const void* vocab, int vocab_bytes,
+                     const int* pair_list, const int* qc, const float* qv,
+                     int P, int V, int SC, int QC, float* out,
+                     cudaStream_t stream) {
+  if (vocab_bytes == 4) {
+    return launch<false>(static_cast<const int32_t*>(vocab), pair_list, qc,
+                         qv, P, V, SC, QC, nullptr, nullptr, out,
+                         kNoBuckets, stream);
+  }
+  return launch<false>(static_cast<const int16_t*>(vocab), pair_list, qc,
+                       qv, P, V, SC, QC, nullptr, nullptr, out, kNoBuckets,
+                       stream);
 }
 
-// row-major: vocab_rows int16 [P, V], qc / qv [P, SC], one row each a pair
-int seismic_qloc_rowmajor(const int16_t* vocab_rows, const int* qc,
-                          const float* qv, int P, int V, int SC, int8_t* out,
-                          float* scale, cudaStream_t stream) {
-  return launch<false>(vocab_rows, nullptr, qc, qv, P, V, SC, 1, out, scale,
-                       nullptr, kNoBuckets, stream);
+// row-major (K8): vocab_rows [P, V] of vocab_bytes 2 or 4, qc / qv
+// [P, SC], one row each a pair
+int seismic_qloc_rowmajor(const void* vocab_rows, int vocab_bytes,
+                          const int* qc, const float* qv, int P, int V,
+                          int SC, int8_t* out, float* scale,
+                          cudaStream_t stream) {
+  if (vocab_bytes == 4) {
+    return launch<false>(static_cast<const int32_t*>(vocab_rows), nullptr,
+                         qc, qv, P, V, SC, 1, out, scale, nullptr,
+                         kNoBuckets, stream);
+  }
+  return launch<false>(static_cast<const int16_t*>(vocab_rows), nullptr, qc,
+                       qv, P, V, SC, 1, out, scale, nullptr, kNoBuckets,
+                       stream);
 }
 
 // K9: vocab residue-ordered (R groups of VRS slots, then the spill);

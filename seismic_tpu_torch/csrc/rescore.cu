@@ -38,13 +38,23 @@
 // over the warp in 5 shuffles. The [B*R, 2W] gathered copy of the TPU
 // version never exists.
 //
-// The lean u8 form (rescore_u8_kernel, entry point seismic_rescore_u8):
-// the same computation over a document's int16 ids (-1 padded), its u8
-// codes and its f32 (min, step), val_w = code_w * step + min, read by the
-// JAX package as the i16 twin plus the codes decoded per document
-// (pallas_rescore.py:147-159, search/engine.py:114-131). It reads 3W + 8
-// bytes a candidate row where the fused form reads 8W. On the block-pool
-// route the rows are mostly L2 hits (77 MB of rows at the 100K cell, each
+// The lean form (rescore_lean_kernel, entry point seismic_rescore_lean):
+// the same computation over a document's ids (int16, -1 padded, or int32,
+// PAD padded, past dim 32766), its u8 or u16 codes and its f32 (min,
+// step), val_w = code_w * step + min, read by the JAX package as the i16
+// twin (or the int32 ids) plus the codes decoded per document
+// (pallas_rescore.py:147-159, search/engine.py:114-131). At int16 ids and
+// u8 codes it reads 3W + 8 bytes a candidate row where the fused form
+// reads 8W; u16 codes add W, int32 ids 2W. The half-width fused rows
+// (entry point seismic_rescore_fused16, the JAX package's fwd_fused16,
+// search/engine.py:190-203) are the same body: a row of W int32 words,
+// id = word >> 16, value = the f16 bits of the low half, 4W bytes a row.
+// The form is a policy of the one kernel template (Form below): ids and
+// value bits are split into the same register layout, so the filter, the
+// table, the skip and the row loop are shared, and only the decode
+// differs: code * step + min, or the f16 widened (exact).
+//
+// On the block-pool route (FormU8) the rows are mostly L2 hits (77 MB of rows at the 100K cell, each
 // read about 30 times a batch), so the bytes do not bound it: with every
 // id on one document (the row L1-resident) it took as long as on the
 // batch's own ids (chip_smoke phase 9 on an NVIDIA H100 80GB HBM3 at
@@ -65,10 +75,12 @@
 //   loads of each otherwise), and W = 256 is one span. A longer row takes
 //   a span at a time while the last span held no -1.
 // - rows in flight: a warp loads its next row before this row's sum
-//   reduces; 4 blocks an SM leave 64 registers a thread (no spill).
+//   reduces; 4 blocks an SM leave 64 registers a thread (no spill), 3
+//   blocks 80 for the other forms' 4 value words or 8 id words a part.
 // The decode keeps the rounding of two separate f32 ops (no FMA).
 
 #include <cstdint>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "qloc_common.cuh"
@@ -180,109 +192,281 @@ rescore_fused_kernel(const int* __restrict__ fwd,      // [n_docs, 2W]
   }
 }
 
-// K3's u8 form. A lane takes 8 entries of a row span of kSpanU8: entry
-// w0 + 8 * lane + j is the half j % 2 of word j / 2 of `ids` (int16 pairs)
-// and byte j % 4 of word j / 4 of `codes`.
+// K3's lean and half-width forms, one kernel body (rescore_lean_kernel)
+// with the row's form as a policy. A lane takes 8 entries of a row span
+// of kSpanU8: ids in F::kIdWords words (int16 pairs, or one int32 id a
+// word in the wide forms), their values' bits in F::kValWords words (4
+// u8 codes, or 2 u16 codes / f16 values a word). The forms:
+//   FormU8   int16 ids, u8 codes, per-doc (min, step)     (PR 13's form)
+//   FormU16  int16 ids, u16 codes, per-doc (min, step)
+//   FormU8W  int32 ids, u8 codes, per-doc (min, step)    (dim > 32766)
+//   FormU16W int32 ids, u16 codes, per-doc (min, step)   (dim > 32766)
+//   FormF16  the half-width fused rows: one int32 word an entry, (id
+//            int16 << 16) | f16 bits, no (min, step); a load of 8 words
+//            is split into the int16 ids and the f16 bits by byte
+//            permutes, so the body is FormU16's with another decode.
+// The int16 forms test ids in the filter's bitmap of every uint16, which
+// proves the id is a term (the table probe ends on it). int32 ids test
+// the bit of their low 16 bits: a set bit no longer proves the id is a
+// term, so the wide forms' probe may end on an empty slot and give 0
+// (term_find_or_zero); a padding id (PAD_COMPONENT) passes only when a
+// term shares its low bits, and then finds the empty key and gives 0. The
+// alternative, no filter, would probe every entry; at the 3% hit rate of
+// the int16 forms the filter keeps 32x fewer probes.
 constexpr int kSpanU8 = 256;  // entries of a row a warp reads at once
 constexpr int kSpanGroup = 32;  // row slots a warp reads the doc ids of at once
-constexpr int kBlocksU8 = 4;  // blocks an SM: <= 64 registers a thread
 constexpr unsigned kNegInfBits = 0xff800000u;  // -inf
 
-struct U8Part {
-  uint4 ids;    // 8 int16 ids, -1 at padding and past W
-  uint2 codes;  // their 8 u8 codes
-  float mn, st;  // the row's min and step
+enum class Val { kU8, kU16, kF16 };
+
+template <bool kWideIds, Val kV, int kBlocksSM>
+struct Form {
+  static constexpr bool kWide = kWideIds;
+  static constexpr Val kVal = kV;
+  static constexpr int kIdWords = kWideIds ? 8 : 4;
+  static constexpr int kValWords = kV == Val::kU8 ? 2 : 4;
+  // blocks an SM: FormU8 keeps <= 64 registers a thread; the forms with
+  // 4 value words or 8 id words a part take <= 80
+  static constexpr int kBlocks = kBlocksSM;
+};
+using FormU8 = Form<false, Val::kU8, 4>;
+using FormU16 = Form<false, Val::kU16, 3>;
+using FormU8W = Form<true, Val::kU8, 3>;
+using FormU16W = Form<true, Val::kU16, 3>;
+using FormF16 = Form<false, Val::kF16, 3>;
+
+template <class F>
+struct Part {
+  unsigned id[F::kIdWords];   // padding: -1 int16 halves, or kPad
+  unsigned val[F::kValWords];  // the ids' code / f16 bits
+  float mn, st;                // the row's min and step (not FormF16)
 };
 
+// word j of 2, 4 or 8 by selects: no register array is indexed at run time
+__device__ __forceinline__ unsigned sel2(const unsigned (&w)[2], int j) {
+  return (j & 1) ? w[1] : w[0];
+}
+__device__ __forceinline__ unsigned sel4(const unsigned (&w)[4], int j) {
+  const unsigned lo = (j & 1) ? w[1] : w[0];
+  const unsigned hi = (j & 1) ? w[3] : w[2];
+  return (j & 2) ? hi : lo;
+}
+__device__ __forceinline__ unsigned sel8(const unsigned (&w)[8], int j) {
+  const unsigned a = (j & 1) ? w[1] : w[0];
+  const unsigned b = (j & 1) ? w[3] : w[2];
+  const unsigned c = (j & 1) ? w[5] : w[4];
+  const unsigned d = (j & 1) ? w[7] : w[6];
+  const unsigned lo = (j & 2) ? b : a;
+  const unsigned hi = (j & 2) ? d : c;
+  return (j & 4) ? hi : lo;
+}
+
+__device__ __forceinline__ uint4 ldg4(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
 // This lane's 8 entries of span w0 of doc d's row (0 <= d < n_docs): ids,
-// codes and the row's (min, step), all issued together.
-template <bool kVec>
-__device__ __forceinline__ U8Part load_part(const int16_t* __restrict__ comps,
-                                            const uint8_t* __restrict__ codes,
-                                            const float* __restrict__ vmin,
-                                            const float* __restrict__ vstep,
-                                            int d, int w0, int W) {
-  U8Part p;
+// value bits and the row's (min, step), all issued together. kVec: one
+// 16-byte load of int16 ids (two of int32 ids or fused words) and one 8-
+// or 16-byte load of codes, when W % 8 == 0 and the bases are aligned;
+// else 8 single loads of each.
+template <class F, bool kVec>
+__device__ __forceinline__ Part<F> load_part(const void* __restrict__ ids,
+                                             const void* __restrict__ codes,
+                                             const float* __restrict__ vmin,
+                                             const float* __restrict__ vstep,
+                                             int d, int w0, int W) {
+  Part<F> p;
   const int w = w0 + 8 * (threadIdx.x & 31);
-  const int64_t row = static_cast<int64_t>(d) * W;
-  p.mn = __ldg(vmin + d);
-  p.st = __ldg(vstep + d);
+  const int64_t at = static_cast<int64_t>(d) * W + w;
+  if constexpr (F::kVal != Val::kF16) {
+    p.mn = __ldg(vmin + d);
+    p.st = __ldg(vstep + d);
+  } else {
+    p.mn = p.st = 0.0f;
+  }
   if (kVec) {
     // a whole span (the same for every lane) or this lane's 8 entries
-    if (w0 + kSpanU8 <= W || w < W) {
-      p.ids = __ldg(reinterpret_cast<const uint4*>(comps + row + w));
-      p.codes = __ldg(reinterpret_cast<const uint2*>(codes + row + w));
+    const bool in = w0 + kSpanU8 <= W || w < W;
+    if constexpr (F::kVal == Val::kF16) {
+      const int* q = static_cast<const int*>(ids) + at;
+      const uint4 a = in ? ldg4(q) : make_uint4(~0u, ~0u, ~0u, ~0u);
+      const uint4 b = in ? ldg4(q + 4) : make_uint4(~0u, ~0u, ~0u, ~0u);
+      const unsigned x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        p.id[k] = __byte_perm(x[2 * k], x[2 * k + 1], 0x7632);
+        p.val[k] = __byte_perm(x[2 * k], x[2 * k + 1], 0x5410);
+      }
+      return p;
     } else {
-      p.ids = make_uint4(~0u, ~0u, ~0u, ~0u);
-      p.codes = make_uint2(0u, 0u);
+      if constexpr (F::kWide) {
+        const int* q = static_cast<const int*>(ids) + at;
+        const uint4 a = in ? ldg4(q) : make_uint4(kPad, kPad, kPad, kPad);
+        const uint4 b = in ? ldg4(q + 4) : make_uint4(kPad, kPad, kPad, kPad);
+        p.id[0] = a.x; p.id[1] = a.y; p.id[2] = a.z; p.id[3] = a.w;
+        p.id[4] = b.x; p.id[5] = b.y; p.id[6] = b.z; p.id[7] = b.w;
+      } else {
+        const uint4 a = in ? ldg4(static_cast<const int16_t*>(ids) + at)
+                           : make_uint4(~0u, ~0u, ~0u, ~0u);
+        p.id[0] = a.x; p.id[1] = a.y; p.id[2] = a.z; p.id[3] = a.w;
+      }
+      if constexpr (F::kVal == Val::kU8) {
+        const uint2 c =
+            in ? __ldg(reinterpret_cast<const uint2*>(
+                     static_cast<const uint8_t*>(codes) + at))
+               : make_uint2(0u, 0u);
+        p.val[0] = c.x; p.val[1] = c.y;
+      } else {
+        const uint4 c = in ? ldg4(static_cast<const uint16_t*>(codes) + at)
+                           : make_uint4(0u, 0u, 0u, 0u);
+        p.val[0] = c.x; p.val[1] = c.y; p.val[2] = c.z; p.val[3] = c.w;
+      }
+      return p;
     }
-    return p;
   }
   unsigned h[8], x[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const bool in = w + j < W;
-    h[j] = in ? static_cast<uint16_t>(__ldg(comps + row + w + j)) : 0xffffu;
-    x[j] = in ? static_cast<unsigned>(__ldg(codes + row + w + j)) : 0u;
+    if constexpr (F::kVal == Val::kF16) {
+      const unsigned word =
+          in ? static_cast<unsigned>(__ldg(static_cast<const int*>(ids) +
+                                           at + j))
+             : 0xffff0000u;  // id -1, value +0.0
+      h[j] = word >> 16;
+      x[j] = word & 0xffffu;
+    } else {
+      if constexpr (F::kWide) {
+        h[j] = in ? static_cast<unsigned>(
+                        __ldg(static_cast<const int*>(ids) + at + j))
+                  : static_cast<unsigned>(kPad);
+      } else {
+        h[j] = in ? static_cast<uint16_t>(
+                        __ldg(static_cast<const int16_t*>(ids) + at + j))
+                  : 0xffffu;
+      }
+      if constexpr (F::kVal == Val::kU8) {
+        x[j] = in ? static_cast<unsigned>(
+                        __ldg(static_cast<const uint8_t*>(codes) + at + j))
+                  : 0u;
+      } else {
+        x[j] = in ? static_cast<unsigned>(
+                        __ldg(static_cast<const uint16_t*>(codes) + at + j))
+                  : 0u;
+      }
+    }
   }
-  p.ids = make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
-                     h[4] | (h[5] << 16), h[6] | (h[7] << 16));
-  p.codes = make_uint2(x[0] | (x[1] << 8) | (x[2] << 16) | (x[3] << 24),
-                       x[4] | (x[5] << 8) | (x[6] << 16) | (x[7] << 24));
+  if constexpr (F::kWide) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p.id[j] = h[j];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p.id[k] = h[2 * k] | (h[2 * k + 1] << 16);
+  }
+  if constexpr (F::kVal == Val::kU8) {
+    p.val[0] = x[0] | (x[1] << 8) | (x[2] << 16) | (x[3] << 24);
+    p.val[1] = x[4] | (x[5] << 8) | (x[6] << 16) | (x[7] << 24);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) p.val[k] = x[2 * k] | (x[2 * k + 1] << 16);
+  }
   return p;
 }
 
-// id j of a part as uint16 (65535 for a -1), by selects: no register
-// array is indexed at run time
-__device__ __forceinline__ unsigned part_id(const uint4& ids, int j) {
-  const unsigned lo = (j & 2) ? ids.y : ids.x;
-  const unsigned hi = (j & 2) ? ids.w : ids.z;
-  return (((j & 4) ? hi : lo) >> ((j & 1) << 4)) & 0xffffu;
+// id j of a part: the int16 forms' as uint16 (65535 for a -1)
+template <class F>
+__device__ __forceinline__ unsigned part_id(const Part<F>& p, int j) {
+  if constexpr (F::kWide) {
+    return sel8(p.id, j);
+  } else {
+    return (sel4(p.id, j >> 1) >> ((j & 1) << 4)) & 0xffffu;
+  }
 }
 
-// whether a part holds a padding id (-1; also every slot past W)
-__device__ __forceinline__ bool part_has_pad(const uint4& ids) {
-  return ((ids.x | ids.y | ids.z | ids.w) & 0x80008000u) != 0u;
+// value j of a part, decoded: code * step + min as two rounded f32 ops
+// (no FMA contraction), or the f16 bits widened (exact)
+template <class F>
+__device__ __forceinline__ float part_value(const Part<F>& p, int j) {
+  if constexpr (F::kVal == Val::kU8) {
+    const float x = static_cast<float>((sel2(p.val, j >> 2) >> ((j & 3) << 3))
+                                       & 255u);
+    return __fadd_rn(__fmul_rn(x, p.st), p.mn);
+  } else {
+    const unsigned bits = (sel4(p.val, j >> 1) >> ((j & 1) << 4)) & 0xffffu;
+    if constexpr (F::kVal == Val::kU16) {
+      return __fadd_rn(__fmul_rn(static_cast<float>(bits), p.st), p.mn);
+    } else {
+      return __half2float(__ushort_as_half(static_cast<unsigned short>(bits)));
+    }
+  }
 }
 
-// This lane's share of the row's score: each id tested in the filter
-// (a -1 id tests a clear bit), and only the hits looked up, decoded (two
-// rounded f32 ops, no FMA contraction) and multiplied by their summed
+// whether a part holds a padding id (also every slot past W)
+template <class F>
+__device__ __forceinline__ bool part_has_pad(const Part<F>& p) {
+  if constexpr (F::kWide) {
+    bool pad = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) pad = pad || p.id[j] == static_cast<unsigned>(kPad);
+    return pad;
+  } else {
+    return ((p.id[0] | p.id[1] | p.id[2] | p.id[3]) & 0x80008000u) != 0u;
+  }
+}
+
+// Bits j < 8: the ids whose filter bit is set. int16 forms: a -1 id tests
+// a clear bit; wide forms: the bit of the id's low 16 bits.
+template <class F>
+__device__ __forceinline__ unsigned part_hits(const Part<F>& p,
+                                              const unsigned* s_bits) {
+  if constexpr (F::kWide) {
+    unsigned hit = 0u;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) hit |= term_filter_one(s_bits, p.id[j]) << j;
+    return hit;
+  } else {
+    return term_filter_pair(s_bits, p.id[0]) |
+           term_filter_pair(s_bits, p.id[1]) << 2 |
+           term_filter_pair(s_bits, p.id[2]) << 4 |
+           term_filter_pair(s_bits, p.id[3]) << 6;
+  }
+}
+
+// This lane's share of the row's score: each id tested in the filter,
+// and only the hits looked up, decoded and multiplied by their summed
 // value.
-__device__ __forceinline__ float score_part(const U8Part& p,
+template <class F>
+__device__ __forceinline__ float score_part(const Part<F>& p,
                                             const unsigned* s_bits,
                                             const int2* s_tab) {
-  unsigned hit = term_filter_pair(s_bits, p.ids.x) |
-                 term_filter_pair(s_bits, p.ids.y) << 2 |
-                 term_filter_pair(s_bits, p.ids.z) << 4 |
-                 term_filter_pair(s_bits, p.ids.w) << 6;
+  unsigned hit = part_hits(p, s_bits);
   float part = 0.0f;
   while (hit != 0u) {
     const int j = __ffs(hit) - 1;
     hit &= hit - 1u;
-    const unsigned cw = (j & 4) ? p.codes.y : p.codes.x;
-    const float x = static_cast<float>((cw >> ((j & 3) << 3)) & 255u);
-    part += __fmul_rn(
-        __fadd_rn(__fmul_rn(x, p.st), p.mn),
-        term_find_present(s_tab, static_cast<int>(part_id(p.ids, j))));
+    const int c = static_cast<int>(part_id(p, j));
+    const float t = F::kWide ? term_find_or_zero(s_tab, c)
+                             : term_find_present(s_tab, c);
+    part += __fmul_rn(part_value(p, j), t);
   }
   return part;
 }
 
 // Score row r (doc d >= 0, its first span in p) and write it.
-template <bool kVec>
+template <class F, bool kVec>
 __device__ __forceinline__ void finish_row(
-    const U8Part& p, int d, int r, const int16_t* __restrict__ comps,
-    const uint8_t* __restrict__ codes, const float* __restrict__ vmin,
+    const Part<F>& p, int d, int r, const void* __restrict__ ids,
+    const void* __restrict__ codes, const float* __restrict__ vmin,
     const float* __restrict__ vstep, const unsigned* s_bits,
     const int2* s_tab, int W, float* __restrict__ out_b) {
   float part = score_part(p, s_bits, s_tab);
-  // a row longer than a span goes on while its last span held no -1
+  // a row longer than a span goes on while its last span held no padding
   if (W > kSpanU8) {
-    U8Part c = p;
+    Part<F> c = p;
     for (int w0 = kSpanU8; w0 < W; w0 += kSpanU8) {
-      if (__ballot_sync(0xffffffffu, part_has_pad(c.ids)) != 0u) break;
-      c = load_part<kVec>(comps, codes, vmin, vstep, d, w0, W);
+      if (__ballot_sync(0xffffffffu, part_has_pad(c)) != 0u) break;
+      c = load_part<F, kVec>(ids, codes, vmin, vstep, d, w0, W);
       part += score_part(c, s_bits, s_tab);
     }
   }
@@ -293,17 +477,17 @@ __device__ __forceinline__ void finish_row(
   if ((threadIdx.x & 31) == 0) out_b[r] = part;
 }
 
-template <bool kVec, bool kSkip>
-__global__ void __launch_bounds__(kThreads, kBlocksU8)
-rescore_u8_kernel(const int16_t* __restrict__ comps,  // [n_docs, W]
-                  const uint8_t* __restrict__ codes,  // [n_docs, W]
-                  const float* __restrict__ vmin,     // [n_docs]
-                  const float* __restrict__ vstep,    // [n_docs]
-                  const int* __restrict__ doc_ids,    // [B, R]
-                  const int* __restrict__ qc,         // [B, SC]
-                  const float* __restrict__ qv,       // [B, SC]
-                  int n_docs, int W, int R, int SC,
-                  float* __restrict__ out) {          // [B, R]
+template <class F, bool kVec, bool kSkip>
+__global__ void __launch_bounds__(kThreads, F::kBlocks)
+rescore_lean_kernel(const void* __restrict__ ids,    // [n_docs, W]
+                    const void* __restrict__ codes,  // [n_docs, W] or null
+                    const float* __restrict__ vmin,  // [n_docs] or null
+                    const float* __restrict__ vstep, // [n_docs] or null
+                    const int* __restrict__ doc_ids, // [B, R]
+                    const int* __restrict__ qc,      // [B, SC]
+                    const float* __restrict__ qv,    // [B, SC]
+                    int n_docs, int W, int R, int SC,
+                    float* __restrict__ out) {       // [B, R]
   __shared__ int s_qc[kQlocMaxTerms];
   __shared__ float s_qv[kQlocMaxTerms];
   __shared__ int2 s_tab[kTermSlots];
@@ -361,42 +545,69 @@ rescore_u8_kernel(const int16_t* __restrict__ comps,  // [n_docs, W]
   // the first row's part loads while the block builds its tables
   int ra = 0, da = -1, rb = 0, db = -1;
   bool have_a = next_row(ra, da);
-  U8Part a;
-  if (have_a) a = load_part<kVec>(comps, codes, vmin, vstep, da, 0, W);
+  Part<F> a;
+  if (have_a) a = load_part<F, kVec>(ids, codes, vmin, vstep, da, 0, W);
   term_table_clear(s_tab, &s_dup);
   term_filter_clear(s_bits);
   stage_terms(qc, qv, blockIdx.x, SC, s_qc, s_qv, &s_n);
   __syncthreads();
-  term_filter_build(s_bits, s_qc, s_n);
+  term_filter_build<F::kWide>(s_bits, s_qc, s_n);
   term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);  // its barrier: both
 
   while (have_a) {
     const bool have_b = next_row(rb, db);
     // with no next row, this row's part again: an L1 hit, never scored
-    const U8Part b = load_part<kVec>(comps, codes, vmin, vstep,
-                                     have_b ? db : da, 0, W);
-    finish_row<kVec>(a, da, ra, comps, codes, vmin, vstep, s_bits, s_tab, W,
-                     out_b);
+    const Part<F> b = load_part<F, kVec>(ids, codes, vmin, vstep,
+                                         have_b ? db : da, 0, W);
+    finish_row<F, kVec>(a, da, ra, ids, codes, vmin, vstep, s_bits, s_tab,
+                        W, out_b);
     if (!have_b) break;
     have_a = next_row(ra, da);
-    a = load_part<kVec>(comps, codes, vmin, vstep, have_a ? da : db, 0, W);
-    finish_row<kVec>(b, db, rb, comps, codes, vmin, vstep, s_bits, s_tab, W,
-                     out_b);
+    a = load_part<F, kVec>(ids, codes, vmin, vstep, have_a ? da : db, 0, W);
+    finish_row<F, kVec>(b, db, rb, ids, codes, vmin, vstep, s_bits, s_tab,
+                        W, out_b);
   }
 }
 
-template <bool kVec>
-void launch_u8(const int16_t* comps, const uint8_t* codes, const float* vmin,
-               const float* vstep, const int* doc_ids, const int* qc,
-               const float* qv, int B, int R, int SC, int n_docs, int W,
-               bool skip, float* out, cudaStream_t stream) {
+template <class F, bool kVec>
+void launch_lean(const void* ids, const void* codes, const float* vmin,
+                 const float* vstep, const int* doc_ids, const int* qc,
+                 const float* qv, int B, int R, int SC, int n_docs, int W,
+                 bool skip, float* out, cudaStream_t stream) {
   if (skip) {
-    rescore_u8_kernel<kVec, true><<<B, kThreads, 0, stream>>>(
-        comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+    rescore_lean_kernel<F, kVec, true><<<B, kThreads, 0, stream>>>(
+        ids, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
   } else {
-    rescore_u8_kernel<kVec, false><<<B, kThreads, 0, stream>>>(
-        comps, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+    rescore_lean_kernel<F, kVec, false><<<B, kThreads, 0, stream>>>(
+        ids, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
   }
+}
+
+bool aligned(const void* p, uintptr_t a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
+}
+
+// Launch form F: the vector loads when every row and span start is
+// aligned for them (W % 8 == 0: a span of 8 entries of a row is 16 bytes
+// of int16 ids, 32 of int32 ids or words, 8 of u8 and 16 of u16 codes).
+template <class F>
+int run_lean(const void* ids, const void* codes, const float* vmin,
+             const float* vstep, const int* doc_ids, const int* qc,
+             const float* qv, int B, int R, int SC, int n_docs, int W,
+             int skip, float* out, cudaStream_t stream) {
+  if (B > 0 && R > 0) {
+    const bool vec = W % 8 == 0 && aligned(ids, 16) &&
+                     (F::kVal == Val::kF16 ||
+                      aligned(codes, F::kVal == Val::kU8 ? 8 : 16));
+    if (vec) {
+      launch_lean<F, true>(ids, codes, vmin, vstep, doc_ids, qc, qv, B, R,
+                           SC, n_docs, W, skip != 0, out, stream);
+    } else {
+      launch_lean<F, false>(ids, codes, vmin, vstep, doc_ids, qc, qv, B, R,
+                            SC, n_docs, W, skip != 0, out, stream);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -415,26 +626,40 @@ int seismic_rescore_fused(const int* fwd, const int* doc_ids, const int* qc,
   return static_cast<int>(cudaGetLastError());
 }
 
-int seismic_rescore_u8(const int16_t* comps, const uint8_t* codes,
-                       const float* vmin, const float* vstep,
-                       const int* doc_ids, const int* qc, const float* qv,
-                       int B, int R, int SC, int n_docs, int W, int skip,
-                       float* out, cudaStream_t stream) {
-  if (B > 0 && R > 0) {
-    // one 16-byte load of ids and one 8-byte load of codes a lane when
-    // every row and span start is aligned for them
-    const bool vec = W % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(comps) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(codes) % 8 == 0;
-    if (vec) {
-      launch_u8<true>(comps, codes, vmin, vstep, doc_ids, qc, qv, B, R, SC,
-                      n_docs, W, skip != 0, out, stream);
-    } else {
-      launch_u8<false>(comps, codes, vmin, vstep, doc_ids, qc, qv, B, R, SC,
-                       n_docs, W, skip != 0, out, stream);
-    }
+// the half-width fused rows: fwd16 int32 [n_docs, W]
+int seismic_rescore_fused16(const int* fwd16, const int* doc_ids,
+                            const int* qc, const float* qv, int B, int R,
+                            int SC, int n_docs, int W, int skip, float* out,
+                            cudaStream_t stream) {
+  return run_lean<FormF16>(fwd16, nullptr, nullptr, nullptr, doc_ids, qc, qv,
+                           B, R, SC, n_docs, W, skip, out, stream);
+}
+
+// the lean form: ids int16 (id_bytes 2) or int32 (4), codes u8
+// (code_bytes 1) or u16 (2), each [n_docs, W]
+int seismic_rescore_lean(const void* ids, int id_bytes, const void* codes,
+                         int code_bytes, const float* vmin,
+                         const float* vstep, const int* doc_ids,
+                         const int* qc, const float* qv, int B, int R,
+                         int SC, int n_docs, int W, int skip, float* out,
+                         cudaStream_t stream) {
+  if (id_bytes == 2 && code_bytes == 1) {
+    return run_lean<FormU8>(ids, codes, vmin, vstep, doc_ids, qc, qv, B, R,
+                            SC, n_docs, W, skip, out, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (id_bytes == 2 && code_bytes == 2) {
+    return run_lean<FormU16>(ids, codes, vmin, vstep, doc_ids, qc, qv, B, R,
+                             SC, n_docs, W, skip, out, stream);
+  }
+  if (id_bytes == 4 && code_bytes == 1) {
+    return run_lean<FormU8W>(ids, codes, vmin, vstep, doc_ids, qc, qv, B, R,
+                             SC, n_docs, W, skip, out, stream);
+  }
+  if (id_bytes == 4 && code_bytes == 2) {
+    return run_lean<FormU16W>(ids, codes, vmin, vstep, doc_ids, qc, qv, B,
+                              R, SC, n_docs, W, skip, out, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """K3's u8 form measured inside, on the operands of one of its calls.
 
-`inside(a)` takes the positional operands of a `score_docs_rowmajor_u8`
+`inside(a)` takes the positional operands of a `score_docs_rowmajor_lean`
 call (chip_smoke.py's phase 9 keeps those of one block-pool route batch)
 and holds the kernel against its plain version in both contracts (ids
 clamped; out-of-range ids skipped, as the block-pool tail calls it). It
@@ -135,7 +135,7 @@ def hold(k, p, what: str) -> dict:
 def plain(a, skip: bool):
     """The plain version in slices of 256 queries (bounding [rows, R, W])."""
     B = a[4].shape[0]
-    return torch.cat([rescore.score_docs_rowmajor_u8_plain(
+    return torch.cat([rescore.score_docs_rowmajor_lean_plain(
         *a[:4], a[4][r0:r0 + 256], a[5][r0:r0 + 256], a[6][r0:r0 + 256],
         a[7], skip_out_of_range=skip) for r0 in range(0, B, 256)])
 
@@ -144,7 +144,7 @@ def inside(a, reps: int = 10) -> dict:
     """The readings inside K3-u8 on a = its positional operands (module
     docstring). Kernel launches here count like any other: a caller that
     zeroes the launch counts does so after this."""
-    kern = rescore.score_docs_rowmajor_u8
+    kern = rescore.score_docs_rowmajor_lean
     rec = {"skip": bounds(a, True), "clamped": bounds(a, False)}
     for what, skip in (("skip", True), ("clamped", False)):
         k, p = kern(*a, skip_out_of_range=skip), plain(a, skip)

@@ -9,6 +9,8 @@ gamma-distributed impact scores. Deterministic given the seed.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from ..data.sparse import CsrDataset
@@ -26,11 +28,14 @@ def _zipf_probs(dim: int, alpha: float, rng: np.random.Generator):
     return p[np.argsort(perm)]  # probability per component id
 
 
+@functools.lru_cache(maxsize=2)
 def _topic_model(dim: int, n_topics: int, topic_nnz: int, alpha: float,
                  seed: int):
     """Latent topics: each topic is a set of components with affinities.
     Gives the synthetic data the co-occurrence structure of real text
-    (SPLADE expansions cluster by topic), unlike i.i.d. Zipf sampling."""
+    (SPLADE expansions cluster by topic), unlike i.i.d. Zipf sampling.
+    A collection and its queries share one model, so the last two are
+    kept (read-only: the callers index them and write nothing back)."""
     rng = np.random.default_rng([seed, 7919])
     probs = _zipf_probs(dim, alpha, rng)
     topic_comps = np.empty((n_topics, topic_nnz), dtype=np.int32)
@@ -75,6 +80,11 @@ def synth_dataset(
     )
     doc_topics = rng.integers(0, n_topics, size=(n_docs, topics_per_doc))
     n_top = (lengths * topic_frac).astype(np.int64)
+    # `rng.choice(dim, size=kb, p=probs)` is this inverse-CDF lookup of
+    # kb uniforms; the CDF is made once instead of once a document (an
+    # O(dim) pass each, the cost that grows with the vocabulary)
+    cdf = probs.cumsum()
+    cdf /= cdf[-1]
 
     comp_chunks, val_chunks, row_chunks = [], [], []
     # topic part: vectorized per doc via random slots of the topic
@@ -97,8 +107,8 @@ def synth_dataset(
                     * (0.6 + 0.8 * rng.random(kt).astype(np.float32))
                 )
             kb = int(lengths[d] - kt_total)
-            comp_chunks.append(rng.choice(dim, size=kb, p=probs).astype(
-                np.int32))
+            comp_chunks.append(cdf.searchsorted(
+                rng.random(kb), side="right").astype(np.int32))
             val_chunks.append(
                 (rng.gamma(2.0, 0.5, size=kb) + 0.03).astype(np.float32)
             )

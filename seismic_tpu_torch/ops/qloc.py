@@ -13,7 +13,10 @@ b = p // QC over list l = pair_list[p]:
 f32 projection the bf16/f32 scorer (K6) reads
 (`seismic_tpu/search/grouped.py:772-773`). Both launch the kernel for CUDA
 tensors and use the plain PyTorch versions, `project_qloc_quantize_plain`
-and `project_qloc_plain`, for CPU tensors.
+and `project_qloc_plain`, for CPU tensors. The vocabulary is int16 (-1
+padded) up to dim 32766 or int32 (PAD_COMPONENT padded) past it, as the
+JAX package reads `vocab16` or `list_vocab` (`grouped.py:705-710`); the
+kernel is one template on the code type, counted apart (`launches_i32`).
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import torch
 
 from . import _cuda
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: on an int16
+# vocabulary, and on an int32 one
 launches = 0
+launches_i32 = 0
 # XLA folds the JAX program's `/ 127.0` into a multiply by the f32
 # reciprocal (its algebraic simplifier rewrites division by a constant);
 # the port does the same multiply to stay bit-exact with it
@@ -71,12 +76,12 @@ def _lib():
     if _handle is None:
         lib = _cuda.load("qloc")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.seismic_qloc_quantize.argtypes = [p, p, p, p, i, i, i, i, p, p,
-                                              p]
+        lib.seismic_qloc_quantize.argtypes = [p, i, p, p, p, i, i, i, i, p,
+                                              p, p]
         lib.seismic_qloc_quantize.restype = ctypes.c_int
-        lib.seismic_qloc_f32.argtypes = [p, p, p, p, i, i, i, i, p, p]
+        lib.seismic_qloc_f32.argtypes = [p, i, p, p, p, i, i, i, i, p, p]
         lib.seismic_qloc_f32.restype = ctypes.c_int
-        lib.seismic_qloc_rowmajor.argtypes = [p, p, p, i, i, i, p, p, p]
+        lib.seismic_qloc_rowmajor.argtypes = [p, i, p, p, i, i, i, p, p, p]
         lib.seismic_qloc_rowmajor.restype = ctypes.c_int
         lib.seismic_qloc_residue.argtypes = [  # K9 (ops/qloc_residue.py)
             p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
@@ -87,10 +92,24 @@ def _lib():
     return _handle
 
 
+def check_vocab(vocab, what: str = "vocab"):
+    _cuda.require(vocab.dim() == 2
+                  and vocab.dtype in (torch.int16, torch.int32),
+                  f"{what} must be int16 or int32 [n, V]")
+
+
+def count_launch(vocab):
+    """Add one to the count of the vocabulary's width."""
+    global launches, launches_i32
+    if vocab.dtype == torch.int32:
+        launches_i32 += 1
+    else:
+        launches += 1
+
+
 def _check(vocab, pair_list, qc, qv, QC: int):
     req = _cuda.require
-    req(vocab.dim() == 2 and vocab.dtype == torch.int16,
-        "vocab must be int16 [n_lists, V]")
+    check_vocab(vocab)
     req(pair_list.dim() == 1 and pair_list.dtype == torch.int32,
         "pair_list must be int32 [P]")
     req(qc.dim() == 2 and qc.dtype == torch.int32, "qc must be int32 [B, SC]")
@@ -115,10 +134,10 @@ def _check_cuda(vocab, pair_list, qc, qv):
 
 
 def project_qloc_quantize(vocab, pair_list, qc, qv, QC: int):
-    """vocab int16 [n_lists, V] (-1 padded); pair_list int32 [P];
-    qc int32 / qv f32 [B, SC] the queries' top terms (PAD_COMPONENT / 0
-    padded), P == B * QC. Returns (q_i8 int8 [P, V], scale f32 [P])."""
-    global launches
+    """vocab int16 [n_lists, V] (-1 padded) or int32 (PAD_COMPONENT
+    padded); pair_list int32 [P]; qc int32 / qv f32 [B, SC] the queries'
+    top terms (PAD_COMPONENT / 0 padded), P == B * QC. Returns (q_i8 int8
+    [P, V], scale f32 [P])."""
     _check(vocab, pair_list, qc, qv, QC)
     dev = vocab.device
     if dev.type == "cpu":
@@ -129,17 +148,17 @@ def project_qloc_quantize(vocab, pair_list, qc, qv, QC: int):
     scale = torch.empty(P, dtype=torch.float32, device=dev)
     p = _cuda.ptr
     rc = lib.seismic_qloc_quantize(
-        p(vocab), p(pair_list), p(qc), p(qv), P, V, qc.shape[1], QC, p(out),
-        p(scale), ctypes.c_void_p(_cuda.stream_handle(dev)))
+        p(vocab), vocab.element_size(), p(pair_list), p(qc), p(qv), P, V,
+        qc.shape[1], QC, p(out), p(scale),
+        ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "qloc_quantize")
-    launches += 1
+    count_launch(vocab)
     return out, scale
 
 
 def project_qloc_f32(vocab, pair_list, qc, qv, QC: int):
     """The operands of `project_qloc_quantize`; returns the unquantized
     projection f32 [P, V]."""
-    global launches
     _check(vocab, pair_list, qc, qv, QC)
     dev = vocab.device
     if dev.type == "cpu":
@@ -149,8 +168,8 @@ def project_qloc_f32(vocab, pair_list, qc, qv, QC: int):
     out = torch.empty((P, V), dtype=torch.float32, device=dev)
     p = _cuda.ptr
     rc = lib.seismic_qloc_f32(
-        p(vocab), p(pair_list), p(qc), p(qv), P, V, qc.shape[1], QC, p(out),
-        ctypes.c_void_p(_cuda.stream_handle(dev)))
+        p(vocab), vocab.element_size(), p(pair_list), p(qc), p(qv), P, V,
+        qc.shape[1], QC, p(out), ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "qloc_f32")
-    launches += 1
+    count_launch(vocab)
     return out

@@ -14,7 +14,10 @@ reciprocal there too (interpret mode; tests/test_torch_qloc_modes.py holds
 both outputs bit for bit). The scale comes back as `[P]`, not the TPU's
 lane-replicated `[P, 128]`, and P needs no padding to a block of pairs.
 `project_qloc_rowmajor` launches the kernel for CUDA tensors and uses the
-plain PyTorch version, `project_qloc_rowmajor_plain`, for CPU tensors.
+plain PyTorch version, `project_qloc_rowmajor_plain`, for CPU tensors. The
+rows are int16 (-1 padded) or, past dim 32766, int32 (PAD_COMPONENT
+padded), as `grouped.py:669-672` gathers them; the two widths are counted
+apart (`launches_i32`).
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ import ctypes
 import torch
 
 from . import _cuda
-from .qloc import _lib, quantize_plain
+from .qloc import _lib, check_vocab, quantize_plain
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: on int16 rows, on
+# int32 rows
 launches = 0
+launches_i32 = 0
 
 
 def project_qloc_rowmajor_plain(vocab_rows, qc, qv):
@@ -42,13 +47,13 @@ def project_qloc_rowmajor_plain(vocab_rows, qc, qv):
 
 
 def project_qloc_rowmajor(vocab_rows, qc, qv):
-    """vocab_rows int16 [P, V] (-1 padded); qc int32 / qv f32 [P, SC] each
-    pair's query terms (PAD_COMPONENT / 0 padded). Returns (q_i8 int8
-    [P, V], scale f32 [P])."""
-    global launches
+    """vocab_rows int16 [P, V] (-1 padded) or int32 (PAD_COMPONENT
+    padded); qc int32 / qv f32 [P, SC] each pair's query terms
+    (PAD_COMPONENT / 0 padded). Returns (q_i8 int8 [P, V], scale f32
+    [P])."""
+    global launches, launches_i32
     req = _cuda.require
-    req(vocab_rows.dim() == 2 and vocab_rows.dtype == torch.int16,
-        "vocab_rows must be int16 [P, V]")
+    check_vocab(vocab_rows, "vocab_rows")
     req(qc.dim() == 2 and qc.dtype == torch.int32
         and qc.shape[0] == vocab_rows.shape[0], "qc must be int32 [P, SC]")
     req(qv.shape == qc.shape and qv.dtype == torch.float32,
@@ -70,8 +75,11 @@ def project_qloc_rowmajor(vocab_rows, qc, qv):
     scale = torch.empty(P, dtype=torch.float32, device=dev)
     p = _cuda.ptr
     rc = lib.seismic_qloc_rowmajor(
-        p(vocab_rows), p(qc), p(qv), P, V, SC, p(out), p(scale),
-        ctypes.c_void_p(_cuda.stream_handle(dev)))
+        p(vocab_rows), vocab_rows.element_size(), p(qc), p(qv), P, V, SC,
+        p(out), p(scale), ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "qloc_rowmajor")
-    launches += 1
+    if vocab_rows.dtype == torch.int32:
+        launches_i32 += 1
+    else:
+        launches += 1
     return out, scale

@@ -7,22 +7,28 @@ PyTorch around the hand-written kernels:
   1. top-`query_cut` query terms         -> stable top-k
   2. selected lists' block windows       -> index arithmetic
   3. block ranking                       -> dense-summary u8 product
-                                            ("dense") or u8 CSR summary
+                                            ("dense"), u8 CSR summary
                                             dequant + dense-query lookup
-                                            ("summary")
+                                            ("summary") or int8 block
+                                            sketches . the query sketch
+                                            ("sketch")
   4. heap_factor pruning + block budget  -> masked top-k
   5. candidate doc windows               -> posting gathers
+  6. coarse candidate ranking            -> int8 doc sketches . the
+                                            query sketch, top
+                                            `cand_budget` (optional)
   7. exact scoring                       -> forward-row gather + lookup
-                                            ("gather") or the fused
-                                            rescore kernel ("rescore")
+                                            ("gather") or the rescore
+                                            kernel ("rescore")
   8. dedup + final top-k                 -> sort-by-id mask
   9. optional k-NN refinement            -> neighbour gather + one round
 
 `doc_mode="tiles"` scores every posting of the selected lists with the
 per-pair tile scorer (`ops/tiles_scorer.py`) and prunes blocks through
-each posting's local block index. Step 6 of the JAX program (the sketch
-candidate ranking, `cand_budget > 0`) and `block_mode="sketch"` are not
-served yet.
+each posting's local block index. The sketch products of steps 3 and 6
+are XLA einsums outside any Pallas kernel in the JAX program, and
+batched products (`torch.bmm`) here; the query sketch is
+`ops/sketch.py::sketch_padded_queries`.
 
 Where the JAX program leans on XLA fusing a one-hot compare (its
 `_qloc_compare`, the overflow correction), this one looks the same
@@ -39,6 +45,7 @@ import torch
 
 from ..data.sparse import PAD_COMPONENT
 from ..ops.rescore import decode_fwd_rows, fwd_width, rescore_exact
+from ..ops.sketch import sketch_padded_queries
 from ..ops.tiles_prep import ll_pad_for
 from ..ops.tiles_scorer import score_tiles
 from ..types import DeviceIndex
@@ -55,11 +62,11 @@ class SearchParams:
     query_cut: int = 10
     # Blocks fully evaluated per query; 0 = all selected blocks.
     block_budget: int = 48
-    # Candidates exactly scored after coarse sketch ranking; only 0 (all)
-    # is served (ROADMAP.md, modules to port, item 5b).
+    # Candidates exactly scored after coarse sketch ranking; 0 = all.
     cand_budget: int = 0
     # "dense" ranks blocks with the per-list local-vocab u8 product;
-    # "summary" uses the u8 CSR summaries; "sketch" is not served yet.
+    # "summary" uses the u8 CSR summaries; "sketch" the experimental
+    # CountSketch ranker.
     block_mode: str = "dense"
     # "gather": gather forward rows, score against the dense query;
     # "tiles": score the list-aligned dense doc tiles per (query, list)
@@ -81,15 +88,7 @@ class SearchParams:
 
 
 def _check_supported(params: SearchParams) -> None:
-    if params.block_mode == "sketch":
-        raise NotImplementedError(
-            "block_mode='sketch' needs the device half of ops/sketch.py "
-            "(ROADMAP.md, modules to port, item 5b)")
-    if params.cand_budget > 0:
-        raise NotImplementedError(
-            "cand_budget > 0 needs the doc sketches (ROADMAP.md, modules "
-            "to port, item 5b)")
-    if params.block_mode not in ("dense", "summary"):
+    if params.block_mode not in ("dense", "summary", "sketch"):
         raise ValueError(f"unknown block_mode: {params.block_mode}")
     if params.doc_mode not in ("tiles", "gather", "rescore"):
         raise ValueError(f"unknown doc_mode: {params.doc_mode}")
@@ -148,7 +147,7 @@ def _lookup(qd, comps):
 def _decode_fwd_vals(tiles_vals, tiles_comps):
     """Gathered forward values as f32, 0 at padding. `tiles_comps` may
     be the int32 comps (PAD_COMPONENT padded) or a validity mask (bool).
-    u8 codes arrive decoded (`ops/rescore.py::decode_u8_rows`)."""
+    u8 codes arrive decoded (`ops/rescore.py::decode_lean_rows`)."""
     if tiles_comps.dtype == torch.bool:
         mask = tiles_comps
     else:
@@ -247,6 +246,22 @@ def _summary_block_scores(index: DeviceIndex, qd, block_ids):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+def _sketch_scores(codes, scale, ids, q_sk):
+    """int8 sketches `codes[ids]` [B, N, ds] . the query sketches q_sk
+    [B, ds], times `scale[ids]` -> [B, N]; the JAX program's einsum, as
+    batched products over query chunks that bound the gathered f32 rows."""
+    B, N = ids.shape
+    ds = codes.shape[1]
+    step = max(1, _GATHER_ELEMS // max(N * ds, 1))
+    out = torch.empty((B, N), dtype=torch.float32, device=ids.device)
+    for b0 in range(0, B, step):
+        idx = ids[b0:b0 + step].long()
+        rows = codes[idx].to(torch.float32)  # [b, N, ds]
+        out[b0:b0 + step] = (torch.bmm(rows, q_sk[b0:b0 + step, :, None])
+                             [..., 0] * scale[idx])
+    return out
+
+
 def _heap_threshold(theta, heap_factor: float):
     """heap_factor * theta, guarded: with fewer than k finite block
     scores theta is -inf and the product would be NaN at heap_factor 0."""
@@ -278,7 +293,7 @@ def _tiles_scorer_inputs(index: DeviceIndex, q_comps, q_vals, safe_lists,
     # The JAX `_qloc_compare`: qloc[b, l, v] = sum_i qv_i * [vocab[b, l, v]
     # == qc_i]. A list's vocab entries are distinct and so are a query's
     # terms, so at most one term matches a slot and the lookup is that sum.
-    qloc = _lookup(qd_top, index.vocab16[lists])
+    qloc = _lookup(qd_top, index.vocab[lists])
     return (qd_top, qloc, index.list_region_start[lists].contiguous(),
             index.list_len[lists].contiguous())
 
@@ -402,11 +417,13 @@ def _knn_refine(index: DeviceIndex, params: SearchParams, qd, top_scores,
 
 
 def _search_impl(index: DeviceIndex, q_comps, q_vals, heap_factor: float,
-                 params: SearchParams):
+                 params: SearchParams, sketch_dim: int = 128,
+                 sketch_seed: int = 42):
     """q_comps int32 [B, Q] (PAD_COMPONENT padded, sorted per row), q_vals
     f32 [B, Q] on the index's device; `heap_factor` a float already
-    rounded to f32. Returns (scores f32 [B, k], ids int32 [B, k], -1
-    where no result)."""
+    rounded to f32; the sketch width and seed those of the index's build
+    (`TpuLayout.sketch_dim` / `sketch_seed`). Returns (scores f32 [B, k],
+    ids int32 [B, k], -1 where no result)."""
     _check_supported(params)
     B = q_comps.shape[0]
     dev = q_comps.device
@@ -443,17 +460,27 @@ def _search_impl(index: DeviceIndex, q_comps, q_vals, heap_factor: float,
     bmask = bmask.reshape(B, QC * MB)
 
     # ---- 3. block ranking ----
+    q_sk = None
     if params.block_mode == "dense":
         if index.dense_summary is None:
             raise ValueError("block_mode='dense' needs an index built with "
                              "dense summaries (summary_vocab_cap > 0)")
-        if index.vocab16 is None:
+        if index.vocab is None:
             raise ValueError("block_mode='dense' reads the list "
                              "vocabularies, which an upload with tile_hash "
                              "leaves out; use block_mode='summary'")
-        qloc = _lookup(qd, index.vocab16[lists])  # [B, QC, V]
+        qloc = _lookup(qd, index.vocab[lists])  # [B, QC, V]
         block_scores = _dense_block_scores(index, lbs, qloc, MB).reshape(
             B, QC * MB)
+    elif params.block_mode == "sketch":
+        if index.block_sketch is None:
+            raise ValueError("block_mode='sketch' needs an index built "
+                             "with sketches (sketch_dim > 0)")
+        q_sk = sketch_padded_queries(q_comps, q_vals, sketch_dim,
+                                     sketch_seed)
+        block_scores = _sketch_scores(index.block_sketch,
+                                      index.block_sketch_scale, block_ids,
+                                      q_sk)
     else:
         if index.summary_comps is None:
             raise ValueError("block_mode='summary' needs an index built "
@@ -496,6 +523,22 @@ def _search_impl(index: DeviceIndex, q_comps, q_vals, heap_factor: float,
         scores, ppos = _top_k(scores, pool)
         cand_ids = torch.gather(cand_ids, 1, ppos)
     else:
+        # ---- 6. coarse candidate ranking (sketch) ----
+        NE = min(params.cand_budget if params.cand_budget > 0 else NC, NC)
+        if NE < NC:
+            if index.doc_sketch is None:
+                raise ValueError("cand_budget > 0 needs an index built "
+                                 "with sketches (sketch_dim > 0)")
+            if q_sk is None:
+                q_sk = sketch_padded_queries(q_comps, q_vals, sketch_dim,
+                                             sketch_seed)
+            coarse = _sketch_scores(index.doc_sketch,
+                                    index.doc_sketch_scale, safe_cand, q_sk)
+            coarse = torch.where(cmask, coarse, -torch.inf)
+            _, keep = _top_k(coarse, NE)
+            cand_ids = torch.gather(cand_ids, 1, keep)
+            cmask = torch.gather(cmask, 1, keep)
+            safe_cand = cand_ids.clamp(max=n_docs - 1)
         # ---- 7. exact scoring ----
         scores = _exact_scores(index, qd, safe_cand)
         scores = torch.where(cmask, scores, -torch.inf)
@@ -513,18 +556,20 @@ def _search_impl(index: DeviceIndex, q_comps, q_vals, heap_factor: float,
 
 
 def search_batch(index: DeviceIndex, q_comps, q_vals, params: SearchParams,
-                 heap_factor: float = 0.7):
+                 heap_factor: float = 0.7, sketch_dim: int = 128,
+                 sketch_seed: int = 42):
     """NumPy in, NumPy out, on the index's device: q_comps int32 /
     q_vals f32 [B, Q] padded queries -> (scores f32 [B, k], ids int64
     [B, k], -1 where no result). `heap_factor` is rounded to f32 before
     it multiplies the block-score threshold, as the JAX program's traced
-    f32 scalar is."""
+    f32 scalar is. `sketch_dim` / `sketch_seed` are those the index's
+    sketches were built with (`block_mode="sketch"`, `cand_budget`)."""
     dev = index.device
     scores, ids = _search_impl(
         index,
         torch.from_numpy(np.ascontiguousarray(q_comps, np.int32)).to(dev),
         torch.from_numpy(np.ascontiguousarray(q_vals, np.float32)).to(dev),
         float(np.float32(heap_factor)),
-        params,
+        params, sketch_dim, sketch_seed,
     )
     return scores.cpu().numpy(), ids.to(torch.int64).cpu().numpy()

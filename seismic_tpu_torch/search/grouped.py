@@ -490,6 +490,10 @@ def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
     tv = top_v[:, :scq].contiguous()
     if index.tile_hash:
         return _project_hashed(index.tile_hash, tc, tv, QC, i8)
+    # int16 vocab up to dim 32766, int32 past it (the JAX package's
+    # vocab16 / list_vocab choice, grouped.py:669-672, 705-710): K1 and
+    # K8 take either
+    vocab = index.vocab
     R = index.vocab_residue
     if params.qloc_mode == "rowmajor":
         if R:
@@ -497,13 +501,13 @@ def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
         # the kernel's contract (K8): every pair brings its vocab row and
         # its term row
         return project_qloc_rowmajor(
-            index.vocab16[pair_list.long()],
+            vocab[pair_list.long()],
             tc.repeat_interleave(QC, dim=0), tv.repeat_interleave(QC, dim=0))
     if params.qloc_mode == "einsum":
         # JAX's `_qloc_compare`; a slot matches at most one term, so the
         # one-hot sum is a lookup in the dense copy of the top terms
         qd = densify_query_batch(tc, tv, index.dim)
-        qloc = _lookup(qd, index.vocab16[plan.pair_list.long()]).reshape(
+        qloc = _lookup(qd, vocab[plan.pair_list.long()]).reshape(
             pair_list.shape[0], -1)
         return quantize_plain(qloc) if i8 else (qloc, None)
     if R:
@@ -512,8 +516,8 @@ def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
                                    tv, QC, R, params.residue_scb, quantize=i8)
         return out if i8 else (out, None)
     if i8:
-        return project_qloc_quantize(index.vocab16, pair_list, tc, tv, QC)
-    return project_qloc_f32(index.vocab16, pair_list, tc, tv, QC), None
+        return project_qloc_quantize(vocab, pair_list, tc, tv, QC)
+    return project_qloc_f32(vocab, pair_list, tc, tv, QC), None
 
 
 def hashed_qloc_operands(V: int, tc, tv):

@@ -8,23 +8,29 @@ tensors (`DeviceIndex`):
 - the list-aligned doc tiles, u8 `[rows, V]`, with one f32 scale per row
   (the TPU layout's int8 view and 8x-replicated scale blocks were Mosaic
   constraints and are not carried over);
-- the per-list local vocabularies (`vocab16`, int16 with -1 padding;
-  none for hashed tiles, `tile_hash`), each list's max posting value
-  (`list_weight`, the weighted list cut) and, on request, per-super-tile
-  upper bounds of the tiles (`super_summary`, the streaming budget);
-- the forward rows read by the exact rescore, in one of two forms: the
+- the per-list local vocabularies: `vocab16`, int16 with -1 padding, up
+  to dim 32766, and past it `list_vocab`, int32 with PAD_COMPONENT
+  padding (the JAX `DeviceIndex`'s two fields; none for hashed tiles,
+  `tile_hash`), each list's max posting value (`list_weight`, the
+  weighted list cut) and, on request, per-super-tile upper bounds of the
+  tiles (`super_summary`, the streaming budget);
+- the forward rows read by the exact rescore, in one of three forms: the
   fused rows `fwd_fused` `[n_docs, 2W]` int32 (component ids | f32 value
-  bits), or, for an index with u8 values (`fwd_val_min` set: the lean
-  form of `SeismicIndexDotVByte`), int16 ids `fwd_comps16` (-1 padded),
-  the u8 codes `fwd_vals` and each document's f32 `fwd_val_min` /
-  `fwd_val_step` (value = code * step + min), with no fused rows and no
-  int32 ids;
+  bits); with `fwd_f16=True` and dim <= 32766 the half-width fused rows
+  `fwd_fused16` `[n_docs, W]` int32 (id int16 << 16 | f16 value bits, -1
+  / +0.0 at padding); or, for an index with u8 / u16 codes (`fwd_val_min`
+  set: the lean form), the ids (`fwd_comps16` int16 -1 padded up to dim
+  32766, `fwd_comps` int32 PAD_COMPONENT padded past it), the codes
+  `fwd_vals` (uint8, or the u16 codes' bits as int16: torch's uint16
+  has no gather on the card) and each document's f32 `fwd_val_min` /
+  `fwd_val_step` (value = code * step + min);
 - the posting array and the list geometry (effective, with each list's
   row offset `list_row_off`, on bin-packed views);
 - what the engine path reads on top of those, each `None` when the build
   left it out: the block geometry, the dense and the u8 CSR block
   summaries, each posting's block index within its list, the per-posting
-  overflow entries and the k-NN graph.
+  overflow entries, the int8 block and document sketches and the k-NN
+  graph.
 """
 
 from __future__ import annotations
@@ -359,7 +365,8 @@ class IndexArrays:
     # ------------------------------------------------------------- device
     def to_device(self, device=None, tile_csub: int = 1,
                   vocab_residue: int = 0, tile_hash: int = 0,
-                  super_summaries: bool = False) -> "DeviceIndex":
+                  super_summaries: bool = False,
+                  fwd_f16: bool = False) -> "DeviceIndex":
         """Upload what the search routes read to `device` (None means
         "cuda"; raises when CUDA is absent rather than falling back to the
         CPU). Builds the list-aligned tile layout on the host when the
@@ -377,8 +384,13 @@ class IndexArrays:
         view (`pack_bins`) is served with its EFFECTIVE geometry, as in
         the JAX package: `list_row_off` holds each list's row offset in
         its bin, `list_len` is row_off + len and `list_post_start` is
-        start - row_off, so every planner works on it unchanged. Fields
-        the build left out stay `None`."""
+        start - row_off, so every planner works on it unchanged.
+        `fwd_f16=True` uploads the half-width fused rows (`fwd_fused16`)
+        in place of `fwd_fused` where the JAX package does: values not
+        in the lean form and dim <= 32766 (elsewhere it is ignored, as
+        there). Past dim 32766 the vocabularies and the lean form's ids
+        go up as int32 (`list_vocab`, `fwd_comps`). Fields the build left
+        out stay `None`."""
         import torch
 
         from .ops.tiles_prep import (
@@ -388,26 +400,24 @@ class IndexArrays:
         )
         from .device import resolve_device
 
+        wide = self.dim > 32766
+        if (vocab_residue or self.vocab_residue) and wide:
+            raise NotImplementedError(
+                "vocab_residue past dim 32766: K9 keys its table by (id, "
+                "bucket) packed for int16 ids (ROADMAP.md, modules to "
+                "port, item 1: K9 at int32)")
         if vocab_residue and self.vocab_residue == 0:
             return residue_permute_arrays(self, vocab_residue).to_device(
                 device, tile_csub, tile_hash=tile_hash,
-                super_summaries=super_summaries)
+                super_summaries=super_summaries, fwd_f16=fwd_f16)
         dev = resolve_device(device)
         if tile_csub < 1:
             raise ValueError(f"tile_csub={tile_csub} must be >= 1")
-        if self.dim > 32766:
-            raise NotImplementedError(
-                "dims past the int16 twins (> 32766) need an int32 vocab in "
-                "K1 and int32 forward ids beside u8 values in K3; not "
-                "ported yet (ROADMAP.md, modules to port, item 1)"
-            )
-        if (self.fwd_val_min is not None
-                and np.asarray(self.fwd_vals).dtype != np.uint8):
-            raise NotImplementedError(
-                f"{np.asarray(self.fwd_vals).dtype} forward codes: the lean "
-                "forward form reads u8 codes only (ROADMAP.md, modules to "
-                "port, item 5b)"
-            )
+        if (self.fwd_val_min is not None and np.asarray(self.fwd_vals).dtype
+                not in (np.uint8, np.uint16)):
+            raise ValueError(
+                f"{np.asarray(self.fwd_vals).dtype} forward codes beside "
+                "fwd_val_min: the lean form holds u8 or u16 codes")
         if tile_hash and (self.doc_tiles is None
                           or self.doc_tiles.shape[1] != tile_hash):
             raise ValueError("tile_hash requires hash_retile'd doc tiles of "
@@ -429,25 +439,38 @@ class IndexArrays:
         if self.doc_tiles is not None:
             tiles_u8, tile_scale, region_start, row_off = (
                 prepare_pallas_tiles(self, tile_csub))
-        lv = self.list_vocab
-        if lv is not None and not tile_hash:
-            lv = np.asarray(lv)
-            lv = np.where(lv == PAD_COMPONENT, -1, lv)
-        else:
-            lv = None  # hashed tiles never read the vocabulary
+        vocab = {"vocab16": None}
+        if self.list_vocab is not None and not tile_hash:
+            # hashed tiles never read the vocabulary
+            lv = np.asarray(self.list_vocab)
+            if wide:
+                vocab["list_vocab"] = put(lv, np.int32)
+            else:
+                vocab["vocab16"] = put(np.where(lv == PAD_COMPONENT, -1, lv),
+                                       np.int16)
         fc = np.asarray(self.fwd_comps, dtype=np.int32)
         fwd = {}
         if self.fwd_val_min is None:
             fv = np.asarray(self.fwd_vals, dtype=np.float32)
-            fwd["fwd_fused"] = put(
-                np.concatenate([fc, fv.view(np.int32)], axis=1))
+            if fwd_f16 and not wide:
+                fwd["fwd_fused16"] = put(fused16_rows(fc, fv))
+            else:
+                fwd["fwd_fused"] = put(
+                    np.concatenate([fc, fv.view(np.int32)], axis=1))
         else:
-            # the lean u8 form (the JAX package's to_device with
-            # lean_fwd=True): int16 ids, u8 codes, per-doc (min, step)
+            # the lean form (the JAX package's to_device with
+            # lean_fwd=True): int16 ids up to dim 32766, int32 past it;
+            # u8 codes, or the u16 codes' bits as int16; per-doc (min,
+            # step)
+            codes = np.asarray(self.fwd_vals)
+            if wide:
+                fwd["fwd_comps"] = put(fc)
+            else:
+                fwd["fwd_comps16"] = put(
+                    np.where(fc == PAD_COMPONENT, -1, fc), np.int16)
             fwd.update(
-                fwd_comps16=put(np.where(fc == PAD_COMPONENT, -1, fc),
-                                np.int16),
-                fwd_vals=put(self.fwd_vals, np.uint8),
+                fwd_vals=put(codes.view(np.int16)
+                             if codes.dtype == np.uint16 else codes),
                 fwd_val_min=put(self.fwd_val_min, np.float32),
                 fwd_val_step=put(self.fwd_val_step, np.float32))
         list_weight = None
@@ -471,7 +494,7 @@ class IndexArrays:
             doc_tiles_aligned=tiles_t,
             tile_scale=scale_t,
             list_region_start=put(region_start, np.int32),
-            vocab16=put(lv, np.int16),
+            **vocab,
             **fwd,
             postings=put(self.postings, np.int32),
             list_post_start=put(ps),
@@ -493,6 +516,10 @@ class IndexArrays:
             posting_block_local=put(self.posting_block_local, np.int32),
             tile_ovf_comps=put(self.tile_ovf_comps),
             tile_ovf_vals=put(self.tile_ovf_vals),
+            block_sketch=put(self.block_sketch),
+            block_sketch_scale=put(self.block_sketch_scale, np.float32),
+            doc_sketch=put(self.doc_sketch),
+            doc_sketch_scale=put(self.doc_sketch_scale, np.float32),
             knn=put(self.knn, np.int32),
             dim=self.dim,
             n_docs=self.n_docs,
@@ -514,7 +541,9 @@ class DeviceIndex:
     tile_scale: object  # f32 [n_sub_total * 128] dequant scale per row
     # int32 [n_lists] subtile start of each list (a multiple of tile_csub)
     list_region_start: object
-    vocab16: object  # int16 [n_lists, V] (-1 padded); None when hashed
+    # int16 [n_lists, V] (-1 padded) up to dim 32766; None when hashed
+    # or past it
+    vocab16: object
     postings: object  # int32 [total_postings_pad] doc ids
     # int32 [n_lists]; EFFECTIVE on bin-packed views (start - row_off,
     # row_off + len)
@@ -529,10 +558,19 @@ class DeviceIndex:
     # (to_device(super_summaries=True), the streaming budget)
     super_summary: object = None
     super_scale: object = None
-    # --- the forward rows: fused, or the lean u8 form (the other None) ---
+    # int32 [n_lists, V] (PAD_COMPONENT padded) past dim 32766, in place
+    # of vocab16
+    list_vocab: object = None
+    # --- the forward rows: one form (the other fields None) ---
     fwd_fused: object = None  # int32 [n_docs, 2W]: comps | f32 value bits
-    fwd_comps16: object = None  # int16 [n_docs, W], -1 padded
-    fwd_vals: object = None  # uint8 [n_docs, W] codes
+    # int32 [n_docs, W]: (id int16 << 16) | f16 value bits, -1 / +0.0 pad
+    fwd_fused16: object = None
+    # the lean form: ids int16 [n_docs, W] (-1 padded) up to dim 32766,
+    # else int32 (PAD_COMPONENT padded) in fwd_comps
+    fwd_comps16: object = None
+    fwd_comps: object = None
+    # codes [n_docs, W]: uint8, or u16 codes held as int16 bits
+    fwd_vals: object = None
     fwd_val_min: object = None  # f32 [n_docs]
     fwd_val_step: object = None  # f32 [n_docs]
     # --- read by the engine path only ---
@@ -550,6 +588,12 @@ class DeviceIndex:
     # int16 (-1 padded) or int32 (PAD_COMPONENT padded) [postings_pad, O]
     tile_ovf_comps: object = None
     tile_ovf_vals: object = None  # f16 [postings_pad, O]
+    # int8 CountSketches (ops/sketch.py) and their f32 scales:
+    # block_mode="sketch" and cand_budget > 0
+    block_sketch: object = None  # int8 [n_blocks_pad, ds]
+    block_sketch_scale: object = None  # f32 [n_blocks_pad]
+    doc_sketch: object = None  # int8 [n_docs, ds]
+    doc_sketch_scale: object = None  # f32 [n_docs]
     knn: object = None  # int32 [n_docs, nknn]
     dim: int = 0
     n_docs: int = 0
@@ -566,6 +610,12 @@ class DeviceIndex:
     def device(self):
         return self.postings.device
 
+    @property
+    def vocab(self):
+        """The list vocabularies in whichever width they were uploaded
+        (`vocab16` or `list_vocab`); None on hashed tiles."""
+        return self.vocab16 if self.vocab16 is not None else self.list_vocab
+
 
     def nbytes(self) -> int:
         """Bytes of every tensor this index holds on its device."""
@@ -574,6 +624,19 @@ class DeviceIndex:
             for t in (getattr(self, f.name) for f in dataclasses.fields(self))
             if hasattr(t, "element_size")
         )
+
+
+def fused16_rows(fwd_comps, fwd_vals) -> np.ndarray:
+    """The JAX package's half-width fused rows (`seismic_tpu/types.py:
+    417-438`) of forward rows with ids <= 32766: int32 [n_docs, W], one
+    word a slot, (id int16 << 16) | the f16 bits of the value; padding
+    -1 / +0.0."""
+    fc = np.asarray(fwd_comps)
+    comp16 = np.where(fc == PAD_COMPONENT, -1, fc).astype(np.int16)
+    val16 = np.asarray(fwd_vals, dtype=np.float32).astype(np.float16)
+    val16[comp16 < 0] = np.float16(0.0)
+    return ((comp16.astype(np.int32) << 16)
+            | val16.view(np.uint16).astype(np.int32))
 
 
 def _list_weights(doc_tile_scale, list_post_start, list_len):

@@ -19,7 +19,7 @@ against the JAX package, all on the CPU, on one synthetic u8 index
   JAX's, and `SeismicIndexDotVByte` built without dense summaries on the
   hashed block route against JAX's class;
 - the lean upload, the engine's exact scores on it, `build_knn` refused,
-  and u16 codes raising with their ROADMAP item."""
+  and u16 codes scored as JAX's `rescore_exact` scores them."""
 
 import dataclasses
 import json
@@ -346,16 +346,41 @@ def test_unported_parts_raise(setup, case):
     """The hashed block rows, the bin-packed view and an index without
     dense summaries (which the API route serves on the hashed view) equal
     the JAX package's: the views array for array, the packed aligned
-    layout with its row offsets, the hashed block upload. u16 codes
-    beside a per-doc min / step (ROADMAP item 5b) still raise."""
+    layout with its row offsets, the hashed block upload; u16 codes
+    beside a per-doc min / step are scored as JAX's rescore scores
+    them."""
     from seismic_tpu.ops.pallas_tiles import block_pool_arrays as j_view
     from seismic_tpu.ops_pallas_prep import prepare_pallas_tiles as j_prep
 
-    _, ja, ta, _, _ = setup
+    _, ja, ta, qc, qv = setup
     if case == "u16_codes":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 5b"):
-            dataclasses.replace(
-                ta, fwd_vals=ta.fwd_vals.astype(np.uint16)).to_device("cpu")
+        # u16 codes (the convert pass) upload in the lean form and K3's
+        # plain version scores them as JAX's rescore_exact does on its
+        # lean upload of the block view (interpret mode), 1e-5 relative
+        from seismic_tpu.build.convert import convert_index as j_convert
+        from seismic_tpu.ops.pallas_rescore import rescore_exact as j_rescore
+        from seismic_tpu.ops.pallas_tiles import block_pool_arrays as j_view
+
+        from seismic_tpu_torch.build.convert import convert_index
+
+        j16, t16 = j_convert(ja, "u16"), convert_index(ta, "u16")
+        jdev = j_view(j16, 256, mode="dense").to_device(pallas_tiles=True,
+                                                        lean_fwd=True)
+        tdev = tiles_prep.block_pool_arrays(t16, 256, mode="dense").to_device(
+            "cpu")
+        assert tdev.fwd_vals.dtype == torch.int16  # the u16 codes' bits
+        assert tdev.fwd_comps16 is not None and tdev.fwd_fused is None
+        q_comps, q_vals = pad_queries(qc, qv, 64)
+        top_c, top_v, sc = tengine._query_terms(
+            torch.from_numpy(q_comps), torch.from_numpy(q_vals), 32)
+        ids = np.random.default_rng(7).integers(
+            -2, ta.n_docs + 3, size=(len(qc), 40)).astype(np.int32)
+        want = np.asarray(j_rescore(jdev, ids, top_c.numpy(), top_v.numpy(),
+                                    sc, interpret=True))
+        got = trescore.rescore_exact(tdev, torch.from_numpy(ids), top_c,
+                                     top_v, sc).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        assert (want > 0).mean() > 0.5
         return
     if case == "no_dense":
         import seismic_tpu as jax_pkg

@@ -180,7 +180,8 @@ def test_port_imports_no_jax_and_no_seismic_tpu():
     in an import statement."""
     sources = _port_sources()
     mods = [m for m, _ in sources]
-    for m in ("api", "data.io", "search.exact", "search.knn"):
+    for m in ("api", "data.io", "search.exact", "search.knn",
+              "build.convert", "search.flat", "ops.sketch"):
         assert f"seismic_tpu_torch.{m}" in mods, m
     for mod, path in sources:
         with open(path) as fh:

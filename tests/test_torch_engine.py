@@ -294,25 +294,53 @@ def test_api_knn_needs_a_graph(setup, api_pair):
 
 @pytest.mark.parametrize("case", ["sketch", "cand_budget", "u8_forward"])
 def test_unported_parts_raise(setup, device_index, case):
-    """What is left for a later slice says so, with its ROADMAP item."""
+    """What earlier slices refused is served and equals the JAX program:
+    `block_mode="sketch"` (int8 block sketches . the query sketch; the
+    sketches of the NumPy build path, `summary_block_sketches`) and
+    `cand_budget=32` (the doc-sketch pre-rank) on the gather doc mode,
+    and u8 forward values past dim 32766 (the lean upload with int32 ids
+    beside the codes, the index's dim raised to 40000) on the gather and
+    rescore doc modes; the repo's gate (id sets on >= 98% of queries,
+    scores to 1e-3 relative)."""
     _, built, _, _, q_comps, q_vals = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "sketch":
-            search_batch(device_index[0], q_comps, q_vals,
-                         SearchParams(block_mode="sketch"))
-        elif case == "cand_budget":
-            search_batch(device_index[0], q_comps, q_vals,
-                         SearchParams(cand_budget=32))
-        else:
-            # u8 forward values upload in the lean form (int16 ids) up to
-            # dim 32766; past it they need int32 ids beside the codes
-            ta = built[0][2]
-            n = ta.n_docs
-            dataclasses.replace(
-                ta, fwd_vals=np.zeros(ta.fwd_comps.shape, np.uint8),
-                fwd_val_min=np.zeros(n, np.float32),
-                fwd_val_step=np.ones(n, np.float32),
-                dim=40000).to_device("cpu")
+    ja, jdev, ta = built[0]
+    kw = dict(k=K, query_cut=QC, block_budget=24)
+    if case == "sketch":
+        # the native build keeps no block sketches: both sides take those
+        # of the NumPy build path, made from the index's CSR summaries
+        from seismic_tpu_torch.build.builder import summary_block_sketches
+
+        sk = dict(zip(("block_sketch", "block_sketch_scale"),
+                      summary_block_sketches(ta, 128, 42)))
+        cases = [(dataclasses.replace(ta, **sk).to_device("cpu"),
+                  dataclasses.replace(ja, **sk).to_device(pallas_tiles=True),
+                  dict(block_mode="sketch", **kw))]
+    elif case == "cand_budget":
+        cases = [(device_index[0], jdev, dict(cand_budget=32, **kw))]
+    else:
+        from seismic_tpu.build.convert import convert_index as j_convert
+
+        from seismic_tpu_torch.build.convert import convert_index
+
+        ja8 = dataclasses.replace(j_convert(ja, "u8"), dim=40000)
+        t8 = dataclasses.replace(convert_index(ta, "u8"),
+                                 dim=40000).to_device("cpu")
+        assert t8.fwd_comps.dtype == torch.int32 and t8.fwd_comps16 is None
+        assert t8.list_vocab.dtype == torch.int32 and t8.vocab16 is None
+        j8 = ja8.to_device(pallas_tiles=True)
+        cases = [(t8, j8, dict(doc_mode=m, **kw))
+                 for m in ("gather", "rescore")]
+    for tdev, jd, params in cases:
+        s_t, i_t = search_batch(tdev, q_comps, q_vals, SearchParams(**params),
+                                heap_factor=0.7)
+        s_j, i_j = _jax_search(jd, q_comps, q_vals, 0.7, **params)
+        s_j, i_j = np.asarray(s_j), np.asarray(i_j)
+        _assert_gate(s_t, i_t, s_j, i_j)
+        assert np.isfinite(s_t).any()
+        if case != "u8_forward":
+            # the same ranking, exact scores summed in another order
+            fin = np.isfinite(s_j)
+            np.testing.assert_allclose(s_t[fin], s_j[fin], rtol=1e-5)
 
 
 def test_tiles_mode_needs_csub_1(setup):

@@ -284,7 +284,7 @@ def test_k3_u8_plain_matches_jax_on_edge_rows(jax_k3_u8, case):
     args = _k3_u8_operands()
     b = K3_CASES.index(case)
     before = rescore.launches_u8
-    out = rescore.score_docs_rowmajor_u8(
+    out = rescore.score_docs_rowmajor_lean(
         *(torch.from_numpy(a) for a in args), N_DOCS).numpy()
     assert rescore.launches_u8 == before  # CPU tensors: the plain version
     np.testing.assert_allclose(out[b], jax_k3_u8[b], rtol=1e-5, atol=0)
@@ -300,9 +300,9 @@ def test_cuda_k3_u8_matches_plain_on_edge_rows(W):
     dev = _card()
     args = tuple(torch.from_numpy(a).to(dev) for a in _k3_u8_operands(W))
     before = rescore.launches_u8
-    k = rescore.score_docs_rowmajor_u8(*args, N_DOCS)
+    k = rescore.score_docs_rowmajor_lean(*args, N_DOCS)
     assert rescore.launches_u8 == before + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(
-        k, rescore.score_docs_rowmajor_u8_plain(*args, N_DOCS), rtol=1e-5,
+        k, rescore.score_docs_rowmajor_lean_plain(*args, N_DOCS), rtol=1e-5,
         atol=0)

@@ -278,7 +278,7 @@ def test_row_schedule_writes_every_slot_once(R, skip):
     and exactly 0 where that is 0."""
     comps16, codes, vmin, vstep, _, qc, qv = _operands(256)
     ids = _slot_ids(R, qc.shape[0])
-    got = rescore.score_docs_rowmajor_u8(
+    got = rescore.score_docs_rowmajor_lean(
         *(torch.from_numpy(x) for x in (comps16, codes, vmin, vstep, ids,
                                         qc, qv)),
         N_DOCS, skip_out_of_range=skip).numpy()
@@ -400,9 +400,9 @@ def test_operands_hit_the_edges():
     args = tuple(torch.from_numpy(a) for a in
                  (comps16, codes, vmin, vstep, ids, qc, qv))
     before = rescore.launches_u8
-    clamped = rescore.score_docs_rowmajor_u8(*args, N_DOCS)
-    skipped = rescore.score_docs_rowmajor_u8(*args, N_DOCS,
-                                             skip_out_of_range=True)
+    clamped = rescore.score_docs_rowmajor_lean(*args, N_DOCS)
+    skipped = rescore.score_docs_rowmajor_lean(*args, N_DOCS,
+                                               skip_out_of_range=True)
     assert rescore.launches_u8 == before  # CPU tensors: the plain version
     real = (ids >= 0) & (ids < N_DOCS)
     assert torch.isneginf(skipped[torch.from_numpy(~real)]).all()
@@ -418,12 +418,12 @@ def test_cuda_k3_u8_matches_plain(W, skip):
     dev = _card()
     args = tuple(torch.from_numpy(a).to(dev) for a in _operands(W))
     before = rescore.launches_u8
-    k = rescore.score_docs_rowmajor_u8(*args, N_DOCS,
-                                       skip_out_of_range=skip)
+    k = rescore.score_docs_rowmajor_lean(*args, N_DOCS,
+                                         skip_out_of_range=skip)
     assert rescore.launches_u8 == before + 1
     torch.cuda.synchronize()
-    p = rescore.score_docs_rowmajor_u8_plain(*args, N_DOCS,
-                                             skip_out_of_range=skip)
+    p = rescore.score_docs_rowmajor_lean_plain(*args, N_DOCS,
+                                               skip_out_of_range=skip)
     assert torch.equal(torch.isneginf(k), torch.isneginf(p))
     fin = torch.isfinite(p)
     torch.testing.assert_close(k[fin], p[fin], rtol=1e-5, atol=0)
@@ -442,11 +442,11 @@ def test_cuda_k3_u8_row_counts_match_plain(R, skip):
     ids = _slot_ids(R, qc.shape[0])
     args = tuple(torch.from_numpy(a).to(dev) for a in
                  (comps16, codes, vmin, vstep, ids, qc, qv))
-    k = rescore.score_docs_rowmajor_u8(*args, N_DOCS,
-                                       skip_out_of_range=skip)
+    k = rescore.score_docs_rowmajor_lean(*args, N_DOCS,
+                                         skip_out_of_range=skip)
     torch.cuda.synchronize()
-    p = rescore.score_docs_rowmajor_u8_plain(*args, N_DOCS,
-                                             skip_out_of_range=skip)
+    p = rescore.score_docs_rowmajor_lean_plain(*args, N_DOCS,
+                                               skip_out_of_range=skip)
     assert torch.equal(torch.isneginf(k), torch.isneginf(p))
     fin = torch.isfinite(p)
     torch.testing.assert_close(k[fin], p[fin], rtol=1e-5, atol=0)
