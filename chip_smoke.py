@@ -216,7 +216,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    queries: top-10 agreement with `exact_search` >= 0.9 and scores within
    2% of the exact dots (u8 quantization), wall time; (d) last, every
    earlier index freed: `SeismicIndexRawLV.build_from_csr` on
-   `synth_dataset(n, dim=250_002, seed=7)` (XLM-RoBERTa's vocabulary, BGE-
+   `synth_dataset(50_000, dim=250_002, seed=7)` (the corpus cut to half to
+   fit the time limit; XLM-RoBERTa's vocabulary, BGE-
    M3's sparse head) at the API cell's pruning and layout with
    summary_vocab_cap 512, its bytes printed first; 4096 queries at
    heap_factor 0 (K1 on the int32 vocabulary, K2, K3), K1 and K8 on int32
@@ -224,11 +225,44 @@ Phases (any failure exits non-zero, and no result line is printed):
    the row-major projection's batch (K8 on int32 rows) equal to the
    lane-major one, every score exact, the kernel path against the
    plain-scorer path on 256 queries (id sets >= 98%), recall@10 against a
-   brute-force product; `convert("u8")` and the same batch (K3 on int32
+   brute-force product; the same arrays uploaded with `vocab_residue=8`
+   (the other uploads freed first) and the batch through K9 on the int32
+   vocabulary (window `lv_residue`): K9-int32 bit-exact against its plain
+   version on the batch's operands, timed beside its bound and K1-int32,
+   its ptxas report, every score exact, recall@10 beside the plain
+   upload's; `convert("u8")` and the same batch (K3 on int32
    ids beside u8 codes, against its plain version); one engine batch at
    heap_factor 0.8 (K7). Every rescore_lean_kernel instance's ptxas report
    (twenty: five forms x two load variants x two contracts) is read in
-   phase 9; a spill fails.
+   phase 9; a spill fails. Phase 4 also caches its aligned tile layout
+   (`ops/tiles_prep.py::load_or_build_aligned`, after phase 11a) beside
+   the index saved in a temporary directory: the first call (build and
+   write) and the second (memory-mapped) timed, the bytes written, an
+   upload from the cache (`to_device(aligned=...)`) equal to the plain
+   upload, and one B=4096 call on it equal to the plain upload's bit for
+   bit; the directory is removed;
+12. document-sharded search (`parallel/`), right after phase 3's index is
+   freed, on phase 3's corpus and 4096 queries padded as the API pads
+   them, meshes of `cuda:i % count` (one card holds every shard, four
+   cards one each): (a) `ShardedIndex.build` into 4 shards at the API
+   cell's layout (f16 values, V=1024, csub 1; each shard keeps a quarter
+   of the cell's list budget, 50 postings a term, so the shards hold as
+   many postings as phase 3's index), the grouped route at
+   heap_factor 0 with the API's `GroupedParams` (K1, K2, K3; window
+   `sharded`): recall@10 on 256 queries no more than 0.005 under phase
+   3's, the merge equal to a host lexsort of the shards' results bit for
+   bit, mesh 2x4 (the same shards, the batch split over "data") equal to
+   mesh 1x4 bit for bit, `save` / `load` with identical ids and scores,
+   each shard's bytes on the card; (b) the engine route at
+   heap_factor 0.8 with phase 5's parameters (tiles mode, K7), recall@10
+   beside phase 5's; (d) `init_distributed` as an NCCL group of one
+   (a free local port) and (a)'s 1x4 batch through the cross-process
+   merge, equal to the in-process merge; (c) a u8 build of the first
+   40,000 documents into 4 shards (a cut that keeps the script in its
+   time limit), the block view (`tile_block=512`, `block_expand=32`, K3-u8), recall@10
+   beside phase 9's; (e) `harness/dryrun.py::dryrun_multichip(4)`, its
+   four `ok` lines; the phase's wall time, and (a)'s batch time over
+   phase 3's for the record only (shards on one card run in turn).
 
 Every profiler window (phases 3-10) is taken after one warm-up call of
 what it profiles and is read only where it holds that phase's hand
@@ -238,16 +272,16 @@ residue batch, K3 for phase 8c, K1 / K2 / K3-u8 for phase 9; up to three
 windows): where none holds them, the busy time and the idle share are
 recorded as null.
 
-Every one of these windows sets the twenty-four launch counts (the
+Every one of these windows sets the twenty-five launch counts (the
 nineteen wrappers, and the phase 11 forms' own counts in the wrappers of
-K1, K3 and K8) to 0 and reads them all, and fails on a kernel that launched where it
+K1, K3, K8 and K9) to 0 and reads them all, and fails on a kernel that launched where it
 should not; the kernels' record takes `launches` (the kernel's own main
 path) and `launches_api` / `_engine` / `_headline` / `_modes` / `_probe` /
 `_knn_graph` / `_knn` / `_api_classes` / `_dotvbyte` / `_dotvbyte_engine`
 / `_dotvbyte_knn` / `_knn_headline` / `_hashed` / `_stream_75` /
 `_stream_50` / `_weighted` / `_margin` / `_twopass` / `_dotvbyte_hashed` /
-`_packed` / `_fwd16` / `_convert_*` / `_sketch_*` / `_flat` / `_lv*` from
-those readings.
+`_packed` / `_fwd16` / `_convert_*` / `_sketch_*` / `_flat` / `_lv*` /
+`_sharded*` from those readings.
 
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Without CUDA, or without the package
@@ -357,11 +391,11 @@ def sass_of(lib: str):
     return out
 
 
-# the twenty-four kernel wrappers' counts, in the order of the `kernels`
+# the twenty-five kernel wrappers' counts, in the order of the `kernels`
 # line: K1-K9 each with a module of its own, K10-K18 in
 # `ops/probe_kernels.py`, then K3's u8 form (its own count in
 # `ops/rescore.py`), then the forms of phase 11: K3 on half-width rows, on
-# u16 codes and on int32 ids, K1 and K8 on int32 vocabularies (each a
+# u16 codes and on int32 ids, K1, K8 and K9 on int32 vocabularies (each a
 # count of its own in its module)
 COUNTED = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
            "score_tiles", "pack_epilogue", "score_grouped_f", "qloc_rowmajor",
@@ -369,7 +403,7 @@ COUNTED = ("qloc", "score_grouped_i8", "rescore", "score_grouped_i8_item",
            "u8_matvec", "take_along_axis", "flat_row_gather",
            "compare_term_loop", "i8_matmul", "tile_matvec", "rescore_u8",
            "rescore_f16", "rescore_u16", "rescore_i32", "qloc_i32",
-           "qloc_rowmajor_i32")
+           "qloc_rowmajor_i32", "qloc_residue_i32")
 # K3-u8's instances of the lean kernel template, by their mangled names
 # (rescore.cu: rescore_lean_kernel<Form<false, Val::kU8, 4>, ...>)
 U8_FORM_MANGLED = "rescore_lean_kernelINS_4FormILb0ELNS_3ValE0E"
@@ -378,7 +412,8 @@ FORM_COUNTS = {"rescore_f16": ("rescore", "launches_f16"),
                "rescore_u16": ("rescore", "launches_u16"),
                "rescore_i32": ("rescore", "launches_i32"),
                "qloc_i32": ("qloc", "launches_i32"),
-               "qloc_rowmajor_i32": ("qloc_rowmajor", "launches_i32")}
+               "qloc_rowmajor_i32": ("qloc_rowmajor", "launches_i32"),
+               "qloc_residue_i32": ("qloc_residue", "launches_i32")}
 PROBE_KERNELS = COUNTED[9:18]
 
 
@@ -769,7 +804,7 @@ def align_pair_order(host, derived):
 def headline_path(ds, dev, record, kernels, graph) -> dict:
     """Phase 4: the bench headline path through `plan_caps` and
     `search_grouped_derive` on an index that carries `graph` (phase 8a's);
-    returns K4's record and leaves the path's twenty-four launch counts
+    returns K4's record and leaves the path's twenty-five launch counts
     in `record["launch_windows"]["headline"]`. Phases 6
     and 8 (c, d) run inside it, on its index."""
     import torch
@@ -1112,6 +1147,11 @@ def headline_path(ds, dev, record, kernels, graph) -> dict:
         dict(arrays=arrays, dindex=dindex, ctx=ctx, gt=gt, qcn=qcn, qvn=qvn,
              qcd=qcd, qvd=qvd, qcB=qcB, qvB=qvB, gcB=gcB, wcB=wcB,
              rec16=rec16), dev, record)
+
+    # ---- the aligned-tile cache, on this index ----
+    aligned_cache_path(
+        dict(arrays=arrays, dindex=dindex, ctx=ctx, qc_np=qcn[0],
+             qv_np=qvn[0], qc_t=qcd[0], qv_t=qvd[0]), dev, record)
     del docs, arrays
     gc.collect()
     torch.cuda.empty_cache()
@@ -1193,7 +1233,7 @@ F32_VS_I8_FLOOR = 0.98
 def modes_path(env, dev, record, kernels) -> list:
     """Phase 6: the grouped-search modes of K5, K6, K8 and K9 on the
     headline cell's index, one B=4096 / M=8 batch; returns the four new
-    kernels' records and leaves the phase's launch counts of all twenty-four
+    kernels' records and leaves the phase's launch counts of all twenty-five
     kernels in `record["launch_windows"]["modes"]`."""
     import dataclasses
 
@@ -1661,7 +1701,7 @@ def modes_path(env, dev, record, kernels) -> list:
                              + (V0 - RES * VRS) * n_terms).sum().item())
     by9 = (torch.unique(a1[1]).numel() * V0 * 2 + P * 4 + a1[2].numel() * 8
            + qcb.numel() * 8 + P * V0 + P * 4)
-    ptx9 = [ln for lns in ptxas_of("qloc", "qloc_residue_kernel")
+    ptx9 = [ln for lns in ptxas_of("qloc", "qloc_residue_kernelIs")
             .values() for ln in lns]
     rec9 = dict(
         name="qloc_residue", route="cuda",
@@ -1771,7 +1811,7 @@ def exact_scores_err(docs, qc_t, qv_t, s_, i_) -> float:
 
 
 def counted(what: str, key: str, record, fn, positive, exact=None):
-    """fn() between a zero and a read of all twenty-four launch counts, held
+    """fn() between a zero and a read of all twenty-five launch counts, held
     to `positive` / `exact`; the counts go to record's window `key`.
     Returns (fn's output, wall ms with a synchronise, the counts)."""
     import torch
@@ -2529,7 +2569,7 @@ def engine_path(index, qcomps, qvals, gt, dev, record, kernels) -> dict:
 def probe_path(dev, record) -> list:
     """Phase 7: the device probe's `run` on the card at the JAX probes'
     own sizes (each of K10-K18 held against its plain version inside its
-    probe), the launch counts of all twenty-four wrappers set to 0 before and
+    probe), the launch counts of all twenty-five wrappers set to 0 before and
     read after, K11 / K15's readings and diagnostics (`row_gather_probe.
     readings`) after that window, then the microbench once. Returns
     K10-K18's records."""
@@ -3498,6 +3538,10 @@ def dotvbyte_rest_path(env, dev, record) -> dict:
 # the large-vocabulary cell: XLM-RoBERTa's vocabulary, the one BGE-M3's
 # sparse head emits over, at local vocabularies 512 wide
 LV_DIM, LV_V = 250_002, 512
+# phase 11d's documents: cut from 100,000 (PR 17) to keep the script, with
+# phase 12, inside its time limit; its aligned tiles (a 16.4 GB floor)
+# and the kernels' shapes do not depend on the count
+LV_DOCS = 50_000
 # K3's tolerance against its plain version (phases 2 and 9)
 K3_RTOL = 1e-5
 # the cand_budget values of phase 11c
@@ -4074,7 +4118,14 @@ def lv_path(n_docs: int, dev, record) -> None:
         f"id sets {same:.4f}; K1 int32 == plain, {k1['ms']:.4f} ms (bound "
         f"{k1['bound_ms']:.4f}); row-major: ids equal, K8 int32 "
         f"{k8['ms']:.4f} ms (bound {k8['bound_ms']:.4f})")
-    del dix, docs
+    del dix
+    # ---- K9 on the int32 vocabulary: the same arrays, vocab_residue=8 ----
+    index._invalidate_device()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k9 = lv_residue_path(arrays, plan, qct, qvt, gt, docs, r0, k1, dev,
+                         record)
+    del docs
     # ---- convert("u8"): int32 ids beside u8 codes ----
     if index.convert("u8") is not index:
         fail("phase 11d: convert did not return the index")
@@ -4133,7 +4184,9 @@ def lv_path(n_docs: int, dev, record) -> None:
             ("qloc_i32", "qloc_quantize_i32", "pallas_qloc.py:25", k1),
             ("qloc_rowmajor_i32", "qloc_rowmajor_i32", "pallas_qloc.py:77",
              k8),
-            ("rescore_i32", "rescore_i32_u8", "pallas_rescore.py:30", k3)):
+            ("rescore_i32", "rescore_i32_u8", "pallas_rescore.py:30", k3),
+            ("qloc_residue_i32", "qloc_residue_i32", "pallas_qloc.py:152",
+             k9)):
         kp[key] = dict(
             name=name, route="cuda",
             source=("seismic_tpu_torch/csrc/rescore.cu" if "rescore" in key
@@ -4144,6 +4197,426 @@ def lv_path(n_docs: int, dev, record) -> None:
     del dix, index, arrays, ds
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def lv_residue_path(arrays, plan, qct, qvt, gt, docs, r_plain, k1, dev,
+                    record) -> dict:
+    """Phase 11d's residue upload: `to_device(vocab_residue=8)` of the
+    dim-250,002 arrays and the 4096-query batch at heap_factor 0 through
+    K9 on the int32 vocabulary (window `lv_residue`); K9-int32 against its
+    plain version on the batch's own operands, timed beside its bound and
+    K1-int32; every score exact; recall@10 beside the plain upload's.
+    Returns K9-int32's record."""
+    import torch
+
+    from seismic_tpu_torch.api import route_params
+    from seismic_tpu_torch.ops import qloc_residue
+    from seismic_tpu_torch.search import grouped
+    from seismic_tpu_torch.search.grouped import DevicePlan, _grouped_impl
+
+    rec = p11(record, "lv")
+    RES = 8
+    t0 = time.perf_counter()
+    dres = arrays.to_device(dev, vocab_residue=RES)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    if not (dres.vocab16 is None and dres.list_vocab.dtype == torch.int32
+            and dres.vocab_residue == RES):
+        fail("phase 11d: the residue upload holds no int32 vocabulary")
+    rp = route_params(K)
+
+    def run():
+        return _grouped_impl(dres, DevicePlan.put(plan, dev), qct, qvt, rp)
+
+    kept, restore = keep_calls(grouped, "project_qloc_residue", 1)
+    try:
+        run()
+    finally:
+        restore()
+    (s_, i_), wall, counts = counted(
+        "phase 11d: the LV route on the residue upload", "lv_residue",
+        record, run, positive=("qloc_residue_i32", "score_grouped_i8",
+                               "rescore"))
+    err = exact_scores_err(docs, qct, qvt, s_, i_)
+    if not err <= 1e-5:
+        fail(f"phase 11d: residue scores differ from exact dots by {err}")
+    r_ = recall_at(gt, i_[:len(gt)].cpu().numpy())
+    a9, kw9 = kept[0]
+    vocab, pair_list, qcb = a9[0], a9[1], a9[2]
+    k_i8, k_sc = qloc_residue.project_qloc_residue(*a9, **kw9)
+    p_i8, p_sc = qloc_residue.project_qloc_residue_plain(*a9, **kw9)
+    f_k = qloc_residue.project_qloc_residue(*a9)
+    f_p = qloc_residue.project_qloc_residue_plain(*a9)
+    if not (torch.equal(k_i8, p_i8) and torch.equal(k_sc, p_sc)
+            and torch.equal(f_k, f_p)):
+        fail(f"phase 11d: K9-int32 disagrees with its plain version: "
+             f"{(k_i8 != p_i8).sum().item()} codes, "
+             f"{(f_k != f_p).sum().item()} f32 slots")
+    del p_i8, p_sc, f_k, f_p
+    P, V = pair_list.numel(), vocab.shape[1]
+    # the bytes: each distinct int32 vocab row once, the pair list, the
+    # terms, the buckets, the int8 output and the scales
+    nbytes = (torch.unique(pair_list).numel() * V * 4 + P * 4
+              + a9[4].numel() * 8 + qcb.numel() * 8 + P * V + P * 4)
+    b9, bb9 = bound(nbytes, float(P * V), PEAK_F32)
+    ptx = {fn: lns for fn, lns in ptxas_of(
+        "qloc", "qloc_residue_kernelIi").items()}
+    k9 = dict(max_abs_err=0.0,
+              ms=time_ms(lambda: qloc_residue.project_qloc_residue(
+                  *a9, **kw9), 20),
+              plain_ms=time_ms(lambda: qloc_residue.project_qloc_residue_plain(
+                  *a9, **kw9), 3),
+              f32_output_ms=time_ms(
+                  lambda: qloc_residue.project_qloc_residue(*a9), 20),
+              bound_ms=b9, bound_by=bb9, library_ms=None, P=P, V=V,
+              bytes=nbytes, k1_i32_ms=k1["ms"], ptxas=ptx)
+    rec["residue"] = dict(upload_s=upload_s, device_index_bytes=dres.nbytes(),
+                          wall_ms=wall, launches=counts,
+                          max_rel_score_err=err, recall_at_10=r_,
+                          recall_at_10_plain_upload=r_plain, k9=k9)
+    log(f"phase 11d: vocab_residue={RES} upload {upload_s:.1f} s "
+        f"({dres.nbytes()} bytes): {wall:.1f} ms, launches "
+        f"{ {n_: c for n_, c in counts.items() if c} }, scores exact to "
+        f"{err:.3g}, recall@10 {r_:.4f} (plain upload {r_plain:.4f}); "
+        f"K9-int32 == plain, {k9['ms']:.4f} ms quantized, "
+        f"{k9['f32_output_ms']:.4f} ms f32 (K1-int32 {k1['ms']:.4f} ms; "
+        f"bound {b9:.4f} ms by {bb9}, plain {k9['plain_ms']:.3f} ms); ptxas "
+        f"{json.dumps(ptx)}")
+    if not ptx:
+        fail("phase 11d: no ptxas report of K9-int32")
+    del dres, kept, a9
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k9
+
+
+def aligned_cache_path(env, dev, record) -> None:
+    """Phase 4's aligned-tile cache: the index saved in a temporary
+    directory, `load_or_build_aligned` beside it twice (build and write,
+    then memory-mapped), an upload from the cache equal to the plain
+    upload, one B=4096 call on it equal to the plain upload's bit for
+    bit; the directory removed."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from seismic_tpu_torch.ops.tiles_prep import load_or_build_aligned
+    from seismic_tpu_torch.search.grouped import (
+        plan_caps,
+        search_grouped_derive,
+    )
+
+    rec = record.setdefault("aligned_cache", {})
+    arrays, dindex, ctx = env["arrays"], env["dindex"], env["ctx"]
+    tmp = tempfile.mkdtemp(prefix="aligned_cache")
+    try:
+        idx = os.path.join(tmp, "headline.dir")
+        t0 = time.perf_counter()
+        arrays.save_dir(idx)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_or_build_aligned(arrays, idx, CSUB)
+        first_s = time.perf_counter() - t0
+        cdir = os.path.join(tmp, f"headline.aligned_c{CSUB}.dir")
+        written = {f: os.path.getsize(os.path.join(cdir, f))
+                   for f in sorted(os.listdir(cdir))}
+        t0 = time.perf_counter()
+        cached = load_or_build_aligned(arrays, idx, CSUB)
+        second_s = time.perf_counter() - t0
+        if not isinstance(cached[0].base, np.memmap):
+            fail("phase 4: the second cache call did not map the files")
+        t0 = time.perf_counter()
+        cindex = arrays.to_device(dev, tile_csub=CSUB, aligned=cached)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        del cached
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not (torch.equal(cindex.doc_tiles_aligned, dindex.doc_tiles_aligned)
+            and torch.equal(cindex.tile_scale, dindex.tile_scale)
+            and torch.equal(cindex.list_region_start,
+                            dindex.list_region_start)):
+        fail("phase 4: the upload from the cache differs from the plain "
+             "upload")
+    params = headline_params()
+    caps = plan_caps(env["qc_np"], env["qv_np"], ctx, QUERY_CUT, M=8)
+    out = [search_grouped_derive(ix, env["qc_t"], env["qv_t"], params,
+                                 QUERY_CUT, 8, caps[0], caps[1],
+                                 ctx.zero_region) for ix in (dindex, cindex)]
+    if not (torch.equal(out[0][0], out[1][0])
+            and torch.equal(out[0][1], out[1][1])):
+        fail("phase 4: the B=4096 call on the cached upload differs from "
+             "the plain upload's")
+    rec.update(index_save_s=save_s, first_call_s=first_s,
+               second_call_s=second_s, upload_s=upload_s,
+               bytes_written=written, bytes_total=sum(written.values()))
+    log(f"phase 4: aligned cache: index saved in {save_s:.1f} s; "
+        f"load_or_build_aligned {first_s:.1f} s (build and write "
+        f"{sum(written.values())} bytes: {written}), then {second_s:.3f} s "
+        f"(mapped); upload from the cache {upload_s:.1f} s, equal to the "
+        "plain upload; a B=4096 call on it equal bit for bit")
+    del cindex, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def brute_top10(ds, qct, qvt, nq: int, dim: int, dev):
+    """The exact top-10 of the first `nq` padded queries over the corpus
+    `ds`, by a sparse x dense product on the card."""
+    import torch
+
+    from seismic_tpu_torch.data.sparse import PAD_COMPONENT
+
+    full = torch.sparse_csr_tensor(
+        torch.from_numpy(ds.offsets), torch.from_numpy(
+            ds.components.astype(np.int64)),
+        torch.from_numpy(ds.values.astype(np.float32)),
+        size=(len(ds), dim)).to(dev)
+    ok = qct[:nq] != int(PAD_COMPONENT)
+    col = torch.arange(nq, device=dev)[:, None].expand(nq, qct.shape[1])
+    qd = torch.zeros((dim, nq), dtype=torch.float32, device=dev)
+    qd[qct[:nq][ok].long(), col[ok]] = qvt[:nq][ok]
+    gt = torch.topk(torch.sparse.mm(full, qd), K, dim=0).indices.t()
+    return gt.cpu().numpy()
+
+
+# phase 12: document shards, and the docs of (c)'s cut of the corpus
+SHARDS, BLOCK_CUT = 4, 40_000
+
+
+def sharded_path(ds, dev, record) -> None:
+    """Phase 12: document-sharded search on phase 3's corpus (see the
+    module docstring)."""
+    import dataclasses
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from seismic_tpu_torch import Configuration, GlobalThresholdPruning
+    from seismic_tpu_torch.api import (
+        DEFAULT_QUERY_PAD,
+        block_pool_params,
+        route_params,
+    )
+    from seismic_tpu_torch.data.sparse import pad_queries
+    from seismic_tpu_torch.harness.dryrun import dryrun_multichip
+    from seismic_tpu_torch.parallel import sharded as sharded_mod
+    from seismic_tpu_torch.parallel.mesh import (
+        init_distributed,
+        make_mesh,
+        make_mesh_global,
+    )
+    from seismic_tpu_torch.parallel.sharded import ShardedIndex
+    from seismic_tpu_torch.search.engine import SearchParams
+
+    rec = record.setdefault("sharded", {})
+    t_phase = time.time()
+    count = min(torch.cuda.device_count(), SHARDS) if dev.type == "cuda" \
+        else 1
+
+    def devices(n):  # n mesh entries over the cards, in turn
+        if dev.type != "cuda":
+            return [dev] * n
+        return [torch.device("cuda", i % count) for i in range(n)]
+
+    def mesh_of(n_data, n_docs):
+        return make_mesh(n_docs, n_data, devices=devices(n_data * n_docs))
+
+    # each shard keeps its share of the API cell's list budget (200
+    # postings a term over the whole corpus): the shards hold as many
+    # postings as phase 3's index
+    cfg = Configuration(
+        pruning=GlobalThresholdPruning(n_postings=200 // SHARDS,
+                                       max_fraction=2.0),
+        layout=cell_layout())
+    qcomps, qvals = synth_queries_distinct(BATCH)
+    q_comps, q_vals = pad_queries(qcomps, qvals, DEFAULT_QUERY_PAD)
+    qct, qvt = (torch.from_numpy(x).to(dev) for x in (q_comps, q_vals))
+    nq = 256
+    gt = brute_top10(ds, qct, qvt, nq, DIM, dev)
+    gp = route_params(K)
+
+    def grouped(ix):
+        return ix.search_batch_grouped(q_comps, q_vals, gp,
+                                       query_cut=QUERY_CUT)
+
+    # ---- (a) 4 shards at the API cell's layout ----
+    t0 = time.time()
+    sh4 = ShardedIndex.build(ds, mesh_of(1, SHARDS), cfg, value_dtype="f16",
+                             pallas_tiles=True)
+    torch.cuda.synchronize()
+    build4_s = time.time() - t0
+    kept, restore = keep_calls(sharded_mod, "merge_topk_across_docs", 1)
+    try:
+        s_w, i_w = grouped(sh4)
+    finally:
+        restore()
+    (ms_in, mi_in), _ = kept[0]
+    S_, B_, k_ = ms_in.shape
+    fs = ms_in.permute(1, 0, 2).reshape(B_, -1).cpu().numpy()
+    fi = mi_in.permute(1, 0, 2).reshape(B_, -1).cpu().numpy()
+    order = np.lexsort((np.where(fi >= 0, fi, 2 ** 62), -fs), axis=-1)
+    order = order[:, :k_]
+    if not (np.array_equal(np.take_along_axis(fs, order, 1), s_w)
+            and np.array_equal(np.take_along_axis(fi, order, 1), i_w)):
+        fail("phase 12a: the merge differs from a host lexsort of the "
+             "shards' results")
+    del kept, ms_in, mi_in
+    (s4, i4), wall4, counts4 = counted(
+        "phase 12a: the grouped route on 4 shards", "sharded", record,
+        lambda: grouped(sh4),
+        positive=("qloc", "score_grouped_i8", "rescore"))
+    if not (np.array_equal(s4, s_w) and np.array_equal(i4, i_w)):
+        fail("phase 12a: two calls of the same batch differ")
+    r4 = recall_at(gt, i4[:nq])
+    r3 = record["recall_at_10"]
+    if r4 < r3 - 0.005:
+        fail(f"phase 12a: sharded recall@10 {r4:.4f} more than 0.005 under "
+             f"phase 3's {r3:.4f}")
+    bytes4 = sh4.nbytes()
+    postings4 = [int(x.list_len.sum()) for x in sh4.host_shards]
+    log(f"phase 12a: 4 shards on {[str(d) for d in sh4.mesh.grid[0]]}: "
+        f"build {build4_s:.1f} s, postings {postings4}, bytes on the "
+        f"card {bytes4}; grouped batch {wall4:.1f} ms, launches "
+        f"{ {n_: c for n_, c in counts4.items() if c} }, recall@10 "
+        f"{r4:.4f} (phase 3: {r3:.4f}); merge == host lexsort")
+    # mesh 2x4: the same 4 shards (the second row on the first row's
+    # devices, so on their uploads), the batch split over "data": equal
+    # to mesh 1x4 bit for bit
+    mesh24 = mesh_of(2, SHARDS)
+    if mesh24.grid[1] != sh4.mesh.grid[0]:
+        fail("phase 12a: mesh 2x4's rows are not on the same devices")
+    sh24 = dataclasses.replace(sh4, mesh=mesh24,
+                               device_index=[sh4.device_index[0]] * 2)
+    (s24, i24), wall24, _ = counted(
+        "phase 12a: the grouped route on mesh 2x4", "sharded_2x4", record,
+        lambda: grouped(sh24),
+        positive=("qloc", "score_grouped_i8", "rescore"))
+    if not (np.array_equal(s24, s4) and np.array_equal(i24, i4)):
+        fail("phase 12a: mesh 2x4 differs from mesh 1x4")
+    del sh24
+    # save / load
+    tmp = tempfile.mkdtemp(prefix="sharded")
+    try:
+        t0 = time.time()
+        sh4.save(os.path.join(tmp, "ix"))
+        save_s = time.time() - t0
+        t0 = time.time()
+        loaded = ShardedIndex.load(os.path.join(tmp, "ix"), sh4.mesh,
+                                   pallas_tiles=True)
+        load_s = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    s_l, i_l = grouped(loaded)
+    if not (np.array_equal(s_l, s4) and np.array_equal(i_l, i4)):
+        fail("phase 12a: save / load changed the results")
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12a: mesh 2x4 (the batch split over \"data\", {wall24:.1f} "
+        f"ms): equal to mesh 1x4 bit for bit; save {save_s:.1f} s / load "
+        f"{load_s:.1f} s: identical")
+
+    # ---- (b) the engine route, phase 5's parameters ----
+    p5 = SearchParams(k=K, query_cut=QUERY_CUT, block_budget=max(4 * K, 64),
+                      block_mode="dense", doc_mode="tiles", full_lists=False,
+                      first_sorted=True)
+    if p5.block_budget != record["engine"]["block_budget"]:
+        fail("phase 12b: the engine parameters are not phase 5's")
+    (s_e, i_e), wall_e, counts_e = counted(
+        "phase 12b: the engine route on 4 shards", "sharded_engine", record,
+        lambda: sh4.search_batch(q_comps, q_vals, p5,
+                                 heap_factor=HEAP_FACTOR),
+        positive=("score_tiles",))
+    r_e = recall_at(gt, i_e[:nq])
+    r5 = record["engine"]["recall_at_10"]
+    log(f"phase 12b: engine at heap_factor {HEAP_FACTOR}: {wall_e:.1f} ms, "
+        f"launches {counts_e['score_tiles']} K7, recall@10 {r_e:.4f} "
+        f"(phase 5: {r5:.4f})")
+
+    # ---- (d) an NCCL group of one: the cross-process merge ----
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    if init_distributed(f"localhost:{port}", 1, 0, device=dev):
+        fail("phase 12d: a group of one reported more processes")
+    try:
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        if dist.get_backend() != want:
+            fail(f"phase 12d: backend {dist.get_backend()}, not {want}")
+        gmesh = make_mesh_global(SHARDS, 1, devices=devices(SHARDS))
+        shg = dataclasses.replace(sh4, mesh=gmesh)
+        (s_g, i_g), wall_g, _ = counted(
+            "phase 12d: the grouped route, merged across processes",
+            "sharded_nccl", record, lambda: grouped(shg),
+            positive=("qloc", "score_grouped_i8", "rescore"))
+    finally:
+        dist.destroy_process_group()
+    if not (gmesh.spans_processes and np.array_equal(s_g, s4)
+            and np.array_equal(i_g, i4)):
+        fail("phase 12d: the cross-process merge differs from the "
+             "in-process merge")
+    log(f"phase 12d: {want} group of one on port {port}: the 1x4 batch "
+        f"through all_gather and the merge, {wall_g:.1f} ms, equal to the "
+        "in-process merge")
+    del sh4, shg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) u8 shards on the block view, on a cut of the corpus ----
+    ds_c = ds.subset(np.arange(min(len(ds), BLOCK_CUT)))
+    t0 = time.time()
+    shb = ShardedIndex.build(ds_c, mesh_of(1, SHARDS), cfg, value_dtype="u8",
+                             pallas_tiles=True, tile_block=512,
+                             store_doc_tiles=False)
+    build_b_s = time.time() - t0
+    (s_b, i_b), wall_b, counts_b = counted(
+        "phase 12c: the block route on 4 u8 shards", "sharded_block",
+        record, lambda: shb.search_batch_grouped(
+            q_comps, q_vals, block_pool_params(K, 32), query_cut=QUERY_CUT),
+        positive=("qloc", "score_grouped_i8", "rescore_u8"))
+    # recall against the cut corpus's own top 10
+    r_b = recall_at(brute_top10(ds_c, qct, qvt, nq, DIM, dev), i_b[:nq])
+    r9 = record["dotvbyte"]["recall_at_10"]
+    bytes_b = shb.nbytes()
+    log(f"phase 12c: {SHARDS} u8 shards of {len(ds_c)} docs, block view "
+        f"(build {build_b_s:.1f} s, bytes on the card {bytes_b}): "
+        f"{wall_b:.1f} ms, launches "
+        f"{ {n_: c for n_, c in counts_b.items() if c} }, recall@10 "
+        f"{r_b:.4f} (phase 9: {r9:.4f})")
+    del shb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) the dry-run stages ----
+    t0 = time.time()
+    lines = dryrun_multichip(4, device=dev)
+    dry_s = time.time() - t0
+    if len(lines) != 4 or not all(" ok: " in ln for ln in lines):
+        fail(f"phase 12e: dry run {lines}")
+    phase3_ms = BATCH / record["qps"] * 1e3
+    rec.update(build4_s=build4_s, bytes_per_shard=bytes4,
+               postings_per_shard=postings4,
+               grouped_ms=wall4, grouped_2x4_ms=wall24, launches=counts4,
+               recall_at_10=r4, recall_at_10_phase3=r3,
+               n_postings_per_shard=200 // SHARDS, block_docs=len(ds_c),
+               save_s=save_s, load_s=load_s, engine_ms=wall_e,
+               engine_recall_at_10=r_e, engine_recall_at_10_phase5=r5,
+               nccl_ms=wall_g, block_build_s=build_b_s,
+               block_bytes_per_shard=bytes_b, block_ms=wall_b,
+               block_recall_at_10=r_b, block_recall_at_10_phase9=r9,
+               dryrun=lines, dryrun_s=dry_s, phase3_batch_ms=phase3_ms,
+               grouped_over_phase3=wall4 / phase3_ms,
+               devices=[str(d) for d in devices(4)],
+               phase_s=time.time() - t_phase)
+    log(f"phase 12: {rec['phase_s']:.1f} s; (a)'s grouped batch "
+        f"{wall4:.1f} ms over phase 3's {phase3_ms:.1f} ms = "
+        f"{rec['grouped_over_phase3']:.2f} (for the record: the 4 shards "
+        f"run one after another on {count} card(s))")
 
 
 def knn_headline_path(env, dev, record):
@@ -4547,6 +5020,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---------------- phase 12: document-sharded search ----------------
+    sharded_path(ds, dev, record)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---------------- phase 4: the bench headline path ----------------
     torch.cuda.reset_peak_memory_stats()
     new_kernels, k4 = headline_path(ds, dev, record, kernels, graph)
@@ -4561,10 +5039,10 @@ def main():
     torch.cuda.empty_cache()
 
     # ------- phase 11d, last: the large vocabulary (every index freed) -----
-    lv_path(args.n_docs, dev, record)
+    lv_path(min(args.n_docs, LV_DOCS), dev, record)
     kernels += [record["phase11_kernels"][n_] for n_ in FORM_COUNTS]
     # every count below was read from a wrapper's counter after a window that
-    # set all twenty-four to 0 first; `launches` is the count on the kernel's
+    # set all twenty-five to 0 first; `launches` is the count on the kernel's
     # own main path
     windows = record["launch_windows"]
     main_window = dict.fromkeys(COUNTED, "modes")
@@ -4573,7 +5051,8 @@ def main():
     main_window.update(dict.fromkeys(PROBE_KERNELS, "probe"),
                        rescore_u8="dotvbyte", rescore_f16="fwd16",
                        rescore_u16="convert_u16", rescore_i32="lv_u8",
-                       qloc_i32="lv", qloc_rowmajor_i32="lv_rowmajor")
+                       qloc_i32="lv", qloc_rowmajor_i32="lv_rowmajor",
+                       qloc_residue_i32="lv_residue")
     for kr, n_ in zip(kernels, COUNTED, strict=True):
         kr["launches"] = windows[main_window[n_]][n_]
         kr.update({f"launches_{w_}": windows[w_][n_] for w_ in windows})

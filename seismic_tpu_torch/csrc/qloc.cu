@@ -92,6 +92,21 @@
 // a plain key, so it matches in the spill slots, as the plain version
 // does. Keying by bucket costs one IMAD a code and keeps the kernel equal
 // to the plain version on buckets that break that layout.
+//
+// K9 on an int32 vocabulary (dim past 32766, -1 padded after the residue
+// permutation; qloc_residue_kernel<int>) keys the same table by the pair
+// itself: id * 2048 + t is exact only for ids below 2^20, and the ids run
+// to 2^31 - 2. An entry is 16 bytes, (int32 id, int32 tag, f32 value
+// bits, unused): the 8-byte (id, tag) word is claimed by one 64-bit
+// atomicCAS, the empty key is (-1, -1) (no staged tag is negative), and
+// the slot is a multiplicative hash of id and tag. A probe is one 16-byte
+// shared load that checks both words, so a lookup is exact for every id
+// the upload holds, and the sums are the int16 instance's, term order
+// kept. The plain terms are every id but PAD (a negative id matches the
+// vocab's -1 as the plain version's compare does), the bucket entries
+// the ids >= 0. The table has the int16 instance's 2^bits slots at twice
+// the bytes (up to 64 KB, plus 12 bytes a staged key), so past 48 KB of
+// dynamic shared memory the kernel is opted in once per device.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -172,13 +187,128 @@ struct Buckets {
 };
 
 constexpr int kMaxBucketSlots = 1024;  // R * scb
-constexpr int kResidueMaxBits = 12;     // 32 KB of table at most
+constexpr int kResidueMaxBits = 12;  // 32 KB of table at most (64 KB of pairs)
 constexpr int kMinCode = -32768, kMaxCode = 32767;  // the int16 codes
 
 // K9's keys: an int16 id c with a tag t <= 1024 (a bucket r < R, or R for
 // the plain terms), distinct for every (c, t) and never kTermEmpty
 __device__ __forceinline__ int key_of(int c, int t) {
   return c * (2 * kMaxBucketSlots) + t;
+}
+
+// K9 on int32 ids: the table of (id, tag) pairs (16-byte entries: id, tag,
+// f32 value bits, unused), the empty pair (-1, -1)
+constexpr unsigned long long kPairEmpty = ~0ull;
+
+__device__ __forceinline__ unsigned long long pair_word(int c, int t) {
+  return static_cast<unsigned>(c) |
+         (static_cast<unsigned long long>(static_cast<unsigned>(t)) << 32);
+}
+
+__device__ __forceinline__ int pair_slot(int c, int t, int bits) {
+  const unsigned h = static_cast<unsigned>(c) * 2654435761u ^
+                     static_cast<unsigned>(t + 1) * 0x27d4eb2du;
+  return static_cast<int>((h * 2654435761u) >> (32 - bits));
+}
+
+// Order-keeping compaction by the calling warp of the entries i < n of row
+// `row` of (ids, vals) whose id passes `keep`: (id, tag_of(i)) and the
+// value land in s_key / s_val in entry order. Returns their count.
+template <class Keep, class TagOf>
+__device__ __forceinline__ int stage_pairs(const int* __restrict__ ids,
+                                           const float* __restrict__ vals,
+                                           int64_t row, int n, Keep keep,
+                                           TagOf tag_of, int2* s_key,
+                                           float* s_val) {
+  const int lane = threadIdx.x & 31;
+  int cnt = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    const int c = i < n ? ids[row * n + i] : 0;
+    const bool real = i < n && keep(c);
+    const unsigned mask = __ballot_sync(0xffffffffu, real);
+    if (real) {
+      const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
+      s_key[pos] = make_int2(c, tag_of(i));
+      s_val[pos] = vals[row * n + i];
+    }
+    cnt += __popc(mask);
+  }
+  return cnt;
+}
+
+// Enter the n staged pairs, one 64-bit atomicCAS a pair, and, where a pair
+// repeats, sum its values in entry order in a second pass (as
+// term_table_build does for int32 keys); every slot was cleared to the
+// empty pair with value bits 0 and *s_dup to 0 before the caller's
+// barrier. Returns after the block's last __syncthreads.
+__device__ __forceinline__ void pair_table_build(int4* s_tab,
+                                                 const int2* s_key,
+                                                 const float* s_val, int n,
+                                                 int* s_dup, int bits) {
+  const int tid = threadIdx.x;
+  const int mask = (1 << bits) - 1;
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int2 k = s_key[i];
+    const unsigned long long w = pair_word(k.x, k.y);
+    int h = pair_slot(k.x, k.y, bits);
+    while (true) {
+      const unsigned long long prev = atomicCAS(
+          reinterpret_cast<unsigned long long*>(&s_tab[h]), kPairEmpty, w);
+      if (prev == kPairEmpty) {
+        s_tab[h].z = __float_as_int(__fadd_rn(0.0f, s_val[i]));
+        break;
+      }
+      if (prev == w) {
+        *s_dup = 1;
+        break;
+      }
+      h = (h + 1) & mask;
+    }
+  }
+  __syncthreads();
+  if (*s_dup) {
+    for (int i = tid; i < n; i += blockDim.x) {
+      const int2 k = s_key[i];
+      bool first = true;
+      for (int j = 0; j < i && first; ++j) {
+        first = s_key[j].x != k.x || s_key[j].y != k.y;
+      }
+      if (!first) continue;
+      float sum = 0.0f;
+      for (int j = i; j < n; ++j) {
+        if (s_key[j].x == k.x && s_key[j].y == k.y) sum += s_val[j];
+      }
+      int h = pair_slot(k.x, k.y, bits);
+      while (s_tab[h].x != k.x || s_tab[h].y != k.y) h = (h + 1) & mask;
+      s_tab[h].z = __float_as_int(sum);
+    }
+    __syncthreads();
+  }
+}
+
+// The summed values of the 8 pairs (c[j], t) (0.0f for a pair the table
+// lacks: the walk ends on the empty pair, whose value bits are 0); the
+// first probes of all 8 are issued together.
+__device__ __forceinline__ void lookup8_pair(const int4* s_tab,
+                                             const int (&c)[8], int t,
+                                             float (&x)[8], int bits) {
+  const int mask = (1 << bits) - 1;
+  int h[8];
+  int4 e[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    h[j] = pair_slot(c[j], t, bits);
+    e[j] = s_tab[h[j]];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    while ((e[j].x != c[j] || e[j].y != t) && e[j].y != -1) {
+      h[j] = (h[j] + 1) & mask;
+      e[j] = s_tab[h[j]];
+    }
+    x[j] = e[j].x == c[j] && e[j].y == t ? __int_as_float(e[j].z) : 0.0f;
+  }
 }
 
 // The kernels' body: a block per query row; lane l of a pair's warp holds
@@ -196,45 +326,70 @@ __device__ __forceinline__ void qloc_body(
     const Buckets& bk) {                // K9 only
   // K1: the staged terms and the 512-slot table, static; K9: the table of
   // 2^bits slots, then its SC + R * scb staged keys and values, dynamic
+  // (on int32 ids the table of pairs and the staged pairs)
+  constexpr bool kPairs = kResidue && sizeof(T) == 4;
   __shared__ int s_qc1[kResidue ? 1 : kQlocMaxTerms];
   __shared__ float s_qv1[kResidue ? 1 : kQlocMaxTerms];
   __shared__ int2 s_tab1[kResidue ? 1 : kTermSlots];
   __shared__ int s_n;
   __shared__ int s_dup;  // some key repeats in the row
-  extern __shared__ int2 s_dyn[];
+  extern __shared__ __align__(16) int2 s_dyn[];
   const int bits = kResidue ? bk.bits : kTermBits;
   const int n_keys = SC + bk.R * bk.scb;
   int2* s_tab = kResidue ? s_dyn : s_tab1;  // (key, f32 value bits)
   int* s_qc = kResidue ? reinterpret_cast<int*>(s_dyn + (1 << bits)) : s_qc1;
   float* s_qv = kResidue ? reinterpret_cast<float*>(s_qc + n_keys) : s_qv1;
+  int4* s_ptab = reinterpret_cast<int4*>(s_dyn);  // kPairs only
+  int2* s_pkey = reinterpret_cast<int2*>(s_ptab + (1 << bits));
+  float* s_pval = reinterpret_cast<float*>(s_pkey + n_keys);
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  term_table_clear(s_tab, &s_dup, bits);
-  if constexpr (kResidue) {
-    // the plain terms under key(id, R), then the bucket entries under
-    // key(id, r); ids outside int16 equal no code and stay out
+  if constexpr (kPairs) {
+    for (int i = tid; i < (1 << bits); i += blockDim.x) {
+      s_ptab[i] = make_int4(-1, -1, 0, 0);
+    }
+    if (tid == 0) s_dup = 0;
+    // the plain terms as (id, R), then the bucket entries as (id, r)
     if (tid < 32) {
       const int R = bk.R, scb = bk.scb;
-      const int n = stage_row(
-          qc, qv, b, SC,
-          [R](int, int c) {
-            return c >= kMinCode && c <= kMaxCode ? key_of(c, R) : kQlocPad;
-          },
-          s_qc, s_qv);
-      const int nb = stage_row(
-          bk.qcb, bk.qvb, b, R * scb,
-          [scb](int i, int c) {
-            return c >= 0 && c <= kMaxCode ? key_of(c, i / scb) : kQlocPad;
-          },
-          s_qc + n, s_qv + n);
+      const int n = stage_pairs(
+          qc, qv, b, SC, [](int c) { return c != kQlocPad; },
+          [R](int) { return R; }, s_pkey, s_pval);
+      const int nb = stage_pairs(
+          bk.qcb, bk.qvb, b, R * scb, [](int c) { return c >= 0; },
+          [scb](int i) { return i / scb; }, s_pkey + n, s_pval + n);
       if (tid == 0) s_n = n + nb;
     }
+    __syncthreads();
+    pair_table_build(s_ptab, s_pkey, s_pval, s_n, &s_dup, bits);
   } else {
-    stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
+    term_table_clear(s_tab, &s_dup, bits);
+    if constexpr (kResidue) {
+      // the plain terms under key(id, R), then the bucket entries under
+      // key(id, r); ids outside int16 equal no code and stay out
+      if (tid < 32) {
+        const int R = bk.R, scb = bk.scb;
+        const int n = stage_row(
+            qc, qv, b, SC,
+            [R](int, int c) {
+              return c >= kMinCode && c <= kMaxCode ? key_of(c, R) : kQlocPad;
+            },
+            s_qc, s_qv);
+        const int nb = stage_row(
+            bk.qcb, bk.qvb, b, R * scb,
+            [scb](int i, int c) {
+              return c >= 0 && c <= kMaxCode ? key_of(c, i / scb) : kQlocPad;
+            },
+            s_qc + n, s_qv + n);
+        if (tid == 0) s_n = n + nb;
+      }
+    } else {
+      stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
+    }
+    __syncthreads();
+    term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup, bits);
   }
-  __syncthreads();
-  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup, bits);
 
   // chunk c's tag: its group r, or R in the spill region
   const int n_group = kResidue ? bk.R * bk.VRS : 0;
@@ -245,6 +400,10 @@ __device__ __forceinline__ void qloc_body(
   auto find8 = [&](int tag, const Codes<T>& chunk, float (&x)[8]) {
     int k[8];
     chunk.decode(k);
+    if constexpr (kPairs) {
+      lookup8_pair(s_ptab, k, tag, x, bits);
+      return;
+    }
     if constexpr (kResidue) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) k[j] = key_of(k[j], tag);
@@ -332,6 +491,26 @@ __global__ void __launch_bounds__(kQlocThreads, kResidueBlocks)
   qloc_body<true, kResidueHeld, T>(QLOC_ARGS);
 }
 
+// The int32 instance of K9 past 48 KB of dynamic shared memory: opted in
+// once per device to its most (2^12 slots of 16 bytes and 1280 staged
+// pairs of 12).
+constexpr int kMaxDevices = 64;
+constexpr int kPairsMaxSmem = (16 << kResidueMaxBits) + kMaxBucketSlots * 12 +
+                              kQlocMaxTerms * 12;
+bool g_pairs_opted[kMaxDevices];
+
+template <typename F>
+cudaError_t opt_in_pairs(F kernel) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && g_pairs_opted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kPairsMaxSmem);
+  if (e == cudaSuccess && dev < kMaxDevices) g_pairs_opted[dev] = true;
+  return e;
+}
+
 template <bool kResidue, class T>
 int launch(const T* vocab, const int* pair_list, const int* qc,
            const float* qv, int P, int V, int SC, int QC, int8_t* out,
@@ -346,9 +525,18 @@ int launch(const T* vocab, const int* pair_list, const int* qc,
     const int warps = (QC + rounds - 1) / rounds;
     const dim3 grid(P / QC), block(warps * 32);
     if constexpr (kResidue) {
-      // the table, then the staged keys and values
-      const size_t smem = (sizeof(int2) << bk.bits) +
-                          static_cast<size_t>(SC + bk.R * bk.scb) * 8;
+      // the table, then the staged keys and values (on int32 ids 16-byte
+      // entries and 12 bytes a staged pair)
+      constexpr bool pairs = sizeof(T) == 4;
+      const size_t smem =
+          ((pairs ? sizeof(int4) : sizeof(int2)) << bk.bits) +
+          static_cast<size_t>(SC + bk.R * bk.scb) * (pairs ? 12 : 8);
+      if constexpr (pairs) {
+        if (smem > 48 * 1024) {
+          const cudaError_t e = opt_in_pairs(qloc_residue_kernel<T>);
+          if (e != cudaSuccess) return static_cast<int>(e);
+        }
+      }
       qloc_residue_kernel<T><<<grid, block, smem, stream>>>(QLOC_ARGS);
     } else {
       qloc_kernel<T><<<grid, block, 0, stream>>>(QLOC_ARGS);
@@ -416,11 +604,12 @@ int seismic_qloc_rowmajor(const void* vocab_rows, int vocab_bytes,
                        stream);
 }
 
-// K9: vocab residue-ordered (R groups of VRS slots, then the spill);
-// qcb / qvb [B, R * scb]. out_f32 null: int8 out [P, V] + scale [P]; else
-// the f32 projection. V % 8 == 0, VRS % 8 == 0, R * VRS <= V, SC <= 256,
-// R * scb <= 1024.
-int seismic_qloc_residue(const int16_t* vocab, const int* pair_list,
+// K9: vocab residue-ordered (R groups of VRS slots, then the spill) of
+// vocab_bytes 2 (int16) or 4 (int32), -1 padded; qcb / qvb [B, R * scb].
+// out_f32 null: int8 out [P, V] + scale [P]; else the f32 projection.
+// V % 8 == 0, VRS % 8 == 0, R * VRS <= V, SC <= 256, R * scb <= 1024.
+int seismic_qloc_residue(const void* vocab, int vocab_bytes,
+                         const int* pair_list,
                          const int* qcb, const float* qvb, const int* qc,
                          const float* qv, int P, int V, int SC, int QC,
                          int R, int scb, int VRS, int8_t* out, float* scale,
@@ -434,8 +623,12 @@ int seismic_qloc_residue(const int16_t* vocab, const int* pair_list,
   int bits = kTermBits;
   while (bits < kResidueMaxBits && (1 << bits) < 4 * (SC + R * scb)) ++bits;
   const Buckets bk = {qcb, qvb, R, scb, VRS, bits};
-  return launch<true>(vocab, pair_list, qc, qv, P, V, SC, QC, out, scale,
-                      out_f32, bk, stream);
+  if (vocab_bytes == 4) {
+    return launch<true>(static_cast<const int32_t*>(vocab), pair_list, qc,
+                        qv, P, V, SC, QC, out, scale, out_f32, bk, stream);
+  }
+  return launch<true>(static_cast<const int16_t*>(vocab), pair_list, qc, qv,
+                      P, V, SC, QC, out, scale, out_f32, bk, stream);
 }
 
 }  // extern "C"

@@ -84,7 +84,7 @@ def _lib():
         lib.seismic_qloc_rowmajor.argtypes = [p, i, p, p, i, i, i, p, p, p]
         lib.seismic_qloc_rowmajor.restype = ctypes.c_int
         lib.seismic_qloc_residue.argtypes = [  # K9 (ops/qloc_residue.py)
-            p, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
+            p, i, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
         lib.seismic_qloc_residue.restype = ctypes.c_int
         lib.seismic_qloc_residue_max_bucket_slots.restype = ctypes.c_int
         lib.seismic_qloc_max_terms.restype = ctypes.c_int

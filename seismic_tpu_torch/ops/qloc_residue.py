@@ -25,6 +25,12 @@ slots, and its plain terms, keyed by their id and R, the spill slots. So a
 slot costs one lookup instead of a compare with every term of its bucket,
 and the sums are the plain version's bit for bit. Operands it takes: V % 8 == 0, at most 256
 plain terms, R * scb <= 1024; bucket ids below 0 are padding.
+
+The vocabulary is int16 up to dim 32766 and int32 past it (both -1
+padded after the residue permutation), as JAX's kernel takes either
+(`pallas_qloc.py:153`). The int32 instance keys its table by the (id,
+bucket) pair itself, in 16-byte entries, so every id up to 2^31 - 2 is
+exact; it is counted apart (`launches_i32`).
 """
 
 from __future__ import annotations
@@ -37,8 +43,10 @@ from . import _cuda
 from .qloc import _lib, quantize_plain
 from .tiles_prep import residue_layout
 
-# kernel launches since the count was last set to 0
+# kernel launches since the count was last set to 0: on an int16
+# vocabulary, and on an int32 one
 launches = 0
+launches_i32 = 0
 
 
 def project_qloc_residue_plain(vocab, pair_list, qcb, qvb, qc, qv, QC: int,
@@ -72,15 +80,16 @@ def project_qloc_residue_plain(vocab, pair_list, qcb, qvb, qc, qv, QC: int,
 
 def project_qloc_residue(vocab, pair_list, qcb, qvb, qc, qv, QC: int, R: int,
                          scb: int, quantize: bool = False):
-    """vocab int16 [n_lists, V] residue-ordered (-1 padded); pair_list int32
+    """vocab int16 or int32 [n_lists, V] residue-ordered (-1 padded);
+    pair_list int32
     [P]; qcb int32 / qvb f32 [B, R * scb] the bucketed terms (-2 / 0
     padded); qc int32 / qv f32 [B, SC] the plain top terms (PAD_COMPONENT /
     0 padded); P == B * QC. Returns f32 [P, V], or (q_i8 int8 [P, V], scale
     f32 [P]) with quantize."""
-    global launches
+    global launches, launches_i32
     req = _cuda.require
-    req(vocab.dim() == 2 and vocab.dtype == torch.int16,
-        "vocab must be int16 [n_lists, V]")
+    req(vocab.dim() == 2 and vocab.dtype in (torch.int16, torch.int32),
+        "vocab must be int16 or int32 [n_lists, V]")
     req(pair_list.dim() == 1 and pair_list.dtype == torch.int32,
         "pair_list must be int32 [P]")
     req(qc.dim() == 2 and qc.dtype == torch.int32, "qc must be int32 [B, SC]")
@@ -116,10 +125,14 @@ def project_qloc_residue(vocab, pair_list, qcb, qvb, qc, qv, QC: int, R: int,
     else:
         out_f32 = torch.empty((P, V), dtype=torch.float32, device=dev)
     rc = lib.seismic_qloc_residue(
-        p(vocab), p(pair_list), p(qcb), p(qvb), p(qc), p(qv), P, V, SC, QC,
+        p(vocab), vocab.element_size(), p(pair_list), p(qcb), p(qvb), p(qc),
+        p(qv), P, V, SC, QC,
         R, scb, VRS, p(q_i8) if quantize else None,
         p(scale) if quantize else None, None if quantize else p(out_f32),
         ctypes.c_void_p(_cuda.stream_handle(dev)))
     _cuda.check(rc, "qloc_residue")
-    launches += 1
+    if vocab.dtype == torch.int32:
+        launches_i32 += 1
+    else:
+        launches += 1
     return (q_i8, scale) if quantize else out_f32

@@ -11,7 +11,8 @@ int8 view and `[n_super, 8, 128]` scale blocks were Mosaic constraints).
 Bin-packed views (`pack_bins`, set by `block_pool_arrays`) pack their
 short lists next-fit into shared `csub*SUB`-row bins
 (`packed_region_layout`), and the aligned layout then also returns each
-list's row offset inside its bin.
+list's row offset inside its bin. `load_or_build_aligned` caches the
+aligned layout on disk beside a saved index, in the JAX package's format.
 `narrow_vocab` (a copy of `seismic_tpu/ops/pallas_tiles.py::narrow_vocab`)
 derives a narrower-vocabulary index from a built one; `block_pool_arrays`
 and `order_block_members` (copies of the functions of those names there,
@@ -28,6 +29,10 @@ projection kernel (ops/qloc_residue.py).
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
+import tempfile
 from dataclasses import replace as dataclasses_replace
 
 import numpy as np
@@ -155,6 +160,96 @@ def prepare_pallas_tiles(arrays, csub: int = 1):
     return pallas_align_doc_tiles(
         arrays, ll_pad_for(arrays.max_list_len, csub), csub
     )
+
+
+def _dir_fingerprint(index_dir: str) -> int:
+    """Newest mtime (in microseconds) over the files of an index saved as a
+    directory (`IndexArrays.save_dir`): a rewrite of any file moves it,
+    where the directory's own mtime moves only when an entry is added or
+    removed."""
+    return int(max(
+        os.path.getmtime(os.path.join(index_dir, f))
+        for f in os.listdir(index_dir)
+    ) * 1e6)
+
+
+# the aligned-tile cache's array files, in the order of the tuple
+_CACHE_FILES = ("tiles.npy", "scale3d.npy", "region_start.npy",
+                "row_off.npy")
+
+
+def load_or_build_aligned(arrays, index_dir: str, csub: int = 1):
+    """`prepare_pallas_tiles`, cached on disk next to the index directory
+    (the counterpart of `seismic_tpu/ops_pallas_prep.py::
+    load_or_build_aligned`, in its on-disk format, so either package
+    reads the other's cache).
+
+    The cache is the directory `<index>.aligned_c{csub}.dir` beside
+    `index_dir` (a trailing `.dir` is dropped first): `tiles.npy` (the
+    aligned tiles as int8, JAX's view of the u8 bytes), `scale3d.npy`
+    (each row's scale in JAX's [n_super, 8, csub*128] blocks: the flat
+    `tile_scale` repeated 8 times), `region_start.npy`, `row_off.npy` for
+    bin-packed views, and `meta.json`, whose key is the source
+    directory's newest mtime, csub, the tile pool's rows and V, and
+    `pack_bins`: a rebuilt or rewritten index misses.
+
+    A hit memory-maps the files and returns (tiles u8 [rows, V], the
+    flat tile_scale f32 [rows], region_start int32, row_off int32 or
+    None), the tuple `IndexArrays.to_device(aligned=...)` uploads; a miss
+    builds the layout, writes it and returns the built arrays. The write
+    goes to a temporary directory beside the cache, and each file is then
+    renamed into place, `meta.json` last (and an old `meta.json` removed
+    first): a reader never maps a half-written file, and a write cut off
+    midway leaves no `meta.json` that would match."""
+    d = index_dir.rstrip("/")
+    if d.endswith(".dir"):
+        d = d[:-4]
+    d += f".aligned_c{csub}.dir"
+    meta_p = os.path.join(d, "meta.json")
+    fp = {
+        "src_fp": _dir_fingerprint(index_dir),
+        "csub": int(csub),
+        "rows": int(arrays.doc_tiles.shape[0]),
+        "v": int(arrays.doc_tiles.shape[1]),
+        "pack_bins": bool(arrays.pack_bins),
+    }
+    names = _CACHE_FILES
+    if os.path.exists(meta_p):
+        with open(meta_p) as f:
+            meta = json.load(f)
+        if meta.get("fp") == fp:
+            tiles = np.load(os.path.join(d, names[0]), mmap_mode="r")
+            scale3d = np.load(os.path.join(d, names[1]), mmap_mode="r")
+            region_start = np.load(os.path.join(d, names[2]))
+            ro_p = os.path.join(d, names[3])
+            row_off = np.load(ro_p) if os.path.exists(ro_p) else None
+            return (tiles.view(np.uint8), scale3d[:, 0, :].reshape(-1),
+                    region_start, row_off)
+    tiles, scale, region_start, row_off = prepare_pallas_tiles(arrays, csub)
+    lanes = csub * SUB
+    scale3d = np.repeat(scale.reshape(-1, 1, lanes), 8, axis=1)
+    parent = os.path.dirname(os.path.abspath(d))
+    os.makedirs(d, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=os.path.basename(d) + ".tmp", dir=parent)
+    try:
+        for name, a in zip(names, (tiles.view(np.int8), scale3d,
+                                   region_start, row_off)):
+            if a is not None:
+                np.save(os.path.join(tmp, name), a)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"fp": fp}, f)
+        if os.path.exists(meta_p):
+            os.remove(meta_p)
+        for name in names:
+            src = os.path.join(tmp, name)
+            if os.path.exists(src):
+                os.replace(src, os.path.join(d, name))
+            elif os.path.exists(os.path.join(d, name)):
+                os.remove(os.path.join(d, name))
+        os.replace(os.path.join(tmp, "meta.json"), meta_p)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return tiles, scale, region_start, row_off
 
 
 def super_tile_summaries(tiles, tile_scale, csub: int):
@@ -544,6 +639,21 @@ def residue_layout(V: int, R: int):
     return vrs, V - R * vrs
 
 
+def _permute_list_columns(rows, starts, lens, src_of_dst):
+    """Rows [n, V] whose run [starts[l], starts[l] + lens[l]) belongs to
+    list l, each list's columns reordered: column j of the result is
+    column src_of_dst[l, j] of the source, or 0 where that is V. One
+    slice of rows a list (the lists' runs do not overlap)."""
+    V = rows.shape[1]
+    out = np.zeros_like(rows)
+    for li in np.flatnonzero(np.asarray(lens) > 0):
+        r0, r1 = int(starts[li]), int(starts[li]) + int(lens[li])
+        src = src_of_dst[li]
+        keep = src < V
+        out[r0:r1, keep] = rows[r0:r1][:, src[keep]]
+    return out
+
+
 def residue_permute_arrays(arrays, R: int = 8):
     """Reorder every list's local vocabulary (and the matching doc-tile /
     dense-summary columns) into R STATIC residue groups of VRS slots plus
@@ -569,10 +679,13 @@ def residue_permute_arrays(arrays, R: int = 8):
     assert V % R == 0, (V, R)
     VRS, SPILL = residue_layout(V, R)
     valid = (lv >= 0) & (lv != PAD_COMPONENT)
-    res = np.where(valid, lv.astype(np.int64) % R, R)
-    perm_src = np.argsort(res, axis=1, kind="stable")  # [n_lists, V]
-    rs = np.take_along_axis(res, perm_src, axis=1)
-    col = np.broadcast_to(np.arange(V, dtype=np.int64), (n_lists, V))
+    # narrow keys (R <= 1024, slots < 2V) so the stable sorts below run as
+    # radix sorts; the values are those of wider ones
+    key_dt = np.int16 if 2 * V < 2 ** 15 else np.int32
+    res = np.where(valid, lv % R, R).astype(np.int16)
+    perm_src = np.argsort(res, axis=1, kind="stable").astype(key_dt)
+    rs = np.take_along_axis(res, perm_src, axis=1).astype(np.int32)
+    col = np.broadcast_to(np.arange(V, dtype=key_dt), (n_lists, V))
     new_grp = np.empty((n_lists, V), bool)
     new_grp[:, 0] = True
     np.not_equal(rs[:, 1:], rs[:, :-1], out=new_grp[:, 1:])
@@ -582,7 +695,7 @@ def residue_permute_arrays(arrays, R: int = 8):
     spilled = (rank >= VRS) & (rs < R)
     # spill slots in importance order (perm_src = original importance col)
     spill_key = np.where(spilled, perm_src, V + col)
-    spill_rank = np.empty((n_lists, V), np.int64)
+    spill_rank = np.empty((n_lists, V), np.int32)
     np.put_along_axis(
         spill_rank, np.argsort(spill_key, axis=1, kind="stable"),
         col, axis=1,
@@ -603,54 +716,19 @@ def residue_permute_arrays(arrays, R: int = 8):
         new_vocab, dst, np.take_along_axis(lv, perm_src, axis=1), axis=1
     )
     new_vocab = new_vocab[:, :V]
-    src_of_dst = np.full((n_lists, V + 1), V, np.int64)
+    src_of_dst = np.full((n_lists, V + 1), V, np.int32)
     np.put_along_axis(src_of_dst, dst, perm_src, axis=1)
     src_of_dst = src_of_dst[:, :V]
 
-    list_len = np.asarray(arrays.list_len, np.int64)
-    post_start = np.asarray(arrays.list_post_start, np.int64)
-    tiles = np.asarray(arrays.doc_tiles)
-    new_tiles = np.zeros_like(tiles)
-    total = int(list_len.sum())
-    if total:
-        starts = np.zeros(len(list_len), dtype=np.int64)
-        np.cumsum(list_len[:-1], out=starts[1:])
-        row_of = np.repeat(post_start, list_len) + (
-            np.arange(total, dtype=np.int64)
-            - np.repeat(starts, list_len)
-        )
-        list_of = np.repeat(
-            np.arange(n_lists, dtype=np.int64), list_len
-        )
-        src32 = src_of_dst.astype(np.int32)
-        CHUNK = max(1, (1 << 28) // (4 * V))  # ~256 MB index working set
-        for c0 in range(0, total, CHUNK):
-            c1 = min(c0 + CHUNK, total)
-            rows = row_of[c0:c1]
-            blk = tiles[rows]
-            ext = np.concatenate(
-                [blk, np.zeros((len(rows), 1), tiles.dtype)], axis=1
-            )
-            new_tiles[rows] = np.take_along_axis(
-                ext, src32[list_of[c0:c1]], axis=1
-            )
-
+    new_tiles = _permute_list_columns(
+        np.asarray(arrays.doc_tiles), np.asarray(arrays.list_post_start),
+        np.asarray(arrays.list_len), src_of_dst)
     new_dsum = arrays.dense_summary
     if new_dsum is not None:
-        dsum = np.asarray(arrays.dense_summary)
-        nblk = np.asarray(arrays.list_n_blocks, np.int64)
-        bstart = np.asarray(arrays.list_block_start, np.int64)
-        new_dsum = np.zeros_like(dsum)
-        for li in range(n_lists):
-            nb_ = int(nblk[li])
-            if nb_ == 0:
-                continue
-            b0 = int(bstart[li])
-            blk = dsum[b0:b0 + nb_]
-            ext = np.concatenate(
-                [blk, np.zeros((nb_, 1), dsum.dtype)], axis=1
-            )
-            new_dsum[b0:b0 + nb_] = ext[:, src_of_dst[li]]
+        new_dsum = _permute_list_columns(
+            np.asarray(arrays.dense_summary),
+            np.asarray(arrays.list_block_start),
+            np.asarray(arrays.list_n_blocks), src_of_dst)
 
     return _dc.replace(arrays, list_vocab=new_vocab, doc_tiles=new_tiles,
                        dense_summary=new_dsum, vocab_residue=R)

@@ -512,7 +512,7 @@ def _project(index: DeviceIndex, plan: DevicePlan, top_c, top_v, scq: int,
         return quantize_plain(qloc) if i8 else (qloc, None)
     if R:
         qcb, qvb = _residue_buckets(tc, tv, R, params.residue_scb)
-        out = project_qloc_residue(index.vocab16, pair_list, qcb, qvb, tc,
+        out = project_qloc_residue(vocab, pair_list, qcb, qvb, tc,
                                    tv, QC, R, params.residue_scb, quantize=i8)
         return out if i8 else (out, None)
     if i8:

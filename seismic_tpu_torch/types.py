@@ -38,6 +38,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -366,7 +367,7 @@ class IndexArrays:
     def to_device(self, device=None, tile_csub: int = 1,
                   vocab_residue: int = 0, tile_hash: int = 0,
                   super_summaries: bool = False,
-                  fwd_f16: bool = False) -> "DeviceIndex":
+                  fwd_f16: bool = False, aligned=None) -> "DeviceIndex":
         """Upload what the search routes read to `device` (None means
         "cuda"; raises when CUDA is absent rather than falling back to the
         CPU). Builds the list-aligned tile layout on the host when the
@@ -389,8 +390,15 @@ class IndexArrays:
         in place of `fwd_fused` where the JAX package does: values not
         in the lean form and dim <= 32766 (elsewhere it is ignored, as
         there). Past dim 32766 the vocabularies and the lean form's ids
-        go up as int32 (`list_vocab`, `fwd_comps`). Fields the build left
-        out stay `None`."""
+        go up as int32 (`list_vocab`, `fwd_comps`). `aligned` is a tile
+        layout made beforehand, `(tiles u8, tile_scale f32, region_start,
+        row_off or None)` as `ops/tiles_prep.py::prepare_pallas_tiles`
+        (or the on-disk cache, `load_or_build_aligned`) returns it, for
+        this index at this `tile_csub`: it is uploaded in place of the
+        layout built on the host (the JAX package's `_aligned`), and may
+        hold zero rows past every list's region (the sharded path pads
+        the shards' layouts to common rows). Fields the build left out
+        stay `None`."""
         import torch
 
         from .ops.tiles_prep import (
@@ -401,15 +409,11 @@ class IndexArrays:
         from .device import resolve_device
 
         wide = self.dim > 32766
-        if (vocab_residue or self.vocab_residue) and wide:
-            raise NotImplementedError(
-                "vocab_residue past dim 32766: K9 keys its table by (id, "
-                "bucket) packed for int16 ids (ROADMAP.md, modules to "
-                "port, item 1: K9 at int32)")
         if vocab_residue and self.vocab_residue == 0:
             return residue_permute_arrays(self, vocab_residue).to_device(
                 device, tile_csub, tile_hash=tile_hash,
-                super_summaries=super_summaries, fwd_f16=fwd_f16)
+                super_summaries=super_summaries, fwd_f16=fwd_f16,
+                aligned=aligned)
         dev = resolve_device(device)
         if tile_csub < 1:
             raise ValueError(f"tile_csub={tile_csub} must be >= 1")
@@ -433,10 +437,25 @@ class IndexArrays:
                 return None
             a = np.ascontiguousarray(a if dtype is None else
                                      np.asarray(a, dtype=dtype))
+            if not a.flags.writeable:
+                # a memory-mapped cache file: copied, never shared
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    return torch.from_numpy(a).to(dev, copy=True)
             return torch.from_numpy(a).to(dev)
 
         tiles_u8 = tile_scale = region_start = row_off = None
-        if self.doc_tiles is not None:
+        if aligned is not None:
+            tiles_u8, tile_scale, region_start = aligned[:3]
+            row_off = aligned[3] if len(aligned) > 3 else None
+            if (np.asarray(tiles_u8).dtype != np.uint8
+                    or tiles_u8.shape[0] != tile_scale.shape[0]
+                    or len(region_start) != self.n_lists):
+                raise ValueError(
+                    "aligned must be (tiles u8 [rows, V], tile_scale "
+                    "[rows], region_start [n_lists], row_off) of this "
+                    "index")
+        elif self.doc_tiles is not None:
             tiles_u8, tile_scale, region_start, row_off = (
                 prepare_pallas_tiles(self, tile_csub))
         vocab = {"vocab16": None}

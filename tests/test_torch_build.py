@@ -181,7 +181,9 @@ def test_port_imports_no_jax_and_no_seismic_tpu():
     sources = _port_sources()
     mods = [m for m, _ in sources]
     for m in ("api", "data.io", "search.exact", "search.knn",
-              "build.convert", "search.flat", "ops.sketch"):
+              "build.convert", "search.flat", "ops.sketch",
+              "parallel.mesh", "parallel.sharded", "harness.dryrun",
+              "harness.bench_sharded"):
         assert f"seismic_tpu_torch.{m}" in mods, m
     for mod, path in sources:
         with open(path) as fh:

@@ -11,7 +11,9 @@ package on the CPU, on numpy data from a seed.
   (interpret mode) to 1e-5 relative;
 - K1's and K8's plain versions on an int32 vocabulary (PAD_COMPONENT
   padded, ids past 32767) equal `project_qloc_pallas` /
-  `project_qloc_rowmajor` in interpret mode bit for bit;
+  `project_qloc_rowmajor` in interpret mode bit for bit, and K9's on a
+  residue-ordered int32 vocabulary `project_qloc_residue`; the dim-40000
+  index uploaded with `vocab_residue=8` gives JAX's K9 codes and results;
 - `convert` equals `seismic_tpu/build/convert.py` array for array;
 - a `SeismicIndexRawLV` at dim 40000, built from CSR, equals the JAX API
   on the grouped and the engine routes, before and after `convert("u8")`
@@ -396,11 +398,158 @@ def test_lv_wide_index_matches_jax(wide_api, case):
     _assert_results_gate(got, want)
 
 
-def test_wide_residue_upload_raises(wide):
-    """K9 keys its table by (id, bucket) packed for int16 ids: an upload
-    with vocab_residue past dim 32766 names its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*K9 at int32"):
-        wide[2].to_device("cpu", vocab_residue=8)
+# ------------------------------------------------- K9 on int32 vocabularies
+def _residue_order(vocab, R):
+    """Each list's real ids (>= 0, not PAD) into R residue groups of VRS
+    slots and the spill, -1 padded: the layout `residue_permute_arrays`
+    gives an int32 vocabulary (importance order kept by row order)."""
+    from seismic_tpu_torch.ops.tiles_prep import residue_layout
+
+    V = vocab.shape[1]
+    VRS, spill = residue_layout(V, R)
+    out = np.full_like(vocab, -1)
+    for li, row in enumerate(vocab):
+        real = row[(row >= 0) & (row != PAD_COMPONENT)]
+        rest = []
+        for r in range(R):
+            mine = real[real % R == r]
+            out[li, r * VRS:r * VRS + len(mine[:VRS])] = mine[:VRS]
+            rest += mine[VRS:].tolist()
+        out[li, R * VRS:R * VRS + len(rest[:spill])] = rest[:spill]
+    return out
+
+
+@pytest.mark.parametrize("scb", [4, 16])
+def test_k9_int32_vocab_matches_pallas(scb):
+    """K9's plain version (f32 and quantized) on residue-ordered int32
+    rows holding EDGE_IDS, 2^31 - 2 and ids past 2^20, against
+    `project_qloc_residue` in interpret mode on the same rows, bit for
+    bit; a query repeats an id; scb 4 overflows buckets."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from seismic_tpu.ops.pallas_qloc import project_qloc_residue as j_k9
+    from seismic_tpu.search.grouped import _residue_buckets as j_buckets
+
+    from seismic_tpu_torch.ops import qloc_residue
+    from seismic_tpu_torch.search.grouped import _residue_buckets
+
+    R, V, B, QCP, SC, n_lists = 8, 128, 16, 8, 40, 30
+    rng = np.random.default_rng(scb)
+    pool = np.unique(np.concatenate([
+        EDGE_IDS, [2 ** 31 - 2, 2 ** 31 - 9, (1 << 20) + 3],
+        rng.choice(np.arange(1 << 20, 1 << 30), 300, replace=False),
+        rng.choice(1 << 20, 200, replace=False)]))
+    vocab = np.full((n_lists, V), PAD_COMPONENT, np.int32)
+    for li in range(n_lists):
+        m = rng.integers(V // 4, V + 1)
+        vocab[li, :m] = rng.choice(pool, m, replace=False)
+    vocab[0, :12] = pool[-12:]  # the top ids in list 0
+    vocab[1, :len(EDGE_IDS)] = EDGE_IDS
+    vocab = _residue_order(vocab, R)
+    qc = np.full((B, SC), PAD_COMPONENT, np.int32)
+    qv = np.zeros((B, SC), np.float32)
+    for b in range(B):
+        m = rng.integers(SC // 2, SC + 1)
+        qc[b, :m] = rng.choice(pool, m, replace=False)
+        qv[b, :m] = -np.sort(-rng.random(m).astype(np.float32) * 3)
+    qc[0, :3] = [2 ** 31 - 2, (1 << 20) + 3, 32768]
+    qc[1, 1] = qc[1, 0]  # a repeated id sums its values in term order
+    pair_list = rng.integers(0, n_lists, B * QCP).astype(np.int32)
+    pair_list[:QCP] = np.arange(QCP) % 2
+    j_qcb, j_qvb = j_buckets(jnp.asarray(qc), jnp.asarray(qv), R, scb)
+    t_qcb, t_qvb = _residue_buckets(torch.from_numpy(qc),
+                                    torch.from_numpy(qv), R, scb)
+    np.testing.assert_array_equal(t_qcb.numpy(), np.asarray(j_qcb))
+    np.testing.assert_array_equal(t_qvb.numpy(), np.asarray(j_qvb))
+    P = B * QCP
+    P_cap = -(-P // 128) * 128
+
+    def lane(a, fill):
+        return np.pad(np.repeat(a, QCP, axis=0).T, ((0, 0), (0, P_cap - P)),
+                      constant_values=fill)
+
+    j_out = np.asarray(j_k9(
+        jnp.asarray(np.pad(vocab[pair_list].T, ((0, 0), (0, P_cap - P)),
+                           constant_values=-1)),
+        jnp.asarray(lane(np.asarray(j_qcb), -2)),
+        jnp.asarray(lane(np.asarray(j_qvb), 0.0)), jnp.asarray(lane(qc, -2)),
+        jnp.asarray(lane(qv, 0.0)), R, scb, SC, interpret=True)).T[:P]
+    args = [torch.from_numpy(a) for a in (vocab, pair_list)] + [
+        t_qcb, t_qvb, torch.from_numpy(qc), torch.from_numpy(qv)]
+    before = (qloc_residue.launches, qloc_residue.launches_i32)
+    t_out = qloc_residue.project_qloc_residue(*args, QCP, R, scb)
+    np.testing.assert_array_equal(t_out.numpy(), j_out)
+    assert (j_out[:QCP] != 0).any() and (j_out != 0).mean() > 0.01
+    q_i8, q_sc = qloc_residue.project_qloc_residue(*args, QCP, R, scb,
+                                                   quantize=True)
+    e_i8, e_sc = qloc.quantize_plain(torch.from_numpy(j_out.copy()))
+    assert torch.equal(q_i8, e_i8) and torch.equal(q_sc, e_sc)
+    # CPU tensors: the plain version, no launch counted
+    assert (qloc_residue.launches, qloc_residue.launches_i32) == before
+
+
+@pytest.fixture(scope="module")
+def wide_residue(wide):
+    """The dim-40000 index uploaded with vocab_residue=8 by both packages,
+    with its planner contexts."""
+    from seismic_tpu.search.planner import PlannerContext as JCtx
+
+    from seismic_tpu_torch.search.planner import PlannerContext
+
+    _, ja, ta, qc, qv = wide
+    return (ja.to_device(pallas_tiles=True, vocab_residue=8),
+            JCtx.from_arrays(ja), ta.to_device("cpu", vocab_residue=8),
+            PlannerContext.from_arrays(ta), qc, qv)
+
+
+@pytest.mark.parametrize("stage", ["qloc", "full"])
+def test_wide_residue_grouped_matches_jax(wide, wide_residue, stage):
+    """`to_device(vocab_residue=8)` past dim 32766: the permuted int32
+    vocabulary equals JAX's, and JAX's grouped program on its own residue
+    upload gives the port's K9 projections bit for bit ("qloc", f32). A
+    whole i8 batch on the residue upload ("full") meets the repo's gate
+    against the port's batch on the plain upload, which
+    `test_lv_wide_index_matches_jax[grouped]` holds against JAX's (JAX's
+    grouped scorer in interpret mode takes ~110 s at this dim, whatever
+    the batch, so it runs once, there)."""
+    from seismic_tpu.ops.pallas_tiles import residue_permute_arrays as jperm
+    from seismic_tpu.search.grouped import GroupedParams, search_grouped
+
+    from seismic_tpu_torch.ops import qloc_residue
+    from seismic_tpu_torch.ops.tiles_prep import residue_permute_arrays
+    from seismic_tpu_torch.search import grouped as tgrouped
+    from seismic_tpu_torch.search.planner import PlannerContext
+
+    _, ja, ta, _, _ = wide
+    jdev, jctx, tdev, tctx, qc, qv = wide_residue
+    assert tdev.vocab16 is None and tdev.list_vocab.dtype == torch.int32
+    assert tdev.vocab_residue == 8 == jdev.vocab_residue
+    assert (tdev.list_vocab.numpy() == np.asarray(jdev.list_vocab)).all()
+    q_comps, q_vals = pad_queries(qc, qv, 64)
+    kw = dict(k=K, score_cut=64, pool=64, rescore=32, pool_mode="exact")
+    if stage == "qloc":
+        np.testing.assert_array_equal(
+            residue_permute_arrays(ta, 8).list_vocab,
+            np.asarray(jperm(ja, 8).list_vocab))
+        kw.update(compute_dtype="f32", stop_after="qloc")
+        s_j, _ = search_grouped(jdev, jctx, q_comps, q_vals,
+                                GroupedParams(**kw), query_cut=QC)
+        s_t, _ = tgrouped.search_grouped(tdev, tctx, q_comps, q_vals,
+                                         tgrouped.GroupedParams(**kw),
+                                         query_cut=QC)
+        # JAX's f32 projection is lane-major [V, P_cap], the port's [P, V]
+        np.testing.assert_array_equal(s_t, np.asarray(s_j).T[:s_t.shape[0]])
+        assert (s_t != 0).any()
+        return
+    gp = tgrouped.GroupedParams(compute_dtype="i8", **kw)
+    before = (qloc_residue.launches, qloc_residue.launches_i32)
+    out = [tgrouped.search_grouped(d, c, q_comps, q_vals, gp, query_cut=QC)
+           for d, c in ((tdev, tctx), (ta.to_device("cpu"),
+                                       PlannerContext.from_arrays(ta)))]
+    assert (qloc_residue.launches, qloc_residue.launches_i32) == before
+    got, want = ([[(float(a), int(b)) for a, b in zip(sr, ir) if b >= 0]
+                  for sr, ir in zip(*o)] for o in out)
+    _assert_results_gate(got, want)
 
 
 # ------------------------------------------------------- FlatTermIndex

@@ -14,8 +14,12 @@ for inside each test): each K3 form against its plain version at W 256
 (16- / 32-byte loads), 96, 75 (single loads) and 300 (two spans), ids
 clamped and skipped (1e-5 relative, exactly 0 where the plain score is
 0, -inf at the same slots); K1 (quantized and f32) and K8 on int32 rows
-at V 128 / 512 / 1032 bit for bit. This file imports no JAX, so on the
-card it runs alone:
+at V 128 / 512 / 1032 bit for bit; K9 on residue-ordered int32 rows (ids
+to 2^31 - 2, past 2^20, repeated in a query, buckets that overflow) at V
+128 / 512 / 1032, R 4 / 8, scb 4 / 16, and at 256 terms and 1024 bucket
+slots (the table of 4096 pairs, past 48 KB of shared memory), quantized
+and f32, bit for bit. This file imports no JAX, so on the card it runs
+alone:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_forms_cuda.py
 """
@@ -25,7 +29,9 @@ import pytest
 import torch
 
 from seismic_tpu_torch.data.sparse import PAD_COMPONENT
-from seismic_tpu_torch.ops import qloc, qloc_rowmajor, rescore
+from seismic_tpu_torch.ops import qloc, qloc_residue, qloc_rowmajor, rescore
+from seismic_tpu_torch.ops.tiles_prep import residue_layout
+from seismic_tpu_torch.search.grouped import _residue_buckets
 
 PAD = int(PAD_COMPONENT)
 N_DOCS = 24
@@ -234,4 +240,55 @@ def test_cuda_k1_k8_int32_vocab_match_plain(V):
     assert torch.equal(k_f32, qloc.project_qloc_plain(*a, QCP))
     assert torch.equal(k_i8, p_i8) and torch.equal(k_sc, p_sc)
     assert torch.equal(k8_i8, p_i8) and torch.equal(k8_sc, p_sc)
+    assert (k_f32 != 0).any()
+
+
+def _residue_rows(vocab, R):
+    """int32 vocab rows (PAD padded) in the residue-R layout of the upload:
+    R groups of VRS slots and the spill, -1 padded."""
+    VRS, spill = residue_layout(vocab.shape[1], R)
+    out = np.full_like(vocab, -1)
+    for li, row in enumerate(vocab):
+        real = row[(row >= 0) & (row != PAD)]
+        rest = []
+        for r in range(R):
+            mine = real[real % R == r]
+            out[li, r * VRS:r * VRS + len(mine[:VRS])] = mine[:VRS]
+            rest += mine[VRS:].tolist()
+        out[li, R * VRS:R * VRS + len(rest[:spill])] = rest[:spill]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,R,scb,SC", [
+    (128, 4, 4, 64), (512, 8, 16, 64), (1032, 8, 16, 64), (512, 4, 16, 64),
+    (1032, 8, 128, 256)])
+def test_cuda_k9_int32_vocab_match_plain(V, R, scb, SC):
+    dev = _card()
+    vocab, pair_list, qc, qv, QCP = _vocab_operands(V)
+    if SC > qc.shape[1]:  # every term slot real: the most keys a row has
+        rng = np.random.default_rng(SC)
+        wide = rng.choice(np.arange(1 << 20, 2 ** 31 - 2), SC - qc.shape[1],
+                          replace=False).astype(np.int32)
+        qc = np.concatenate([qc, np.tile(wide, (qc.shape[0], 1))], axis=1)
+        qv = np.concatenate([qv, np.full((qv.shape[0], len(wide)), 0.25,
+                                         np.float32)], axis=1)
+    order = np.argsort(-np.abs(qv), axis=1, kind="stable")
+    qc = np.take_along_axis(qc, order, 1)
+    qv = np.take_along_axis(qv, order, 1)
+    vocab = _residue_rows(vocab, R)
+    a = [torch.from_numpy(x).to(dev) for x in (vocab, pair_list, qc, qv)]
+    qcb, qvb = _residue_buckets(a[2], a[3], R, scb)
+    ops = (a[0], a[1], qcb, qvb, a[2], a[3], QCP, R, scb)
+    before = (qloc_residue.launches, qloc_residue.launches_i32)
+    k_f32 = qloc_residue.project_qloc_residue(*ops)
+    k_i8, k_sc = qloc_residue.project_qloc_residue(*ops, quantize=True)
+    torch.cuda.synchronize()
+    assert (qloc_residue.launches, qloc_residue.launches_i32) == (
+        before[0], before[1] + 2)
+    p_f32 = qloc_residue.project_qloc_residue_plain(*ops)
+    p_i8, p_sc = qloc_residue.project_qloc_residue_plain(*ops,
+                                                         quantize=True)
+    assert torch.equal(k_f32, p_f32)
+    assert torch.equal(k_i8, p_i8) and torch.equal(k_sc, p_sc)
     assert (k_f32 != 0).any()
