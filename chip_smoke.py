@@ -216,9 +216,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    queries: top-10 agreement with `exact_search` >= 0.9 and scores within
    2% of the exact dots (u8 quantization), wall time; (d) last, every
    earlier index freed: `SeismicIndexRawLV.build_from_csr` on
-   `synth_dataset(50_000, dim=250_002, seed=7)` (the corpus cut to half to
-   fit the time limit; XLM-RoBERTa's vocabulary, BGE-
-   M3's sparse head) at the API cell's pruning and layout with
+   `synth_dataset(10_000, dim=250_002, seed=7)` (the corpus cut to a
+   tenth to fit the time limit; XLM-RoBERTa's vocabulary, BGE-M3's sparse
+   head) at the API cell's pruning and layout with
    summary_vocab_cap 512, its bytes printed first; 4096 queries at
    heap_factor 0 (K1 on the int32 vocabulary, K2, K3), K1 and K8 on int32
    rows bit-exact against their plain versions on the route's operands,
@@ -258,11 +258,59 @@ Phases (any failure exits non-zero, and no result line is printed):
    beside phase 5's; (d) `init_distributed` as an NCCL group of one
    (a free local port) and (a)'s 1x4 batch through the cross-process
    merge, equal to the in-process merge; (c) a u8 build of the first
-   40,000 documents into 4 shards (a cut that keeps the script in its
-   time limit), the block view (`tile_block=512`, `block_expand=32`, K3-u8), recall@10
-   beside phase 9's; (e) `harness/dryrun.py::dryrun_multichip(4)`, its
-   four `ok` lines; the phase's wall time, and (a)'s batch time over
-   phase 3's for the record only (shards on one card run in turn).
+   10,000 documents into 4 shards (a cut that keeps the script in its
+   time limit), the block view (`tile_block=512`, `block_expand=32`,
+   K3-u8), recall@10 beside phase 9's; (e)
+   `harness/dryrun.py::dryrun_multichip(4)`, its
+   four `ok` lines (widths 128, as JAX's); the phase's wall time, and
+   (a)'s batch time over phase 3's for the record only (shards on one
+   card run in turn).
+13. the CLI and the experiment harness, right after phase 12 (phase 3's
+   corpus still in memory), in a temporary directory, every step through
+   its module's `main(argv)` and timed: (a) `harness/export_synth.py`
+   writes the corpus (read from its cache, where this run puts it) and
+   2048 queries as `.bin` files (documents.bin read back equal to the
+   corpus) with the exact top-10 ground truth; (b)
+   `harness/run_experiments.py` on `experiments/best_configs_synth/
+   recall_97.toml`, its [folder] moved into the directory: the build CLI
+   (f32, 200 postings, V 1024), the perf CLI on the grouped route (query
+   cut 11, B 2048; K1, K2 at csub 2, K3 launched, K7 never),
+   accuracy@10 >= 0.962 (JAX's v5e record 0.9721 less 0.01) and every
+   run-file score the f32 exact dot to 1e-3 relative; (c)
+   `harness/bench_knn.py` builds the graph of that index (nknn 8, K7) and
+   runs its ladder, then `recall_98.toml` with `knn-path` pointed at the
+   graph: the index reused (build_secs 0), K3 launched more often than in
+   (b), accuracy@10 >= 0.97 (0.9803 less 0.01), scores exact; (e)
+   `harness/run_grid_search.py` on a grid of one indexing combination x
+   query cuts 10 and 11 over the first 10,000 documents at
+   summary-vocab-cap 128 (exported by `export_synth` from a cache of the
+   cut; the grouped route at V 128), run twice: the second launches
+   no kernel and rewrites no report; `harness/best_configs.py` over its
+   root; (d) the perf CLI's engine route on the grid's index at
+   heap_factor 0.7 with block budget 64 (K7; the perf CLI has no rescore
+   doc mode, so K3 never launches there), accuracy@10 recorded; (f) the
+   first 2,000 documents written as phase 8e's JSONL and phase 3's 4096
+   queries as token strings: `cli/convert_json_to_inner_format.py`
+   (documents.bin mapped back through its token map equal to the cut's
+   CSR), `cli/build_enhanced_inverted_index.py` and `cli/
+   perf_enhanced_inverted_index.py` at heap_factor 0.7 (K7), its run file
+   equal line for line to `SeismicIndex.load(...).batch_search`; (g)
+   `harness/profile_stages.py --both` on the grid's index (each form's
+   final top-k equal to the engine program's; K3 and K7) and
+   `harness/bench_mem.py --block` at the cut (K1, K4, K3-u8), its record
+   in `chiprun_out/mem_bench.json`.
+6b. (inside phase 4, after phase 11a) the headline index narrowed to V 384
+   and then 128 (`narrow_vocab`), each uploaded with csub 2: one B=4096 /
+   M=8 batch on the derived plan with the headline parameters (K1, K4,
+   K3), with kernel_unroll 1 (K2) and with `GroupedParams(pool=128)` (K1,
+   K6 bf16), each in a counted window with recall@10 on 256 queries and,
+   for the int8 ones, every score the exact dot; K4, K2 and K6 against
+   their plain versions on the batch's operands (int dots exact and 1e-6;
+   K6 1e-5 of the larger of score and centring term), timed beside their
+   bounds and a library product, with the ptxas lines of the instances
+   that take V at run time (K4: kV = 0; K2 and K6 have only those). The
+   `kernels` line carries these six as
+   `<name>@V384` / `<name>@V128`, with the launches of their windows.
 
 Every profiler window (phases 3-10) is taken after one warm-up call of
 what it profiles and is read only where it holds that phase's hand
@@ -295,6 +343,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1148,6 +1197,11 @@ def headline_path(ds, dev, record, kernels, graph) -> dict:
              qcd=qcd, qvd=qvd, qcB=qcB, qvB=qvB, gcB=gcB, wcB=wcB,
              rec16=rec16), dev, record)
 
+    # ---- phase 6b: tile widths 128 and 384, on this index narrowed ----
+    record["widths_kernels"] = widths_path(
+        dict(arrays=arrays, docs=docs, qc_np=qcn[0], qv_np=qvn[0],
+             qc_t=qcd[0], qv_t=qvd[0], gt=gt[:256]), dev, record)
+
     # ---- the aligned-tile cache, on this index ----
     aligned_cache_path(
         dict(arrays=arrays, dindex=dindex, ctx=ctx, qc_np=qcn[0],
@@ -1780,6 +1834,246 @@ def modes_path(env, dev, record, kernels) -> list:
         bound_by=main6["bound_by"], library_ms=lib6, cases=k6,
         routes=routes6, sass_mix_bf16=mix6, bytes_converted=W * ROWS * V0)
     return [rec5, rec6, rec8, rec9]
+
+
+# ---- phase 6b: tile widths 128 and 384 on the grouped scorers ----
+# the widths, each the modes index narrowed again (512 -> 384 -> 128): every
+# multiple of 128 is a width JAX's kernel takes (pallas_grouped.py:76)
+WIDTHS = (384, 128)
+
+
+def widths_path(env, dev, record) -> list:
+    """Phase 6b, inside phase 4 after phase 11a: the modes index narrowed
+    to V 384 and then 128 (`narrow_vocab`), each uploaded with csub 2 and
+    searched with one B=4096 / M=8 batch on the derived plan in a counted
+    window per scorer (K4: the headline parameters; K2: the same with
+    kernel_unroll 1; K6: `GroupedParams(pool=128)`, bf16), every score of
+    the int8 batches the exact dot; K2, K4 and K6 held against their plain
+    versions on the batch's own operands (K2 / K4 int dots exact and 1e-6
+    relative, K6 1e-5 of the larger of score and centring term), timed
+    beside their bounds, with their ptxas lines. Returns the six kernel
+    records (name@V<width>) for the `kernels` line."""
+    import dataclasses
+
+    import torch
+
+    from seismic_tpu_torch.ops import (
+        grouped_scorer,
+        grouped_scorer_f,
+        grouped_scorer_item,
+        qloc,
+    )
+    from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for, narrow_vocab
+    from seismic_tpu_torch.search.grouped import (
+        GroupedParams,
+        _query_terms,
+        derive_plan_device,
+        plan_caps,
+        search_grouped_derive,
+    )
+    from seismic_tpu_torch.search.planner import PlannerContext
+
+    rec = record.setdefault("widths", {})
+    t_phase = time.time()
+    qc_np, qv_np, qc_t, qv_t = (env[k_] for k_ in ("qc_np", "qv_np", "qc_t",
+                                                   "qv_t"))
+    docs, gt = env["docs"], env["gt"]
+    nq = len(gt)
+    M, QC, ROWS = 8, QUERY_CUT, CSUB * SUB
+    ptx = {lib: ptxas_of(lib, needle) for lib, needle in (
+        ("grouped_scorer", "score_grouped_i8_kernel"),
+        ("grouped_scorer_item", "score_item_kernel"),
+        ("grouped_scorer_f", "score_grouped_f_kernel"))}
+    # the run-time-V instances (K4's kV = 0 serves every width but M 16 at
+    # V 512; K2 and K6 have no other)
+    keys = {"grouped_scorer":
+                f"score_grouped_i8_kernelILi{M}ELi{ROWS}ELb0E",
+            "grouped_scorer_item":
+                f"score_item_kernelILi{M}ELi{ROWS}ELi0ELb0E",
+            "grouped_scorer_f":
+                f"score_grouped_f_kernelILi{M}ELi{ROWS}ELi1ELb0E"}
+    ptx_lines = {lib: [ln for f_, lns in ptx[lib].items() if keys[lib] in f_
+                       for ln in lns] for lib in ptx}
+    for lib, lns in ptx_lines.items():
+        if not lns:
+            fail(f"phase 6b: no ptxas report of {keys[lib]}")
+        log(f"phase 6b: ptxas {keys[lib]} (V at run time): "
+            f"{'; '.join(lns)}")
+    out, arrays = [], env["arrays"]
+    for V in WIDTHS:
+        t0 = time.time()
+        arrays = narrow_vocab(arrays, V)
+        t1 = time.time()
+        dv = arrays.to_device(dev, tile_csub=CSUB)
+        ctx = PlannerContext.from_arrays(arrays, csub=CSUB)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        caps = plan_caps(qc_np, qv_np, ctx, QC, M=M)
+        k4p = headline_params()
+        runs = {}
+        for tag, params, positive in (
+                ("k4", k4p, ("qloc", "score_grouped_i8_item", "rescore")),
+                ("k2", dataclasses.replace(k4p, kernel_unroll=1),
+                 ("qloc", "score_grouped_i8", "rescore")),
+                ("k6", GroupedParams(k=K, pool=128),
+                 ("qloc", "score_grouped_f"))):
+            def once(p_=params):
+                return search_grouped_derive(dv, qc_t, qv_t, p_, QC, M,
+                                             caps[0], caps[1],
+                                             ctx.zero_region)
+            once()  # warm-up
+            (s_, i_), wall, counts = counted(
+                f"phase 6b V {V} {tag}", f"v{V}_{tag}", record, once,
+                positive=positive)
+            fin = torch.isfinite(s_) & (i_ >= 0)
+            if fin.float().mean().item() < 0.99:
+                fail(f"phase 6b V {V} {tag}: under 99% of the top-k slots "
+                     "filled")
+            r = dict(recall_at_10=recall_at(gt, i_[:nq]), wall_ms=wall,
+                     launches={n_: c for n_, c in counts.items() if c})
+            if tag != "k6":  # rescore 64: every score the exact dot
+                r["max_rel_score_err"] = exact_scores_err(docs, qc_t, qv_t,
+                                                          s_, i_)
+                if not r["max_rel_score_err"] <= 1e-5:
+                    fail(f"phase 6b V {V} {tag}: scores differ from the "
+                         f"exact dots by {r['max_rel_score_err']}")
+            runs[tag] = r
+            log(f"phase 6b V {V} {tag}: recall@10 {r['recall_at_10']:.4f} "
+                f"on {nq} queries, {wall:.2f} ms, launches {r['launches']}")
+
+        # ---- the scorers against their plain versions on the batch's
+        # operands: the derived plan, K1's projections, qsum ----
+        dp = derive_plan_device(dv, qc_t, qv_t, QC, M, caps[0], caps[1],
+                                ctx.zero_region)
+        G, W = int(dp.G), int(dp.W)
+        G_cap = dp.slot_b.shape[0]
+        LLMAX = ll_pad_for(dv.max_list_len, CSUB)
+        top_c, top_v, sc = _query_terms(qc_t, qv_t, 64)
+        a1 = (dv.vocab16, dp.pair_list.reshape(-1).contiguous(),
+              top_c[:, :sc].contiguous(), top_v[:, :sc].contiguous(), QC)
+        q8p, _ = qloc.project_qloc_quantize(*a1)
+        qfp = qloc.project_qloc_f32(*a1)
+        slot = dp.slot_pair.long()
+        q8 = q8p[slot].reshape(G_cap, M, V).contiguous()
+        qf = qfp[slot].reshape(G_cap, M, V).contiguous()
+        qsum = (128.0 * qfp.sum(-1))[slot].reshape(G_cap, M).contiguous()
+        tiles, tscale = dv.doc_tiles_aligned, dv.tile_scale
+        wr, wg, ws = dp.work_region, dp.work_g, dp.work_s
+        wgl, wsl = wg[:W].long(), ws[:W].long()
+        n_regions = torch.unique(wr[:W]).numel()
+        tile_bytes = n_regions * ROWS * (V + 4)
+        ops = 2.0 * W * M * ROWS * V
+
+        def covered(o):
+            return o.view(G_cap, M, LLMAX // ROWS, ROWS)[wgl, :, wsl, :]
+
+        def rel_err(k, p):
+            return float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
+
+        # K4 (item-major) and K2 (slot-major): int dots exact, 1e-6
+        a4 = (tiles, tscale, q8, wr, wg, CSUB)
+        a2 = (tiles, tscale, q8, wr, wg, ws, LLMAX, CSUB)
+        ones = torch.ones_like(tscale)
+        dots = grouped_scorer.grouped_dots_plain(
+            tiles, q8, wr[:W], wg[:W], rows_per_item=ROWS).to(torch.float32)
+        k4o = grouped_scorer_item.score_grouped_i8_item(*a4)[:W]
+        p4o = grouped_scorer_item.score_grouped_i8_item_plain(*a4)[:W]
+        d4 = grouped_scorer_item.score_grouped_i8_item(
+            tiles, ones, *a4[2:])[:W]
+        k2o = covered(grouped_scorer.score_grouped_i8(*a2))
+        p2o = covered(grouped_scorer.score_grouped_i8_plain(*a2))
+        d2 = covered(grouped_scorer.score_grouped_i8(tiles, ones, *a2[2:]))
+        checks = {"score_grouped_i8_item": (rel_err(k4o, p4o),
+                                            torch.equal(d4, dots),
+                                            (k4o - p4o).abs().max()),
+                  "score_grouped_i8": (rel_err(k2o, p2o),
+                                       torch.equal(d2, dots),
+                                       (k2o - p2o).abs().max())}
+        del k4o, p4o, d4, k2o, p2o, d2, dots
+        for name, (rel, dots_ok, _) in checks.items():
+            if not (dots_ok and rel <= 1e-6):
+                fail(f"phase 6b V {V}: {name} disagrees with its plain "
+                     f"version (int dots equal {dots_ok}, max rel err {rel})")
+        # K6, bf16 centred (as the search calls it): 1e-5 of the larger of
+        # the score and the centring term
+        a6 = (tiles, tscale, qf, qsum, wr, wg, ws, LLMAX, CSUB, "bf16")
+        k6o = covered(grouped_scorer_f.score_grouped_f(*a6))
+        p6o = covered(grouped_scorer_f.score_grouped_f_plain(*a6))
+        mag = (qsum[wgl][:, :, None]
+               * tscale[wr[:W].long()[:, None] * ROWS
+                        + torch.arange(ROWS, device=dev)][:, None, :])
+        err6 = (k6o - p6o).abs()
+        tol6 = 1e-5 * torch.maximum(mag.abs(), p6o.abs())
+        if not (err6 <= tol6).all():
+            fail(f"phase 6b V {V}: score_grouped_f disagrees, max abs err "
+                 f"{err6.max().item()}")
+        checks["score_grouped_f"] = (
+            float((err6 / tol6.clamp_min(1e-30)).max()), True, err6.max())
+        del k6o, p6o, err6, tol6, mag
+
+        # library yardstick of the int8 scorers: one int8 tensor-core
+        # product of the same operation count over the same gathered rows
+        rows = (wr[:W].long()[:, None] * ROWS
+                + torch.arange(ROWS, device=dev)).reshape(-1)
+        A = tiles[rows].view(torch.int8)
+        lib_i8 = time_ms(lambda: torch._int_mm(A, q8[0].t()), 10)
+        del A
+        Ab = tiles[rows].to(torch.bfloat16)
+        lib_bf16 = time_ms(lambda: torch.matmul(
+            Ab, qf[0].t().to(torch.bfloat16).contiguous()), 10)
+        del Ab, rows
+        for name, src, row, fn, plain, args, by, peak, lib, lib_name in (
+                ("score_grouped_i8_item", "grouped_scorer_item.cu", 326,
+                 grouped_scorer_item.score_grouped_i8_item,
+                 grouped_scorer_item.score_grouped_i8_item_plain, a4,
+                 tile_bytes + G * M * V + W * 8 + W * M * ROWS * 4,
+                 PEAK_INT8, lib_i8, "torch._int_mm"),
+                ("score_grouped_i8", "grouped_scorer.cu", 231,
+                 grouped_scorer.score_grouped_i8,
+                 grouped_scorer.score_grouped_i8_plain, a2,
+                 tile_bytes + G * M * V + W * 12 + W * M * ROWS * 4,
+                 PEAK_INT8, lib_i8, "torch._int_mm"),
+                ("score_grouped_f", "grouped_scorer_f.cu", 32,
+                 grouped_scorer_f.score_grouped_f,
+                 grouped_scorer_f.score_grouped_f_plain, a6,
+                 tile_bytes + G * M * V * 4 + G * M * 4 + W * 12
+                 + W * M * ROWS * 4, PEAK_BF16, lib_bf16, "torch.matmul")):
+            b_ms, b_by = bound(by, ops, peak)
+            err, _, abs_err = checks[name]
+            lib_key = {"score_grouped_i8_item": "grouped_scorer_item",
+                       "score_grouped_i8": "grouped_scorer",
+                       "score_grouped_f": "grouped_scorer_f"}[name]
+            window = f"v{V}_" + {"score_grouped_i8_item": "k4",
+                                 "score_grouped_i8": "k2",
+                                 "score_grouped_f": "k6"}[name]
+            kr = dict(
+                name=f"{name}@V{V}", route="cuda",
+                source=f"seismic_tpu_torch/csrc/{src}",
+                replaces=f"seismic_tpu/ops/pallas_grouped.py:{row}",
+                max_abs_err=float(abs_err), ms=time_ms(lambda: fn(*args), 10),
+                plain_ms=time_ms(lambda: plain(*args), 2),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library=lib_name, V=V, csub=CSUB, M=M, W=W, G=G,
+                distinct_super_tiles=n_regions, bytes=by, ops=ops,
+                window=window, ptxas=ptx_lines[lib_key],
+                **({"max_rel_err": err} if name != "score_grouped_f"
+                   else {"max_err_over_tol": err}))
+            out.append(kr)
+            log(f"phase 6b V {V}: {name}: ok (max abs err "
+                f"{kr['max_abs_err']:.3g}), {kr['ms']:.4f} ms (bound "
+                f"{b_ms:.4f} ms by {b_by}, plain {kr['plain_ms']:.3f} ms, "
+                f"{lib_name} {lib:.4f} ms)")
+        rec[f"v{V}"] = dict(narrow_s=t1 - t0, upload_s=t2 - t1,
+                            device_index_bytes=dv.nbytes(), G=G, W=W,
+                            runs=runs)
+        log(f"phase 6b V {V}: narrow_vocab {t1 - t0:.1f} s, upload "
+            f"{t2 - t1:.1f} s")
+        del dv, tiles, tscale, q8, qf, qsum, a2, a4, a6, dp
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.time() - t_phase
+    log(f"phase 6b: {rec['phase_s']:.1f} s")
+    return out
 
 
 # ---- phase 10: the rest of the grouped search ----
@@ -2902,6 +3196,20 @@ def cell_layout():
                      max_doc_nnz=256, tile_overflow=64)
 
 
+def write_corpus_jsonl(ds, path: str, n_docs=None) -> None:
+    """The corpus's first `n_docs` documents (all by default) as JSONL:
+    ids d<i>, tokens t<c>, contents "document <i>" (phase 8e's file)."""
+    names = [f"t{c}" for c in range(ds.dim)]
+    with open(path, "w") as f:
+        for i, (c, v) in enumerate(ds.iter_rows()):
+            if n_docs is not None and i >= n_docs:
+                break
+            f.write(json.dumps({
+                "id": f"d{i}", "content": f"document {i}",
+                "vector": dict(zip([names[x] for x in c.tolist()],
+                                   v.tolist()))}) + "\n")
+
+
 def user_flow_path(index, ds, qcomps, qvals, dev, record, tmp):
     """Phase 8 (e): the corpus written as JSONL (ids d<i>, tokens t<c>,
     contents) into directory `tmp`, `SeismicIndex.build` of it with the
@@ -2930,12 +3238,7 @@ def user_flow_path(index, ds, qcomps, qvals, dev, record, tmp):
 
     path = os.path.join(tmp, "documents.jsonl")
     t0 = time.perf_counter()
-    with open(path, "w") as f:
-        for i, (c, v) in enumerate(ds.iter_rows()):
-            f.write(json.dumps({
-                "id": f"d{i}", "content": f"document {i}",
-                "vector": dict(zip([names[x] for x in c.tolist()],
-                                   v.tolist()))}) + "\n")
+    write_corpus_jsonl(ds, path)
     t1 = time.perf_counter()
     data_io.read_jsonl_dataset = timed_read
     try:
@@ -3538,10 +3841,10 @@ def dotvbyte_rest_path(env, dev, record) -> dict:
 # the large-vocabulary cell: XLM-RoBERTa's vocabulary, the one BGE-M3's
 # sparse head emits over, at local vocabularies 512 wide
 LV_DIM, LV_V = 250_002, 512
-# phase 11d's documents: cut from 100,000 (PR 17) to keep the script, with
-# phase 12, inside its time limit; its aligned tiles (a 16.4 GB floor)
-# and the kernels' shapes do not depend on the count
-LV_DOCS = 50_000
+# phase 11d's documents: cut from the cells' 100,000 to keep the script,
+# with phases 12 and 13, inside its time limit; its aligned tiles (a 16.4
+# GB floor) and the kernels' shapes do not depend on the count
+LV_DOCS = 10_000
 # K3's tolerance against its plain version (phases 2 and 9)
 K3_RTOL = 1e-5
 # the cand_budget values of phase 11c
@@ -4381,8 +4684,9 @@ def brute_top10(ds, qct, qvt, nq: int, dim: int, dev):
     return gt.cpu().numpy()
 
 
-# phase 12: document shards, and the docs of (c)'s cut of the corpus
-SHARDS, BLOCK_CUT = 4, 40_000
+# phase 12: document shards, and the docs of (c)'s cut of the corpus (cut
+# for the time limit)
+SHARDS, BLOCK_CUT = 4, 10_000
 
 
 def sharded_path(ds, dev, record) -> None:
@@ -4958,6 +5262,403 @@ def api_path(ds, dev, record):
     return kernels, k7, graph, k3u8
 
 
+# ---- phase 13: the CLI and the experiment harness ----
+# accuracy@10 floors of the shipped TOMLs: JAX's records on the v5e
+# (experiments/best_configs_synth/README.md: 0.9721, 0.9803) less 0.01;
+# recall floors only, no speed target
+CLI_RECALL_FLOORS = {"recall_97": 0.962, "recall_98": 0.97}
+# documents of the cut corpora of 13, for the time limit: the grid's (d,
+# e, g) and the JSONL's (f: the enhanced build's default layout makes it
+# the slowest step per document)
+CLI_CUT_DOCS, CLI_JSONL_DOCS = 10_000, 2_000
+
+
+def _cli_toml(name: str, tmp: str, data: str, extra_query: str = "") -> str:
+    """experiments/best_configs_synth/<name>.toml with its [folder] in
+    `tmp` (data `data`, experiment `tmp/exp`) and `extra_query` appended
+    to its [query.best]; returns the written path."""
+    with open(os.path.join(ROOT, "experiments", "best_configs_synth",
+                           f"{name}.toml")) as f:
+        text = f.read()
+    for old, new in (('data = "experiments/data_synth"', f'data = "{data}"'),
+                     ('experiment = "experiments_out"',
+                      f'experiment = "{os.path.join(tmp, "exp")}"')):
+        if old not in text:
+            fail(f"phase 13: {name}.toml has no line {old!r}")
+        text = text.replace(old, new)
+    path = os.path.join(tmp, f"{name}.toml")
+    with open(path, "w") as f:
+        f.write(text + extra_query)
+    return path
+
+
+def _report_row(report: str) -> dict:
+    with open(report) as f:
+        head, row = (ln.rstrip("\n").split("\t") for ln in f.readlines()[:2])
+    return dict(zip(head, row))
+
+
+def _run_arrays(path: str, nq: int, k: int = K):
+    """(ids int64 [nq, k] -1 padded, scores f32 [nq, k]) of a run file."""
+    ids = np.full((nq, k), -1, np.int64)
+    scores = np.full((nq, k), -np.inf, np.float32)
+    with open(path) as f:
+        for line in f:
+            q, d, r, sc = line.rstrip("\n").split("\t")
+            ids[int(q), int(r)] = int(d)
+            scores[int(q), int(r)] = float(sc)
+    return ids, scores
+
+
+def cli_path(ds, dev, record, tmp) -> None:
+    """Phase 13, right after phase 12 (the API cell's corpus `ds` still in
+    memory): the user workflow of experiments/best_configs_synth through
+    each module's `main(argv)`, in directory `tmp` (see the module
+    docstring)."""
+    import tomllib
+
+    import torch
+
+    from seismic_tpu_torch import SeismicIndex
+    from seismic_tpu_torch.cli import (
+        build_enhanced_inverted_index,
+        convert_json_to_inner_format,
+        perf_enhanced_inverted_index,
+        perf_inverted_index,
+    )
+    from seismic_tpu_torch.data.io import read_seismic_format
+    from seismic_tpu_torch.data.io import load_token_map
+    from seismic_tpu_torch.data.sparse import pad_queries
+    from seismic_tpu_torch.harness import (
+        bench_knn,
+        bench_mem,
+        best_configs,
+        export_synth,
+        profile_stages,
+        run_experiments,
+        run_grid_search,
+    )
+
+    rec = record.setdefault("cli", {})
+    steps = rec.setdefault("step_s", {})
+    t_phase = time.time()
+    n = len(ds)
+
+    def step(name, t0):
+        steps[name] = time.time() - t0
+        log(f"phase 13{name}: {steps[name]:.1f} s")
+
+    # ---- (a) export: the collection and its ground truth ----
+    t0 = time.time()
+    cache, data = os.path.join(tmp, "cache"), os.path.join(tmp, "data")
+    os.makedirs(cache)
+    # the collection in export_synth's cache, so its main reads this ds
+    np.savez(os.path.join(cache, f"docs_{n}_{DIM}.npz"), offsets=ds.offsets,
+             components=ds.components, values=ds.values)
+    if export_synth.main(["--out", data, "--n-docs", str(n), "--cache-dir",
+                          cache]) != 0:
+        fail("phase 13a: export_synth failed")
+    exported = read_seismic_format(os.path.join(data, "documents.bin"), DIM)
+    for f_ in ("offsets", "components", "values"):
+        if not np.array_equal(getattr(exported, f_), getattr(ds, f_)):
+            fail(f"phase 13a: documents.bin's {f_} differ from the corpus")
+    del exported
+    nq = export_synth.N_QUERIES
+    qc_l, qv_l = export_synth.export_queries(nq, DIM)
+    qc_np, qv_np = pad_queries(qc_l, qv_l, 64)
+    qc_t, qv_t = (torch.from_numpy(x).to(dev) for x in (qc_np, qv_np))
+    docs = torch.sparse_csr_tensor(
+        torch.from_numpy(ds.offsets),
+        torch.from_numpy(ds.components.astype(np.int64)),
+        torch.from_numpy(ds.values.astype(np.float32)),
+        size=(n, DIM)).to(dev)
+    step("a_export", t0)
+
+    def exact_run(path, tag):
+        """Every score of a run file the f32 exact dot to 1e-3 relative."""
+        ids, sc = _run_arrays(path, nq)
+        ok = ids >= 0
+        if ok.mean() < 0.99:
+            fail(f"phase 13 {tag}: under 99% of the run file's slots filled")
+        ex = exact_of(docs, qc_t, qv_t,
+                      torch.from_numpy(np.maximum(ids, 0)).to(dev))
+        err = max_rel_err(torch.from_numpy(sc[ok]).to(dev), ex[
+            torch.from_numpy(ok).to(dev)])
+        if not err <= 1e-3:
+            fail(f"phase 13 {tag}: run-file scores differ from the exact "
+                 f"dots by {err} relative")
+        return err
+
+    # ---- (b) recall_97.toml: build CLI, perf CLI (grouped route) ----
+    t0 = time.time()
+    toml97 = _cli_toml("recall_97", tmp, data)
+    reports = {}
+    _, wall, c97 = counted(
+        "phase 13b: run_experiments recall_97.toml", "cli_97", record,
+        lambda: reports.setdefault("recall_97", run_experiments.run_experiment(
+            toml97)), positive=("qloc", "score_grouped_i8", "rescore"))
+    r97 = _report_row(reports["recall_97"])
+    run97 = os.path.join(os.path.dirname(reports["recall_97"]),
+                         "run_best.tsv")
+    err97 = exact_run(run97, "b")
+    acc97 = float(r97["accuracy"])
+    rec["recall_97"] = dict(report=r97, launches=c97, max_rel_score_err=err97,
+                            floor=CLI_RECALL_FLOORS["recall_97"], wall_ms=wall)
+    log(f"phase 13b: recall_97.toml accuracy@10 {acc97:.4f} (floor "
+        f"{CLI_RECALL_FLOORS['recall_97']}; JAX's v5e record 0.9721), "
+        f"{r97['us_per_query']} us/query, build {float(r97['build_secs']):.1f}"
+        f" s, {r97['total_bytes']} bytes, scores exact to {err97:.3g}, "
+        f"launches { {k_: v for k_, v in c97.items() if v} }")
+    if acc97 < CLI_RECALL_FLOORS["recall_97"]:
+        fail(f"phase 13b: accuracy@10 {acc97:.4f} under the floor")
+    step("b_recall_97", t0)
+    with open(toml97, "rb") as f:
+        ip = tomllib.load(f)["indexing_parameters"]
+    index = os.path.join(tmp, "exp", "indexes",
+                         run_experiments.index_filename(ip)
+                         + ".index.seismic_tpu")
+    if not os.path.exists(index):
+        fail(f"phase 13b: no index at {index}")
+
+    # ---- (c) bench_knn (the graph), then recall_98.toml reusing (b) ----
+    t0 = time.time()
+    knn_path = os.path.join(tmp, "graph8")
+    res_knn, _, c_knn = counted(
+        "phase 13c: bench_knn", "cli_knn", record,
+        lambda: bench_knn.main([
+            "--index", index, "--nknn", "8", "--knn-path", knn_path,
+            "--query-file", os.path.join(data, "queries.bin"),
+            "--groundtruth", os.path.join(data, "groundtruth.tsv"),
+            "--batch", "2048", "--knn-batch", "4096", "--reps", "1"]),
+        positive=("score_tiles", "qloc", "score_grouped_i8", "rescore"))
+    rec["bench_knn"] = dict(res_knn, launches=c_knn)
+    log(f"phase 13c: bench_knn graph {res_knn['graph_shape']} in "
+        f"{res_knn['build_s']:.2f} s; rungs {json.dumps(res_knn['rungs'])}")
+    step("c_bench_knn", t0)
+    t0 = time.time()
+    toml98 = _cli_toml("recall_98", tmp, data,
+                       f'knn-path = "{knn_path}"\n')
+    _, wall, c98 = counted(
+        "phase 13c: run_experiments recall_98.toml", "cli_98", record,
+        lambda: reports.setdefault("recall_98", run_experiments.run_experiment(
+            toml98)), positive=("qloc", "score_grouped_i8", "rescore"))
+    r98 = _report_row(reports["recall_98"])
+    err98 = exact_run(os.path.join(os.path.dirname(reports["recall_98"]),
+                                   "run_best.tsv"), "c")
+    acc98 = float(r98["accuracy"])
+    rec["recall_98"] = dict(report=r98, launches=c98, max_rel_score_err=err98,
+                            floor=CLI_RECALL_FLOORS["recall_98"], wall_ms=wall)
+    log(f"phase 13c: recall_98.toml accuracy@10 {acc98:.4f} (floor "
+        f"{CLI_RECALL_FLOORS['recall_98']}; JAX's v5e record 0.9803), "
+        f"{r98['us_per_query']} us/query, build_secs {r98['build_secs']}, "
+        f"scores exact to {err98:.3g}, launches "
+        f"{ {k_: v for k_, v in c98.items() if v} }")
+    if acc98 < CLI_RECALL_FLOORS["recall_98"]:
+        fail(f"phase 13c: accuracy@10 {acc98:.4f} under the floor")
+    if float(r98["build_secs"]) != 0.0:
+        fail("phase 13c: recall_98 built its index again")
+    if not c98["rescore"] > c97["rescore"]:
+        fail(f"phase 13c: the refinement round did not launch K3 ("
+             f"{c98['rescore']} against {c97['rescore']})")
+    step("c_recall_98", t0)
+    del docs
+    torch.cuda.empty_cache()
+
+    # ---- (e) the grid search on a cut corpus, resumed; best configs ----
+    t0 = time.time()
+    cut = ds.subset(np.arange(min(CLI_CUT_DOCS, n)))
+    cache_cut, data_cut = (os.path.join(tmp, d_) for d_ in ("cache_cut", "data_cut"))
+    os.makedirs(cache_cut)
+    np.savez(os.path.join(cache_cut, f"docs_{len(cut)}_{DIM}.npz"),
+             offsets=cut.offsets, components=cut.components,
+             values=cut.values)
+    if export_synth.main(["--out", data_cut, "--n-docs", str(len(cut)),
+                          "--cache-dir", cache_cut]) != 0:
+        fail("phase 13e: export_synth of the cut failed")
+    grid_toml = os.path.join(tmp, "grid.toml")
+    with open(grid_toml, "w") as f:
+        f.write(f"""[settings]
+k = 10
+exp-name = "cut"
+
+[folder]
+data = "{data_cut}"
+experiment = "{os.path.join(tmp, 'grid')}"
+
+[filename]
+dataset = "documents.bin"
+queries = "queries.bin"
+groundtruth = "groundtruth.tsv"
+
+[indexing_parameters]
+n-postings = [200]
+max-fraction = 2.0
+max-block-len = 32
+summary-vocab-cap = 128
+max-doc-nnz = 256
+value-type = "f32"
+
+[querying_parameters]
+query-cut = [10, 11]
+heap-factor = 0.0
+batch-size = 2048
+full-lists = true
+""")
+    _, wall_g1, c_g1 = counted(
+        "phase 13e: run_grid_search", "cli_grid", record,
+        lambda: run_grid_search.main(["--exp", grid_toml]),
+        positive=("qloc", "score_grouped_i8", "rescore"))
+    root = os.path.join(tmp, "grid", "grid_cut")
+    done = run_grid_search.completed_combos(root)
+    stamp = {d_: os.path.getmtime(os.path.join(root, d_, "report.tsv"))
+             for d_ in done}
+    t1 = time.time()
+    _, wall_g2, _ = counted(
+        "phase 13e: run_grid_search, resumed", "cli_grid_resumed", record,
+        lambda: run_grid_search.main(["--exp", grid_toml]), positive=())
+    again = {d_: os.path.getmtime(os.path.join(root, d_, "report.tsv"))
+             for d_ in run_grid_search.completed_combos(root)}
+    if len(done) != 2 or again != stamp:
+        fail(f"phase 13e: the resumed grid ran again ({len(done)} combos "
+             "complete before it)")
+    best_dir = os.path.join(tmp, "best")
+    if best_configs.main(["--grid-root", root, "--base-toml", grid_toml,
+                          "--recalls", "0.5,0.9", "--output-dir",
+                          best_dir]) != 0:
+        fail("phase 13e: best_configs failed")
+    grid = best_configs.collect_grid_results(root)
+    rec["grid"] = dict(results=grid, first_ms=wall_g1, resumed_ms=wall_g2,
+                       best=sorted(os.listdir(best_dir)), launches=c_g1)
+    accs = [(r["query"]["query-cut"], r["accuracy"]) for r in grid]
+    log(f"phase 13e: grid of {len(grid)} combos over {len(cut)} docs "
+        f"({wall_g1 / 1e3:.1f} s; resumed {wall_g2:.0f} ms, nothing "
+        f"launched): {accs}; best configs {rec['grid']['best']}")
+    step("e_grid", t0)
+    (grid_index,) = [os.path.join(root, "indexes", f_) for f_ in
+                     os.listdir(os.path.join(root, "indexes"))]
+
+    # ---- (d) the perf CLI's engine route on the grid's index ----
+    t0 = time.time()
+    run_e = os.path.join(tmp, "run_engine.tsv")
+    _, wall_e, c_e = counted(
+        "phase 13d: the perf CLI's engine route", "cli_engine", record,
+        lambda: perf_inverted_index.main([
+            "--index-file", grid_index, "--query-file",
+            os.path.join(data_cut, "queries.bin"), "--output-path", run_e,
+            "-k", str(K), "--query-cut", "10", "--heap-factor", "0.7",
+            "--block-budget", "64", "--batch-size", "2048"]),
+        positive=("score_tiles",))
+    from seismic_tpu_torch.harness.evaluate import accuracy_at_k, read_run_tsv
+
+    acc_e = accuracy_at_k(read_run_tsv(run_e), read_run_tsv(
+        os.path.join(data_cut, "groundtruth.tsv")), K)
+    rec["engine"] = dict(accuracy=acc_e, launches=c_e, wall_ms=wall_e)
+    log(f"phase 13d: engine route (heap-factor 0.7, block budget 64) on the "
+        f"{len(cut)}-doc grid index: accuracy@10 {acc_e:.4f}, launches "
+        f"{ {k_: v for k_, v in c_e.items() if v} }")
+    step("d_engine", t0)
+
+    # ---- (f) convert and the enhanced CLIs on a JSONL cut ----
+    t0 = time.time()
+    jsonl = os.path.join(tmp, "docs_cut.jsonl")
+    jcut = ds.subset(np.arange(min(CLI_JSONL_DOCS, n)))
+    write_corpus_jsonl(ds, jsonl, len(jcut))
+    qjsonl = os.path.join(tmp, "queries.jsonl")
+    qc3, qv3 = synth_queries_distinct(BATCH)  # phase 3's queries
+    with open(qjsonl, "w") as f:
+        for i, (c, v) in enumerate(zip(qc3, qv3)):
+            f.write(json.dumps({"id": f"q{i}", "vector": {
+                f"t{x}": y for x, y in zip(c.tolist(), v.tolist())}}) + "\n")
+    conv = os.path.join(tmp, "converted")
+    if convert_json_to_inner_format.main([
+            "--document-path", jsonl, "--query-path", qjsonl,
+            "--output-dir", conv]) != 0:
+        fail("phase 13f: convert failed")
+    tmap = load_token_map(os.path.join(conv, "token_to_id_mapping.json"))
+    back = np.zeros(len(tmap), np.int64)
+    for tok, i in tmap.items():
+        back[i] = int(tok[1:])
+    cb = read_seismic_format(os.path.join(conv, "documents.bin"), len(tmap))
+
+    def sorted_csr(offsets, comps, vals):
+        rows = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+        o = np.lexsort((comps, rows))
+        return comps[o], vals[o]
+
+    got = sorted_csr(cb.offsets, back[cb.components], cb.values)
+    want = sorted_csr(jcut.offsets, jcut.components.astype(np.int64),
+                      jcut.values)
+    if not (np.array_equal(cb.offsets, jcut.offsets)
+            and np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        fail("phase 13f: documents.bin, mapped back through the token map, "
+             "differs from the cut's CSR")
+    enh = os.path.join(tmp, "enhanced")
+    if build_enhanced_inverted_index.main([
+            "--input-file", jsonl, "--output-file", enh, "--n-postings",
+            "200", "--max-fraction", "2.0"]) != 0:
+        fail("phase 13f: build_enhanced_inverted_index failed")
+    run_f = os.path.join(tmp, "run_enhanced.tsv")
+    _, wall_f, c_f = counted(
+        "phase 13f: perf_enhanced_inverted_index", "cli_enhanced", record,
+        lambda: perf_enhanced_inverted_index.main([
+            "--index-file", enh, "--query-file", qjsonl, "--output-path",
+            run_f, "-k", str(K), "--query-cut", str(QUERY_CUT),
+            "--heap-factor", "0.7"]), positive=("score_tiles",))
+    sidx = SeismicIndex.load(enh)
+    qids = np.array([f"q{i}" for i in range(len(qc3))], dtype="U30")
+    tq = [np.array([f"t{x}" for x in c.tolist()], dtype="U30") for c in qc3]
+    rows = sidx.batch_search(qids, tq, qv3, k=K, query_cut=QUERY_CUT,
+                             heap_factor=0.7, sorted=False)
+    want_lines = [f"{q}\t{d}\t{r}\t{sc:.6f}\n" for rr in rows
+                  for r, (q, sc, d) in enumerate(rr)]
+    with open(run_f) as f:
+        got_lines = f.readlines()
+    if got_lines != want_lines:
+        fail(f"phase 13f: the enhanced perf CLI's run file differs from "
+             f"SeismicIndex.load(...).batch_search ({len(got_lines)} against "
+             f"{len(want_lines)} lines)")
+    rec["enhanced"] = dict(jsonl_docs=len(jcut), run_lines=len(got_lines),
+                           launches=c_f, wall_ms=wall_f,
+                           vocabulary=len(tmap))
+    log(f"phase 13f: convert == the cut's CSR ({len(tmap)} tokens); the "
+        f"enhanced perf CLI's {len(got_lines)} run lines == "
+        f"SeismicIndex.load(...).batch_search; launches "
+        f"{ {k_: v for k_, v in c_f.items() if v} }")
+    del sidx, rows
+    step("f_enhanced", t0)
+
+    # ---- (g) profile_stages (both forms), bench_mem at the cut ----
+    t0 = time.time()
+    prof, _, c_p = counted(
+        "phase 13g: profile_stages", "cli_profile", record,
+        lambda: profile_stages.main([
+            "--index", grid_index, "--batch", "256", "--reps", "3",
+            "--query-cut", "10", "--block-budget", "64", "--both"]),
+        positive=("rescore", "score_tiles"))
+    for form in ("blocks", "tiles"):
+        if prof[form]["matches_search_batch"] is not True:
+            fail(f"phase 13g: profile_stages' {form} form's final top-k "
+                 "differs from the engine program's")
+    rec["profile_stages"] = dict(prof, launches=c_p)
+    forms = {f_: prof[f_] for f_ in ("blocks", "tiles")}
+    log(f"phase 13g: profile_stages (final top-k == the engine program's in "
+        f"both forms): {json.dumps(forms)}")
+    mem, _, c_m = counted(
+        "phase 13g: bench_mem --block", "cli_mem", record,
+        lambda: bench_mem.main([
+            "--block", "--n-docs", str(len(cut)), "--cache-dir", cache_cut,
+            "--max-rungs", "3", "--reps", "3",
+            "--out", os.path.join(OUT_DIR, "mem_bench.json")]),
+        positive=("qloc", "score_grouped_i8_item", "rescore_u8"))
+    rec["bench_mem"] = dict(mem, launches=c_m)
+    log(f"phase 13g: bench_mem --block at {len(cut)} docs: device bytes "
+        f"{mem['device_bytes']}, rungs {json.dumps(mem['rungs'])}")
+    step("g_profile_mem", t0)
+    rec["phase_s"] = time.time() - t_phase
+    log(f"phase 13: {rec['phase_s']:.1f} s by step {json.dumps(steps)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
@@ -5025,6 +5726,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------ phase 13: the CLI and the experiment harness ------------
+    with tempfile.TemporaryDirectory() as tmp13:
+        cli_path(ds, dev, record, tmp13)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---------------- phase 4: the bench headline path ----------------
     torch.cuda.reset_peak_memory_stats()
     new_kernels, k4 = headline_path(ds, dev, record, kernels, graph)
@@ -5058,6 +5765,13 @@ def main():
         kr.update({f"launches_{w_}": windows[w_][n_] for w_ in windows})
         if kr["launches"] <= 0:
             fail(f"{kr['name']} never launched on its main path: {windows}")
+    # K2, K4 and K6 at V 128 and 384 (phase 6b): each count from its own
+    # window at that width
+    for kr in record.pop("widths_kernels"):
+        kr["launches"] = windows[kr["window"]][kr["name"].split("@")[0]]
+        if kr["launches"] <= 0:
+            fail(f"{kr['name']} never launched in window {kr['window']}")
+        kernels.append(kr)
 
     total_s = time.time() - t_start
     record.update(kernels=kernels, total_s=total_s)

@@ -74,6 +74,9 @@ constexpr int kStages = 4;       // ring depth of each warp
 constexpr int kMaxDevices = 64;
 // dynamic shared memory a block may opt into on an H100 (227 KB)
 constexpr int kMaxSmemBytes = 232448;
+// V is a multiple of this: every policy streams whole 128-byte stages (K6
+// two 64-byte slices a stage), and JAX's kernel asks V % 128 == 0
+constexpr int kVAlign = 128;
 
 // bytes of dynamic shared memory a block needs: the warps' rings, then
 // the group's queries, q_bytes a query value
@@ -83,9 +86,18 @@ __host__ __device__ constexpr int mma_ring_smem(int m, int rows, int v,
          m * v * q_bytes;
 }
 
+// the widest V whose rings and [m, V] queries fit in kMaxSmemBytes
+__host__ __device__ constexpr int mma_max_v(int m, int rows, int q_bytes) {
+  return m <= 0 || rows <= 0
+             ? 0
+             : (kMaxSmemBytes - mma_ring_smem(0, rows, 0, 0)) /
+                   (m * q_bytes) / kVAlign * kVAlign;
+}
 
 // Above 48 KB a launch needs the kernel's opt-in, once per device; `done`
-// remembers the devices already opted in. Returns the error.
+// remembers the devices already opted in. The instances that take V at run
+// time opt in at their widest V (mma_max_v), so one call covers every V.
+// Returns the error.
 template <typename F>
 cudaError_t opt_in_smem(F kernel, int smem, bool (&done)[kMaxDevices]) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -176,11 +188,6 @@ struct MmaU8S8 {
   }
 
 };
-
-template <int kM, int kRows, int V>
-constexpr int mma_item_smem() {
-  return mma_ring_smem(kM, kRows, V, MmaU8S8::kParts);
-}
 
 // f32 queries as kTerms bf16 terms (1: rounded; 3: split exactly), u8 - off
 // x bf16 -> f32 (K6)
@@ -281,7 +288,11 @@ __device__ __forceinline__ void score_item_ring(
   static_assert(MT >= 1 && NT >= 1 && kCopies >= 1 && kRing >= 2, "shape");
   static_assert(kM * kRows * 4 <= kMmaWarps * kRing * kStageBytes,
                 "s_out must fit in the rings");
-  const int NS = V / (kSS * kSliceBytes);  // ring stages to stream
+  // ring stages to stream: V is a multiple of kVAlign, so whole stages; at
+  // V 128 that is 2 (K4, K2) or 1 (K6), under the ring's depth, and the
+  // prologue loads only those while still committing one group a stage, so
+  // the wait counts below hold for any NS >= 1
+  const int NS = V / (kSS * kSliceBytes);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
@@ -389,11 +400,11 @@ __device__ __forceinline__ void score_item_ring(
   __syncthreads();
 }
 
-// the int8 scorers' entry (K4, K2): no additive term
-template <int kM, int kRows, int V>
+// the int8 scorers' entry (K4, K2): no additive term; V at run time
+template <int kM, int kRows>
 __device__ __forceinline__ void score_item_mma(
     const uint8_t* __restrict__ tiles, const float* __restrict__ tile_scale,
-    const int8_t* __restrict__ qg, int64_t row0, uint8_t* smem,
+    const int8_t* __restrict__ qg, int V, int64_t row0, uint8_t* smem,
     float* s_out) {
   score_item_ring<kM, kRows>(MmaU8S8{}, tiles, tile_scale, qg, nullptr, V,
                              row0, smem, s_out);

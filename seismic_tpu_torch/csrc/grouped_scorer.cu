@@ -22,7 +22,10 @@
 // through a cp.async ring and multiplies them on the int8 tensor cores,
 // mma.sync m16n8k32 u8 x s8, against the group's queries staged in shared
 // memory) into a [M, ROWS] f32 block in shared memory and stores it with
-// 16-byte stores, or through store_packed.
+// 16-byte stores, or through store_packed. V is any multiple of 128, as
+// on the TPU, up to the cap that 227 KB of shared memory leaves beside
+// the rings (seismic_score_grouped_i8_max_v); one instance takes V at run
+// time and the launch sizes the query staging (M * V bytes) to it.
 //
 // Bound on an H100: the tile bytes (ROWS*V per distinct super-tile, read
 // once) over the 3.35 TB/s memory rate; the 2*M*ROWS*V int8 operations per
@@ -40,7 +43,7 @@ constexpr int kSub = 128;  // rows per subtile
 
 // kPack: the packed epilogue, a compile-time choice so that the plain
 // store's kernel carries none of its code
-template <int kM, int kRows, int V, bool kPack>
+template <int kM, int kRows, bool kPack>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
                         const float* __restrict__ tile_scale,  // [rows]
@@ -48,7 +51,7 @@ score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
                         const int* __restrict__ work_region,   // [W_cap]
                         const int* __restrict__ work_g,
                         const int* __restrict__ work_s,
-                        int ll_max, int idx_mask, int pack_window,
+                        int V, int ll_max, int idx_mask, int pack_window,
                         void* __restrict__ out) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* s_out = reinterpret_cast<float*>(smem);
@@ -56,8 +59,8 @@ score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
   const int w = blockIdx.x;
   const int g = work_g[w];
   const int s = work_s[w];
-  score_item_mma<kM, kRows, V>(
-      tiles, tile_scale, q + static_cast<int64_t>(g) * kM * V,
+  score_item_mma<kM, kRows>(
+      tiles, tile_scale, q + static_cast<int64_t>(g) * kM * V, V,
       static_cast<int64_t>(work_region[w]) * kRows, smem, s_out);
 
   if constexpr (kPack) {  // packed int32 [G_cap, kM, ll_max / pack_window]
@@ -76,37 +79,23 @@ score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
   }
 }
 
-template <int kM, int kRows, int V, bool kPack>
+template <int kM, int kRows, bool kPack>
 int launch_one(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
                const int* work_region, const int* work_g, const int* work_s,
-               int W_cap, int ll_max, int idx_mask, int pack_window,
+               int W_cap, int V, int ll_max, int idx_mask, int pack_window,
                void* out, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
-  constexpr int smem = mma_item_smem<kM, kRows, V>();
+  constexpr int kQBytes = MmaU8S8::kParts;  // bytes a query value
+  auto kernel = score_grouped_i8_kernel<kM, kRows, kPack>;
   const cudaError_t e = opt_in_smem(
-      score_grouped_i8_kernel<kM, kRows, V, kPack>, smem, opted_in);
+      kernel,
+      mma_ring_smem(kM, kRows, mma_max_v(kM, kRows, kQBytes), kQBytes),
+      opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
-  score_grouped_i8_kernel<kM, kRows, V, kPack>
-      <<<W_cap, kMmaThreads, smem, stream>>>(tiles, tile_scale, q,
-                                             work_region, work_g, work_s,
-                                             ll_max, idx_mask, pack_window,
-                                             out);
+  const int smem = mma_ring_smem(kM, kRows, V, kQBytes);
+  kernel<<<W_cap, kMmaThreads, smem, stream>>>(tiles, tile_scale, q,
+      work_region, work_g, work_s, V, ll_max, idx_mask, pack_window, out);
   return 0;
-}
-
-template <int kM, int kRows, int V>
-int launch_v(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
-             const int* work_region, const int* work_g, const int* work_s,
-             int W_cap, int ll_max, int idx_mask, int pack_window, void* out,
-             cudaStream_t stream) {
-  if (pack_window > 0) {
-    return launch_one<kM, kRows, V, true>(tiles, tile_scale, q, work_region,
-                                          work_g, work_s, W_cap, ll_max,
-                                          idx_mask, pack_window, out, stream);
-  }
-  return launch_one<kM, kRows, V, false>(tiles, tile_scale, q, work_region,
-                                         work_g, work_s, W_cap, ll_max,
-                                         idx_mask, pack_window, out, stream);
 }
 
 template <int kM, int kRows>
@@ -114,31 +103,27 @@ int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
            const int* work_region, const int* work_g, const int* work_s,
            int W_cap, int V, int ll_max, int idx_mask, int pack_window,
            void* out, cudaStream_t stream) {
-#define SEISMIC_LAUNCH(VV)                                                 \
-  return launch_v<kM, kRows, VV>(tiles, tile_scale, q, work_region,        \
-                                 work_g, work_s, W_cap, ll_max, idx_mask,  \
-                                 pack_window, out, stream)
-  switch (V) {
-    case 256: SEISMIC_LAUNCH(256);
-    case 512: SEISMIC_LAUNCH(512);
-    case 1024: SEISMIC_LAUNCH(1024);
-    case 2048:
-      if constexpr (kM == 8) {
-        SEISMIC_LAUNCH(2048);
-      }
-      return static_cast<int>(cudaErrorInvalidValue);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SEISMIC_LAUNCH
+  return pack_window > 0
+             ? launch_one<kM, kRows, true>(
+                   tiles, tile_scale, q, work_region, work_g, work_s, W_cap,
+                   V, ll_max, idx_mask, pack_window, out, stream)
+             : launch_one<kM, kRows, false>(
+                   tiles, tile_scale, q, work_region, work_g, work_s, W_cap,
+                   V, ll_max, idx_mask, pack_window, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// M 8 or 16; csub 1 or 2; V 256, 512 or 1024 (2048 at M = 8); ll_max a
-// multiple of csub * 128. pack_window 0 writes f32 [G_cap, M, ll_max];
+// The widest V at M query slots and csub: the warps' rings plus the [M, V]
+// int8 queries within 227 KB of shared memory, V a multiple of 128.
+int seismic_score_grouped_i8_max_v(int M, int csub) {
+  return mma_max_v(M, csub * kSub, MmaU8S8::kParts);
+}
+
+// M 8 or 16; csub 1 or 2; V a multiple of 128 up to the cap above; ll_max
+// a multiple of csub * 128. pack_window 0 writes f32 [G_cap, M, ll_max];
 // pack_window >= 1 writes the packed int32 [G_cap, M, ll_max / pack_window]
 // with idx_mask = 2^idx_bits - 1.
 int seismic_score_grouped_i8(const uint8_t* tiles, const float* tile_scale,
@@ -149,7 +134,10 @@ int seismic_score_grouped_i8(const uint8_t* tiles, const float* tile_scale,
                              cudaStream_t stream) {
   if (W_cap > 0) {
     int rc;
-    if (M == 8 && csub == 1) {
+    if (V <= 0 || V % kVAlign != 0 ||
+        V > seismic_score_grouped_i8_max_v(M, csub)) {
+      rc = static_cast<int>(cudaErrorInvalidValue);
+    } else if (M == 8 && csub == 1) {
       rc = launch<8, kSub>(tiles, tile_scale, q, work_region, work_g, work_s,
                            W_cap, V, ll_max, idx_mask, pack_window, out,
                            stream);

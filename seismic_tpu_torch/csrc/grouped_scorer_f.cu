@@ -53,8 +53,7 @@
 
 namespace {
 
-constexpr int kSub = 128;     // rows per subtile
-constexpr int kVAlign = 256;  // V is a multiple of this
+constexpr int kSub = 128;  // rows per subtile
 constexpr float kTwo23 = 8388608.0f;
 
 // kTerms: 1 in bf16 mode, 3 in f32 mode. kPack: the packed epilogue. Both
@@ -100,10 +99,8 @@ score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
 }
 
 int max_v(int M, int csub, int terms) {
-  if (M <= 0 || csub <= 0) return 0;
-  const int v = (kMaxSmemBytes - mma_ring_smem(0, csub * kSub, 0, 0)) /
-                (M * 2 * terms);  // 2 * terms: MmaBf16<terms>::kParts
-  return v / kVAlign * kVAlign;
+  // 2 * terms: MmaBf16<terms>::kParts, bytes a query value
+  return mma_max_v(M, csub * kSub, 2 * terms);
 }
 
 template <int kM, int kRows, int kTerms, bool kPack>
@@ -117,7 +114,7 @@ int launch_one(const uint8_t* tiles, const float* tile_scale, const float* q,
   // the opt-in is for the widest V, so one call per device covers all
   const cudaError_t e = opt_in_smem(
       kernel,
-      mma_ring_smem(kM, kRows, max_v(kM, kRows / kSub, kTerms), kQBytes),
+      mma_ring_smem(kM, kRows, mma_max_v(kM, kRows, kQBytes), kQBytes),
       opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int smem = mma_ring_smem(kM, kRows, V, kQBytes);
@@ -164,12 +161,12 @@ extern "C" {
 
 // The widest V at M query slots and csub: the warps' rings plus the [M, V]
 // queries (bf16, or three bf16 terms in f32 mode) within 227 KB of shared
-// memory, V a multiple of 256.
+// memory, V a multiple of 128.
 int seismic_score_grouped_f_max_v(int M, int csub, int round_bf16) {
   return max_v(M, csub, round_bf16 ? 1 : 3);
 }
 
-// M 8 or 16; csub 1 or 2; V a multiple of 256 up to the cap above; ll_max a
+// M 8 or 16; csub 1 or 2; V a multiple of 128 up to the cap above; ll_max a
 // multiple of csub * 128; qsum f32 [G_cap, M] or null (the fixup form).
 // round_bf16 != 0 rounds the queries to bf16, 0 splits them into three bf16
 // terms (f32 mode). pack_window 0 writes f32 [G_cap, M, ll_max];

@@ -40,7 +40,11 @@
 // three blocks fit on an SM at csub 2, V 512, so one block's epilogue
 // overlaps the others' loads. The [M, ROWS] f32 block is staged in the
 // freed rings and written with 16-byte stores, or through store_packed
-// (K5, a compile-time variant).
+// (K5, a compile-time variant). V is any multiple of 128 up to the cap
+// that 227 KB of shared memory leaves (seismic_score_grouped_i8_item_max_v);
+// the launch sizes the query staging to V. One instance takes V at run
+// time; the headline's M 16 at V 512 keeps an instance of its own, which
+// read faster there (PERF.md §6).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,8 +57,9 @@ namespace {
 constexpr int kSub = 128;  // rows per subtile
 
 // kPack: the packed epilogue, a compile-time choice so that the plain
-// store's kernel carries none of its code
-template <int kM, int kRows, int V, bool kPack>
+// store's kernel carries none of its code. kV > 0 fixes the tile width at
+// compile time; kV = 0 takes it from v_arg, any multiple of 128.
+template <int kM, int kRows, int kV, bool kPack>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 score_item_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                   const float* __restrict__ tile_scale,  // [rows]
@@ -62,15 +67,16 @@ score_item_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                   const int* __restrict__ work_region,   // [W_cap]
                   const int* __restrict__ work_g,        // [W_cap]
                   const int* __restrict__ work_s,        // [W_cap] or null
-                  int idx_mask, int pack_window,
+                  int v_arg, int idx_mask, int pack_window,
                   void* __restrict__ out) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* s_out = reinterpret_cast<float*>(smem);
+  const int V = kV > 0 ? kV : v_arg;
 
   const int w = blockIdx.x;
   const int col0 = kPack ? work_s[w] * kRows : 0;  // read before the dots
-  score_item_mma<kM, kRows, V>(
-      tiles, tile_scale, q + static_cast<int64_t>(work_g[w]) * kM * V,
+  score_item_mma<kM, kRows>(
+      tiles, tile_scale, q + static_cast<int64_t>(work_g[w]) * kM * V, V,
       static_cast<int64_t>(work_region[w]) * kRows, smem, s_out);
 
   // the item's block is contiguous in the output
@@ -86,68 +92,75 @@ score_item_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
   }
 }
 
-template <int kM, int kRows, int V, bool kPack>
+template <int kM, int kRows, int kV, bool kPack>
 int launch_one(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
                const int* work_region, const int* work_g, const int* work_s,
-               int W_cap, int idx_mask, int pack_window, void* out,
+               int W_cap, int V, int idx_mask, int pack_window, void* out,
                cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
-  constexpr int smem = mma_item_smem<kM, kRows, V>();
-  const cudaError_t e = opt_in_smem(score_item_kernel<kM, kRows, V, kPack>,
-                                    smem, opted_in);
+  constexpr int kQBytes = MmaU8S8::kParts;  // bytes a query value
+  auto kernel = score_item_kernel<kM, kRows, kV, kPack>;
+  const cudaError_t e = opt_in_smem(
+      kernel,
+      mma_ring_smem(kM, kRows, kV > 0 ? kV : mma_max_v(kM, kRows, kQBytes),
+                    kQBytes),
+      opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
-  score_item_kernel<kM, kRows, V, kPack><<<W_cap, kMmaThreads, smem, stream>>>(
-      tiles, tile_scale, q, work_region, work_g, work_s, idx_mask,
-      pack_window, out);
+  const int smem = mma_ring_smem(kM, kRows, V, kQBytes);
+  kernel<<<W_cap, kMmaThreads, smem, stream>>>(tiles, tile_scale, q,
+      work_region, work_g, work_s, V, idx_mask, pack_window, out);
   return 0;
 }
 
-template <int kM, int kRows, int V>
+template <int kM, int kRows, int kV>
 int launch_v(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
              const int* work_region, const int* work_g, const int* work_s,
-             int W_cap, int idx_mask, int pack_window, void* out,
+             int W_cap, int V, int idx_mask, int pack_window, void* out,
              cudaStream_t stream) {
-  if (pack_window > 0) {
-    return launch_one<kM, kRows, V, true>(tiles, tile_scale, q, work_region,
-                                          work_g, work_s, W_cap, idx_mask,
-                                          pack_window, out, stream);
-  }
-  return launch_one<kM, kRows, V, false>(tiles, tile_scale, q, work_region,
-                                         work_g, work_s, W_cap, idx_mask,
-                                         pack_window, out, stream);
+  return pack_window > 0
+             ? launch_one<kM, kRows, kV, true>(
+                   tiles, tile_scale, q, work_region, work_g, work_s, W_cap,
+                   V, idx_mask, pack_window, out, stream)
+             : launch_one<kM, kRows, kV, false>(
+                   tiles, tile_scale, q, work_region, work_g, work_s, W_cap,
+                   V, idx_mask, pack_window, out, stream);
 }
 
+// Timed in turns with one instance for every V (NVIDIA H100 80GB HBM3,
+// 700.00 W; harness/scorer_timing.py), the V 512 instance read faster at
+// the headline's B=16384 / M 16 and slower at B=4096 / M 8, so only M 16
+// at V 512 takes it.
 template <int kM, int kRows>
 int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
            const int* work_region, const int* work_g, const int* work_s,
            int W_cap, int V, int idx_mask, int pack_window, void* out,
            cudaStream_t stream) {
-  switch (V) {
-    case 256:
-      return launch_v<kM, kRows, 256>(tiles, tile_scale, q, work_region,
-                                      work_g, work_s, W_cap, idx_mask,
-                                      pack_window, out, stream);
-    case 512:
+  if constexpr (kM == 16) {
+    if (V == 512) {
       return launch_v<kM, kRows, 512>(tiles, tile_scale, q, work_region,
-                                      work_g, work_s, W_cap, idx_mask,
+                                      work_g, work_s, W_cap, V, idx_mask,
                                       pack_window, out, stream);
-    case 1024:
-      return launch_v<kM, kRows, 1024>(tiles, tile_scale, q, work_region,
-                                       work_g, work_s, W_cap, idx_mask,
-                                       pack_window, out, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  return launch_v<kM, kRows, 0>(tiles, tile_scale, q, work_region, work_g,
+                                work_s, W_cap, V, idx_mask, pack_window, out,
+                                stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// M must be 8 or 16, csub 1 or 2, V 256, 512 or 1024. pack_window 0 writes
-// f32 [W_cap, M, csub*128]; pack_window >= 1 writes the packed int32
-// [W_cap, M, csub*128 / pack_window] with idx_mask = 2^idx_bits - 1 and
-// needs work_s.
+// The widest V at M query slots and csub: the warps' rings plus the [M, V]
+// int8 queries within 227 KB of shared memory, V a multiple of 128.
+int seismic_score_grouped_i8_item_max_v(int M, int csub) {
+  return mma_max_v(M, csub * kSub, MmaU8S8::kParts);
+}
+
+// M must be 8 or 16, csub 1 or 2, V a multiple of 128 up to the cap above.
+// pack_window 0 writes f32 [W_cap, M, csub*128]; pack_window >= 1 writes
+// the packed int32 [W_cap, M, csub*128 / pack_window] with idx_mask =
+// 2^idx_bits - 1 and needs work_s.
 int seismic_score_grouped_i8_item(const uint8_t* tiles,
                                   const float* tile_scale, const int8_t* q,
                                   const int* work_region, const int* work_g,
@@ -156,7 +169,10 @@ int seismic_score_grouped_i8_item(const uint8_t* tiles,
                                   void* out, cudaStream_t stream) {
   if (W_cap > 0) {
     int rc;
-    if (M == 8 && csub == 1) {
+    if (V <= 0 || V % kVAlign != 0 ||
+        V > seismic_score_grouped_i8_item_max_v(M, csub)) {
+      rc = static_cast<int>(cudaErrorInvalidValue);
+    } else if (M == 8 && csub == 1) {
       rc = launch<8, kSub>(tiles, tile_scale, q, work_region, work_g, work_s,
                            W_cap, V, idx_mask, pack_window, out, stream);
     } else if (M == 8 && csub == 2) {

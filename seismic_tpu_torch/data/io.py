@@ -117,12 +117,11 @@ def read_jsonl_dataset(
         doc_ids.append(str(rec["id"]))
         contents.append(rec.get("content") if load_content else None)
         vec = rec["vector"]
-        comps, vals = [], []
-        for tok, score in vec.items():
-            tid = token_to_id.get(tok)
-            if tid is not None:
-                comps.append(tid)
-                vals.append(score)
+        comps, vals = list(map(token_to_id.get, vec)), list(vec.values())
+        if None in comps:  # tokens outside a given map are dropped
+            keep = [i for i, tid in enumerate(comps) if tid is not None]
+            comps = [comps[i] for i in keep]
+            vals = [vals[i] for i in keep]
         growable.push(comps, vals)
     dataset = growable.freeze()
     if dataset.dim < len(token_to_id):

@@ -21,10 +21,9 @@ Stages, in order (each prints JAX's `dryrun_multichip ... ok` line):
 
 The mesh repeats `device` (the card by default) `n_devices` times, so one
 card runs every shard. Nothing is compiled, so the stages share one
-process. On the card the local vocabularies and block rows of the last
-three stages are 256 wide where JAX's are 128: the port's grouped scorers
-(K2, K6) take widths in multiples of 256 (`csrc/grouped_scorer.cu`,
-`csrc/grouped_scorer_f.cu`); on the CPU the stages keep JAX's 128.
+process. The local vocabularies and block rows of the last three stages
+are JAX's 128 wide on the card as on the CPU (the grouped scorers K2, K4
+and K6 take every multiple of 128 up to their shared-memory caps).
 """
 
 from __future__ import annotations
@@ -52,10 +51,8 @@ def _tiny_setup(n_docs=512, dim=2048, seed=0, vocab_cap=256, n_queries=32):
     return ds, cfg, q_comps, q_vals
 
 
-def _narrow_v(device) -> int:
-    """JAX's 128 on the CPU; on the card 256, the narrowest width the
-    port's grouped scorers take."""
-    return 256 if device.type == "cuda" else 128
+# the local vocabularies and block rows of the last three stages (JAX's)
+NARROW_V = 128
 
 
 def _stage(name: str, n_devices: int, device) -> str:
@@ -71,7 +68,7 @@ def _stage(name: str, n_devices: int, device) -> str:
         ds, cfg, q_comps, q_vals = _tiny_setup(n_docs=256, dim=1024)
     else:
         ds, cfg, q_comps, q_vals = _tiny_setup(
-            n_docs=192, dim=512, vocab_cap=_narrow_v(device), n_queries=16)
+            n_docs=192, dim=512, vocab_cap=NARROW_V, n_queries=16)
     n_data = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
     mesh = make_mesh(n_docs_shards=n_devices // n_data, n_data=n_data,
                      devices=[device] * n_devices)
@@ -103,7 +100,7 @@ def _stage(name: str, n_devices: int, device) -> str:
     elif name == "block":
         sharded = ShardedIndex.from_shards(shards, offsets, mesh, len(ds),
                                            cfg, pallas_tiles=True,
-                                           tile_block=_narrow_v(device))
+                                           tile_block=NARROW_V)
         gp = GroupedParams(k=10, score_cut=64, pool=16,
                            block_expand=int(cfg.layout.max_block_len),
                            compute_dtype="i8", pool_mode="exact")
@@ -127,7 +124,7 @@ def _recipe_88m(n_devices: int, device) -> str:
     from ..search.grouped import GroupedParams
     from .synth import synth_dataset, synth_queries
 
-    n_docs, dim, V = 512, 512, _narrow_v(device)
+    n_docs, dim, V = 512, 512, NARROW_V
     ds = synth_dataset(n_docs, dim=dim, mean_nnz=48, std_nnz=12, max_nnz=96,
                        seed=42)
     cfg = Configuration(layout=TpuLayout(

@@ -28,9 +28,30 @@ from .tiles_prep import SUB
 
 M_SLOTS = (8, 16)  # query slots per group the kernel serves
 CSUBS = (1, 2)  # subtiles per work item the kernel serves
+# The tile width rule of the three grouped scorers (K2, K4, K6), as in
+# JAX's kernel: V a multiple of 128, up to the cap that each library
+# computes from the shared memory its rings and [M, V] queries take
+# (`mma_max_v` of `csrc/grouped_i8_mma.cuh`).
+V_ALIGN = 128
 # kernel launches since the count was last set to 0
 launches = 0
 _handle = None
+
+
+def max_v(M: int, csub: int) -> int:
+    """The widest V the kernel takes at M query slots and csub (the
+    library's `seismic_score_grouped_i8_max_v`; builds it if needed)."""
+    return _lib().seismic_score_grouped_i8_max_v(M, csub)
+
+
+def check_width(V: int, cap: int, what: str) -> None:
+    """Raise ValueError unless V is a multiple of 128 from 128 to `cap`,
+    the kernel's widest V, which the message names."""
+    _cuda.require(
+        V_ALIGN <= V <= cap and V % V_ALIGN == 0,
+        f"{what}: V={V} is not a multiple of {V_ALIGN} from {V_ALIGN} to "
+        f"the kernel's cap {cap} (its rings and [M, V] queries in 227 KB "
+        f"of shared memory)")
 
 
 def grouped_dots_plain(tiles, q, work_region, work_g, chunk: int = 256,
@@ -81,6 +102,8 @@ def _lib():
         lib.seismic_score_grouped_i8.argtypes = [
             p, p, p, p, p, p, i, i, i, i, i, i, i, p, p]
         lib.seismic_score_grouped_i8.restype = ctypes.c_int
+        lib.seismic_score_grouped_i8_max_v.argtypes = [i, i]
+        lib.seismic_score_grouped_i8_max_v.restype = ctypes.c_int
         _handle = lib
     return _handle
 
@@ -125,8 +148,7 @@ def score_grouped_i8(tiles, tile_scale, q, work_region, work_g, work_s,
     G_cap, M, V = q.shape
     req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
     req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
-    req(V in (256, 512, 1024) or (V == 2048 and M == 8),
-        f"V={V} is not 256/512/1024 (or 2048 at M=8)")
+    check_width(V, max_v(M, csub), f"score_grouped_i8 (M={M}, csub={csub})")
     out = torch.empty(
         (G_cap, M, ll_max // pack_window if pack_window else ll_max),
         dtype=torch.int32 if pack_window else torch.float32, device=dev)

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from . import _cuda, pack_epilogue
+from . import _cuda, grouped_scorer, pack_epilogue
 from .tiles_prep import SUB
 
 M_SLOTS = (8, 16)  # query slots per group the kernel serves
@@ -160,9 +160,9 @@ def score_grouped_f(tiles, tile_scale, q, qsum, work_region, work_g, work_s,
     G_cap, M, V = q.shape
     req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
     req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
-    req(V % 256 == 0 and V <= max_v(M, csub, compute_dtype),
-        f"V={V} is not a multiple of 256 within the kernel's cap at M={M}, "
-        f"csub={csub}, {compute_dtype}")
+    grouped_scorer.check_width(
+        V, max_v(M, csub, compute_dtype),
+        f"score_grouped_f ({compute_dtype}, M={M}, csub={csub})")
     out = torch.empty(
         (G_cap, M, ll_max // pack_window if pack_window else ll_max),
         dtype=torch.int32 if pack_window else torch.float32, device=dev)

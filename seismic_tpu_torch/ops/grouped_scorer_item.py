@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from . import _cuda, pack_epilogue
-from .grouped_scorer import grouped_dots_plain, item_scores_plain
+from .grouped_scorer import check_width, grouped_dots_plain, item_scores_plain
 from .tiles_prep import SUB
 
 M_SLOTS = (8, 16)  # query slots per group the kernel serves
@@ -52,8 +52,16 @@ def _lib():
         lib.seismic_score_grouped_i8_item.argtypes = [
             p, p, p, p, p, p, i, i, i, i, i, i, p, p]
         lib.seismic_score_grouped_i8_item.restype = ctypes.c_int
+        lib.seismic_score_grouped_i8_item_max_v.argtypes = [i, i]
+        lib.seismic_score_grouped_i8_item_max_v.restype = ctypes.c_int
         _handle = lib
     return _handle
+
+
+def max_v(M: int, csub: int) -> int:
+    """The widest V the kernel takes at M query slots and csub (the
+    library's `seismic_score_grouped_i8_item_max_v`)."""
+    return _lib().seismic_score_grouped_i8_item_max_v(M, csub)
 
 
 def score_grouped_i8_item(tiles, tile_scale, q, work_region, work_g,
@@ -98,7 +106,8 @@ def score_grouped_i8_item(tiles, tile_scale, q, work_region, work_g,
     M, V = q.shape[1], tiles.shape[1]
     req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
     req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
-    req(V in (256, 512, 1024), f"V={V} is not 256/512/1024")
+    check_width(V, max_v(M, csub),
+                f"score_grouped_i8_item (M={M}, csub={csub})")
     W_cap = work_region.shape[0]
     out = torch.empty((W_cap, M, step),
                       dtype=torch.int32 if pack_window else torch.float32,

@@ -557,8 +557,9 @@ def narrow_vocab(arrays, V0: int, chunk: int = 262144):
 
     u8 codes and per-row scales are untouched: dropping columns never
     changes the remaining codes. Per-posting overflow arrays are kept as
-    built. The row subsets run in chunks of `chunk` rows, so the only
-    large new array is the narrowed tile set itself.
+    built. The row subsets run a list at a time (and in chunks of `chunk`
+    rows for rows no list owns), so the only large new array is the
+    narrowed tile set itself.
 
     Returns a new IndexArrays sharing every unaffected field."""
     import dataclasses as _dc
@@ -584,35 +585,32 @@ def narrow_vocab(arrays, V0: int, chunk: int = 262144):
     ll = np.asarray(arrays.list_len, np.int64)
     lps = np.asarray(arrays.list_post_start, np.int64)
 
-    def subset_rows(mat, row_list_id):
-        out = np.zeros((mat.shape[0], V0), dtype=mat.dtype)
-        for s in range(0, mat.shape[0], chunk):
-            e = min(mat.shape[0], s + chunk)
-            out[s:e] = np.take_along_axis(
-                mat[s:e], colsel[row_list_id[s:e]], axis=1
-            )
+    def subset_rows(mat, starts, lens):
+        """Rows [starts[l], + lens[l]) of each list l keep its colsel
+        columns; every other row is read as list 0's, as JAX's row-to-list
+        map leaves it. A list's rows are one contiguous block, so each
+        list is one column gather (no [rows, V0] index array)."""
+        out = np.empty((mat.shape[0], V0), dtype=mat.dtype)
+        owned = np.zeros(mat.shape[0], bool)
+        for li in np.flatnonzero(lens):
+            s, e = int(starts[li]), int(starts[li] + lens[li])
+            out[s:e] = mat[s:e][:, colsel[li]]
+            owned[s:e] = True
+        rest = np.flatnonzero(~owned)
+        for c0 in range(0, len(rest), chunk):
+            r = rest[c0:c0 + chunk]
+            out[r] = mat[r][:, colsel[0]]
         return out
 
     new_tiles = None
     if arrays.doc_tiles is not None:
-        total = int((lps + ll).max()) if len(lps) else 0
-        row_list = np.zeros(arrays.doc_tiles.shape[0], np.int64)
-        nz = ll > 0
-        order = np.argsort(lps[nz], kind="stable")
-        lid = np.repeat(np.arange(n_lists, dtype=np.int64)[nz][order],
-                        ll[nz][order])
-        row_list[:total] = lid
-        new_tiles = subset_rows(np.asarray(arrays.doc_tiles), row_list)
+        new_tiles = subset_rows(np.asarray(arrays.doc_tiles), lps, ll)
 
     new_ds = None
     if arrays.dense_summary is not None:
-        lnb = np.asarray(arrays.list_n_blocks, np.int64)
-        lbs = np.asarray(arrays.list_block_start, np.int64)
-        blk_list = np.zeros(arrays.dense_summary.shape[0], np.int64)
-        for li in range(n_lists):
-            if lnb[li]:
-                blk_list[lbs[li]: lbs[li] + lnb[li]] = li
-        new_ds = subset_rows(np.asarray(arrays.dense_summary), blk_list)
+        new_ds = subset_rows(np.asarray(arrays.dense_summary),
+                             np.asarray(arrays.list_block_start, np.int64),
+                             np.asarray(arrays.list_n_blocks, np.int64))
 
     cfg = arrays.config
     if cfg is not None and getattr(cfg, "layout", None) is not None:

@@ -183,7 +183,16 @@ def test_port_imports_no_jax_and_no_seismic_tpu():
     for m in ("api", "data.io", "search.exact", "search.knn",
               "build.convert", "search.flat", "ops.sketch",
               "parallel.mesh", "parallel.sharded", "harness.dryrun",
-              "harness.bench_sharded"):
+              "harness.bench_sharded", "cli",
+              "cli.convert_json_to_inner_format",
+              "cli.build_inverted_index", "cli.perf_inverted_index",
+              "cli.build_enhanced_inverted_index",
+              "cli.perf_enhanced_inverted_index", "harness.evaluate",
+              "harness.export_synth", "harness.run_experiments",
+              "harness.run_grid_search", "harness.best_configs",
+              "harness.bench_knn", "harness.profile_stages",
+              "harness.bench_mem", "harness.build_88m",
+              "harness.scorer_timing"):
         assert f"seismic_tpu_torch.{m}" in mods, m
     for mod, path in sources:
         with open(path) as fh:
