@@ -216,8 +216,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    queries: top-10 agreement with `exact_search` >= 0.9 and scores within
    2% of the exact dots (u8 quantization), wall time; (d) last, every
    earlier index freed: `SeismicIndexRawLV.build_from_csr` on
-   `synth_dataset(10_000, dim=250_002, seed=7)` (the corpus cut to a
-   tenth to fit the time limit; XLM-RoBERTa's vocabulary, BGE-M3's sparse
+   `synth_dataset(2_000, dim=250_002, seed=7)` (the corpus cut to 2% to
+   fit the time limit; XLM-RoBERTa's vocabulary, BGE-M3's sparse
    head) at the API cell's pruning and layout with
    summary_vocab_cap 512, its bytes printed first; 4096 queries at
    heap_factor 0 (K1 on the int32 vocabulary, K2, K3), K1 and K8 on int32
@@ -258,7 +258,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    beside phase 5's; (d) `init_distributed` as an NCCL group of one
    (a free local port) and (a)'s 1x4 batch through the cross-process
    merge, equal to the in-process merge; (c) a u8 build of the first
-   10,000 documents into 4 shards (a cut that keeps the script in its
+   5,000 documents into 4 shards (a cut that keeps the script in its
    time limit), the block view (`tile_block=512`, `block_expand=32`,
    K3-u8), recall@10 beside phase 9's; (e)
    `harness/dryrun.py::dryrun_multichip(4)`, its
@@ -282,7 +282,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    graph: the index reused (build_secs 0), K3 launched more often than in
    (b), accuracy@10 >= 0.97 (0.9803 less 0.01), scores exact; (e)
    `harness/run_grid_search.py` on a grid of one indexing combination x
-   query cuts 10 and 11 over the first 10,000 documents at
+   query cuts 10 and 11 over the first 5,000 documents at
    summary-vocab-cap 128 (exported by `export_synth` from a cache of the
    cut; the grouped route at V 128), run twice: the second launches
    no kernel and rewrites no report; `harness/best_configs.py` over its
@@ -311,6 +311,39 @@ Phases (any failure exits non-zero, and no result line is printed):
    that take V at run time (K4: kV = 0; K2 and K6 have only those). The
    `kernels` line carries these six as
    `<name>@V384` / `<name>@V128`, with the launches of their windows.
+14. (inside phase 4, after its aligned-tile cache) the probe drivers of
+   `seismic_tpu_torch/harness/`, each through its `main(argv)` on the
+   card, on a cache in a temporary directory that phases 3 / 4 fill under
+   the drivers' file names (the corpus, the f32 v1024 index, its `_nw512`
+   dir with its aligned layout, the ground truth of the 16,384 protocol
+   queries) with the knn16 graph that rebuild_r3_cache makes (the
+   engine's self-search on a csub-1 upload, K7, in a counted window): (b)
+   the queue script (`run_r5_queue.sh`) with stages `c100k`
+   (rebuild_r3_cache making a cache of its own at a cut: 2,000 docs, the
+   stream's first 2048 queries) and `r5b_grid2`, both logged OK, its
+   record moved beside its logs; (c) `probe_r5b` at full size with every
+   family in this process, m32 and csub4 in counted windows of their own:
+   38 rungs recorded, each rung whose label JAX's record
+   (`BENCH_STAGE_r5.json`) holds with a recall at least that recall less
+   0.01 (`R5B_JAX_RECALL`), K4 launched at M 32 and at csub 4, K5 in the
+   csub-4 stride rung, K2 in `b1_exact_ddpost_u1`, K8 in the rowmajor
+   rung, and the base rung's ids equal to a direct
+   `search_grouped_derive` call's on phase 4's index; (d) `scorer_forms`
+   (phase 6b's checks) at M 32 on phase 4's index and at M 16 on the
+   same arrays uploaded with csub 4: K4, K2 and K6 against their plain
+   versions on the path's operands, timed beside their bounds and a
+   library product, with their instances' ptxas lines; the `kernels` line
+   carries them as `<name>@M32` / `<name>@csub4`; (e) `probe_r5c` at its
+   cut (the 1M recipe at 2,000 documents through `rebuild_r3_cache 1m
+   --n-docs`, width 512): the lever family, then lean16 with
+   `R5C_FWD16=1` (K3's f16 form); (f) `probe_r3j` at its cut
+   (`build_88m` at 5,000 documents): the streaming ground truth, the
+   block view, eight rungs (K1, the int8 scorer, K3-u8); (g)
+   `sweep_configs` on the v1024 index with the graph of (a): 12
+   directories named as `experiments/grid_synth/`'s. Records land in
+   `chiprun_out/` (`bench_stage_r5.json`, `scale_bench.json`,
+   `scale88_bench.json`, `grid_synth/`, `r5queue/`); the JAX records at
+   the repo root must be unchanged after the phase.
 
 Every profiler window (phases 3-10) is taken after one warm-up call of
 what it profiles and is read only where it holds that phase's hand
@@ -887,9 +920,9 @@ def headline_path(ds, dev, record, kernels, graph) -> dict:
                          max_doc_nnz=256, tile_overflow=64),
     )
     t0 = time.time()
-    arrays = build_index(ds, cfg, value_dtype="f32")
+    full = build_index(ds, cfg, value_dtype="f32")
     t1 = time.time()
-    arrays = narrow_vocab(arrays, V0)
+    arrays = narrow_vocab(full, V0)
     arrays.knn = graph  # indexed by doc id, as this index's docs are
     t2 = time.time()
     dindex = arrays.to_device(dev, tile_csub=CSUB)
@@ -1202,11 +1235,21 @@ def headline_path(ds, dev, record, kernels, graph) -> dict:
         dict(arrays=arrays, docs=docs, qc_np=qcn[0], qv_np=qvn[0],
              qc_t=qcd[0], qv_t=qvd[0], gt=gt[:256]), dev, record)
 
-    # ---- the aligned-tile cache, on this index ----
-    aligned_cache_path(
-        dict(arrays=arrays, dindex=dindex, ctx=ctx, qc_np=qcn[0],
-             qv_np=qvn[0], qc_t=qcd[0], qv_t=qvd[0]), dev, record)
-    del docs, arrays
+    # ---- the aligned-tile cache, on this index, in phase 14's cache ----
+    with tempfile.TemporaryDirectory(prefix="seismic_drivers") as cache:
+        nw_dir = drivers_protocol(len(ds), cache).index_base + f"_nw{V0}.dir"
+        aligned_cache_path(
+            dict(arrays=arrays, dindex=dindex, ctx=ctx, qc_np=qcn[0],
+                 qv_np=qvn[0], qc_t=qcd[0], qv_t=qvd[0], index_dir=nw_dir),
+            dev, record)
+
+        # ---- phase 14: the probe drivers, on this corpus and index ----
+        record["widths_kernels"] += drivers_path(
+            dict(ds=ds, full=full, arrays=arrays, dindex=dindex, ctx=ctx,
+                 docs=docs, gt=gt, q_comps=q_comps, q_vals=q_vals, qcB=qcB,
+                 qvB=qvB, qc_np=qcn[0], qv_np=qvn[0], qc_t=qcd[0],
+                 qv_t=qvd[0], cache=cache), dev, record)
+    del docs, arrays, full
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1846,13 +1889,51 @@ def widths_path(env, dev, record) -> list:
     """Phase 6b, inside phase 4 after phase 11a: the modes index narrowed
     to V 384 and then 128 (`narrow_vocab`), each uploaded with csub 2 and
     searched with one B=4096 / M=8 batch on the derived plan in a counted
-    window per scorer (K4: the headline parameters; K2: the same with
-    kernel_unroll 1; K6: `GroupedParams(pool=128)`, bf16), every score of
-    the int8 batches the exact dot; K2, K4 and K6 held against their plain
-    versions on the batch's own operands (K2 / K4 int dots exact and 1e-6
-    relative, K6 1e-5 of the larger of score and centring term), timed
-    beside their bounds, with their ptxas lines. Returns the six kernel
-    records (name@V<width>) for the `kernels` line."""
+    window per scorer (`scorer_forms`). Returns the six kernel records
+    (name@V<width>) for the `kernels` line."""
+    import torch
+
+    from seismic_tpu_torch.ops.tiles_prep import narrow_vocab
+    from seismic_tpu_torch.search.planner import PlannerContext
+
+    rec = record.setdefault("widths", {})
+    t_phase = time.time()
+    out, arrays = [], env["arrays"]
+    for V in WIDTHS:
+        t0 = time.time()
+        arrays = narrow_vocab(arrays, V)
+        t1 = time.time()
+        dv = arrays.to_device(dev, tile_csub=CSUB)
+        ctx = PlannerContext.from_arrays(arrays, csub=CSUB)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        krs, r = scorer_forms(dv, ctx, 8, CSUB, f"V{V}", f"v{V}", env, dev,
+                              record, "phase 6b")
+        out += krs
+        rec[f"v{V}"] = dict(narrow_s=t1 - t0, upload_s=t2 - t1, **r)
+        log(f"phase 6b V {V}: narrow_vocab {t1 - t0:.1f} s, upload "
+            f"{t2 - t1:.1f} s")
+        del dv
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.time() - t_phase
+    log(f"phase 6b: {rec['phase_s']:.1f} s")
+    return out
+
+
+def scorer_forms(dv, ctx, M, csub, tag, window, env, dev, record,
+                 what) -> tuple:
+    """K4, K2 and K6 at the form (V, M, csub) of index `dv` (phase 6b's
+    widths, phase 14's M 32 and csub 4): one B=4096 batch of env's
+    queries on the derived plan in a counted window per scorer (K4: the
+    headline parameters; K2: the same with kernel_unroll 1; K6:
+    `GroupedParams(pool=128)`, bf16), every score of the int8 batches the
+    exact dot; the three held against their plain versions on the batch's
+    own operands (K2 / K4 int dots exact and 1e-6 relative, K6 1e-5 of
+    the larger of score and centring term), timed beside their bounds and
+    a library call, with the ptxas lines of their instances. Returns (the
+    three kernel records, name@<tag>, each with its counted window
+    `<window>_k4` / `_k2` / `_k6`; the form's record)."""
     import dataclasses
 
     import torch
@@ -1863,7 +1944,7 @@ def widths_path(env, dev, record) -> list:
         grouped_scorer_item,
         qloc,
     )
-    from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for, narrow_vocab
+    from seismic_tpu_torch.ops.tiles_prep import SUB, ll_pad_for
     from seismic_tpu_torch.search.grouped import (
         GroupedParams,
         _query_terms,
@@ -1871,209 +1952,525 @@ def widths_path(env, dev, record) -> list:
         plan_caps,
         search_grouped_derive,
     )
-    from seismic_tpu_torch.search.planner import PlannerContext
 
-    rec = record.setdefault("widths", {})
-    t_phase = time.time()
     qc_np, qv_np, qc_t, qv_t = (env[k_] for k_ in ("qc_np", "qv_np", "qc_t",
                                                    "qv_t"))
     docs, gt = env["docs"], env["gt"]
     nq = len(gt)
-    M, QC, ROWS = 8, QUERY_CUT, CSUB * SUB
+    QC, ROWS, V = QUERY_CUT, csub * SUB, dv.doc_tiles_aligned.shape[1]
     ptx = {lib: ptxas_of(lib, needle) for lib, needle in (
         ("grouped_scorer", "score_grouped_i8_kernel"),
         ("grouped_scorer_item", "score_item_kernel"),
         ("grouped_scorer_f", "score_grouped_f_kernel"))}
     # the run-time-V instances (K4's kV = 0 serves every width but M 16 at
-    # V 512; K2 and K6 have no other)
+    # V 512 and csub <= 2; K2 and K6 have no other)
+    kv4 = 512 if (M == 16 and V == 512 and csub <= 2) else 0
     keys = {"grouped_scorer":
                 f"score_grouped_i8_kernelILi{M}ELi{ROWS}ELb0E",
             "grouped_scorer_item":
-                f"score_item_kernelILi{M}ELi{ROWS}ELi0ELb0E",
+                f"score_item_kernelILi{M}ELi{ROWS}ELi{kv4}ELb0E",
             "grouped_scorer_f":
                 f"score_grouped_f_kernelILi{M}ELi{ROWS}ELi1ELb0E"}
     ptx_lines = {lib: [ln for f_, lns in ptx[lib].items() if keys[lib] in f_
                        for ln in lns] for lib in ptx}
     for lib, lns in ptx_lines.items():
         if not lns:
-            fail(f"phase 6b: no ptxas report of {keys[lib]}")
-        log(f"phase 6b: ptxas {keys[lib]} (V at run time): "
-            f"{'; '.join(lns)}")
-    out, arrays = [], env["arrays"]
-    for V in WIDTHS:
-        t0 = time.time()
-        arrays = narrow_vocab(arrays, V)
-        t1 = time.time()
-        dv = arrays.to_device(dev, tile_csub=CSUB)
-        ctx = PlannerContext.from_arrays(arrays, csub=CSUB)
+            fail(f"{what}: no ptxas report of {keys[lib]}")
+        log(f"{what}: ptxas {keys[lib]}: {'; '.join(lns)}")
+    caps = plan_caps(qc_np, qv_np, ctx, QC, M=M)
+    k4p = headline_params()
+    runs = {}
+    for short, params, positive in (
+            ("k4", k4p, ("qloc", "score_grouped_i8_item", "rescore")),
+            ("k2", dataclasses.replace(k4p, kernel_unroll=1),
+             ("qloc", "score_grouped_i8", "rescore")),
+            ("k6", GroupedParams(k=K, pool=128),
+             ("qloc", "score_grouped_f"))):
+        def once(p_=params):
+            return search_grouped_derive(dv, qc_t, qv_t, p_, QC, M,
+                                         caps[0], caps[1], ctx.zero_region)
+        once()  # warm-up
+        (s_, i_), wall, counts = counted(
+            f"{what} {tag} {short}", f"{window}_{short}", record, once,
+            positive=positive)
+        fin = torch.isfinite(s_) & (i_ >= 0)
+        if fin.float().mean().item() < 0.99:
+            fail(f"{what} {tag} {short}: under 99% of the top-k slots "
+                 "filled")
+        r = dict(recall_at_10=recall_at(gt, i_[:nq]), wall_ms=wall,
+                 launches={n_: c for n_, c in counts.items() if c})
+        if short != "k6":  # rescore 64: every score the exact dot
+            r["max_rel_score_err"] = exact_scores_err(docs, qc_t, qv_t,
+                                                      s_, i_)
+            if not r["max_rel_score_err"] <= 1e-5:
+                fail(f"{what} {tag} {short}: scores differ from the exact "
+                     f"dots by {r['max_rel_score_err']}")
+        runs[short] = r
+        log(f"{what} {tag} {short}: recall@10 {r['recall_at_10']:.4f} on "
+            f"{nq} queries, {wall:.2f} ms, launches {r['launches']}")
+
+    # ---- the scorers against their plain versions on the batch's
+    # operands: the derived plan, K1's projections, qsum ----
+    dp = derive_plan_device(dv, qc_t, qv_t, QC, M, caps[0], caps[1],
+                            ctx.zero_region)
+    G, W = int(dp.G), int(dp.W)
+    G_cap = dp.slot_b.shape[0]
+    LLMAX = ll_pad_for(dv.max_list_len, csub)
+    top_c, top_v, sc = _query_terms(qc_t, qv_t, 64)
+    a1 = (dv.vocab16, dp.pair_list.reshape(-1).contiguous(),
+          top_c[:, :sc].contiguous(), top_v[:, :sc].contiguous(), QC)
+    q8p, _ = qloc.project_qloc_quantize(*a1)
+    qfp = qloc.project_qloc_f32(*a1)
+    slot = dp.slot_pair.long()
+    q8 = q8p[slot].reshape(G_cap, M, V).contiguous()
+    qf = qfp[slot].reshape(G_cap, M, V).contiguous()
+    qsum = (128.0 * qfp.sum(-1))[slot].reshape(G_cap, M).contiguous()
+    tiles, tscale = dv.doc_tiles_aligned, dv.tile_scale
+    wr, wg, ws = dp.work_region, dp.work_g, dp.work_s
+    wgl, wsl = wg[:W].long(), ws[:W].long()
+    n_regions = torch.unique(wr[:W]).numel()
+    tile_bytes = n_regions * ROWS * (V + 4)
+    ops = 2.0 * W * M * ROWS * V
+
+    def covered(o):
+        return o.view(G_cap, M, LLMAX // ROWS, ROWS)[wgl, :, wsl, :]
+
+    def rel_err(k, p):
+        return float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
+
+    # K4 (item-major) and K2 (slot-major): int dots exact, 1e-6
+    a4 = (tiles, tscale, q8, wr, wg, csub)
+    a2 = (tiles, tscale, q8, wr, wg, ws, LLMAX, csub)
+    ones = torch.ones_like(tscale)
+    dots = grouped_scorer.grouped_dots_plain(
+        tiles, q8, wr[:W], wg[:W], rows_per_item=ROWS).to(torch.float32)
+    k4o = grouped_scorer_item.score_grouped_i8_item(*a4)[:W]
+    p4o = grouped_scorer_item.score_grouped_i8_item_plain(*a4)[:W]
+    d4 = grouped_scorer_item.score_grouped_i8_item(
+        tiles, ones, *a4[2:])[:W]
+    k2o = covered(grouped_scorer.score_grouped_i8(*a2))
+    p2o = covered(grouped_scorer.score_grouped_i8_plain(*a2))
+    d2 = covered(grouped_scorer.score_grouped_i8(tiles, ones, *a2[2:]))
+    checks = {"score_grouped_i8_item": (rel_err(k4o, p4o),
+                                        torch.equal(d4, dots),
+                                        (k4o - p4o).abs().max()),
+              "score_grouped_i8": (rel_err(k2o, p2o),
+                                   torch.equal(d2, dots),
+                                   (k2o - p2o).abs().max())}
+    del k4o, p4o, d4, k2o, p2o, d2, dots
+    for name, (rel, dots_ok, _) in checks.items():
+        if not (dots_ok and rel <= 1e-6):
+            fail(f"{what} {tag}: {name} disagrees with its plain version "
+                 f"(int dots equal {dots_ok}, max rel err {rel})")
+    # K6, bf16 centred (as the search calls it): 1e-5 of the larger of
+    # the score and the centring term
+    a6 = (tiles, tscale, qf, qsum, wr, wg, ws, LLMAX, csub, "bf16")
+    k6o = covered(grouped_scorer_f.score_grouped_f(*a6))
+    p6o = covered(grouped_scorer_f.score_grouped_f_plain(*a6))
+    mag = (qsum[wgl][:, :, None]
+           * tscale[wr[:W].long()[:, None] * ROWS
+                    + torch.arange(ROWS, device=dev)][:, None, :])
+    err6 = (k6o - p6o).abs()
+    tol6 = 1e-5 * torch.maximum(mag.abs(), p6o.abs())
+    if not (err6 <= tol6).all():
+        fail(f"{what} {tag}: score_grouped_f disagrees, max abs err "
+             f"{err6.max().item()}")
+    checks["score_grouped_f"] = (
+        float((err6 / tol6.clamp_min(1e-30)).max()), True, err6.max())
+    del k6o, p6o, err6, tol6, mag
+
+    # library yardstick of the int8 scorers: one int8 tensor-core product
+    # of the same operation count over the same gathered rows
+    rows = (wr[:W].long()[:, None] * ROWS
+            + torch.arange(ROWS, device=dev)).reshape(-1)
+    A = tiles[rows].view(torch.int8)
+    lib_i8 = time_ms(lambda: torch._int_mm(A, q8[0].t()), 10)
+    del A
+    Ab = tiles[rows].to(torch.bfloat16)
+    lib_bf16 = time_ms(lambda: torch.matmul(
+        Ab, qf[0].t().to(torch.bfloat16).contiguous()), 10)
+    del Ab, rows
+    out = []
+    for name, src, row, fn, plain, args, by, peak, lib, lib_name in (
+            ("score_grouped_i8_item", "grouped_scorer_item.cu", 326,
+             grouped_scorer_item.score_grouped_i8_item,
+             grouped_scorer_item.score_grouped_i8_item_plain, a4,
+             tile_bytes + G * M * V + W * 8 + W * M * ROWS * 4,
+             PEAK_INT8, lib_i8, "torch._int_mm"),
+            ("score_grouped_i8", "grouped_scorer.cu", 231,
+             grouped_scorer.score_grouped_i8,
+             grouped_scorer.score_grouped_i8_plain, a2,
+             tile_bytes + G * M * V + W * 12 + W * M * ROWS * 4,
+             PEAK_INT8, lib_i8, "torch._int_mm"),
+            ("score_grouped_f", "grouped_scorer_f.cu", 32,
+             grouped_scorer_f.score_grouped_f,
+             grouped_scorer_f.score_grouped_f_plain, a6,
+             tile_bytes + G * M * V * 4 + G * M * 4 + W * 12
+             + W * M * ROWS * 4, PEAK_BF16, lib_bf16, "torch.matmul")):
+        b_ms, b_by = bound(by, ops, peak)
+        err, _, abs_err = checks[name]
+        lib_key = {"score_grouped_i8_item": "grouped_scorer_item",
+                   "score_grouped_i8": "grouped_scorer",
+                   "score_grouped_f": "grouped_scorer_f"}[name]
+        short = {"score_grouped_i8_item": "k4", "score_grouped_i8": "k2",
+                 "score_grouped_f": "k6"}[name]
+        kr = dict(
+            name=f"{name}@{tag}", route="cuda",
+            source=f"seismic_tpu_torch/csrc/{src}",
+            replaces=f"seismic_tpu/ops/pallas_grouped.py:{row}",
+            max_abs_err=float(abs_err), ms=time_ms(lambda: fn(*args), 10),
+            plain_ms=time_ms(lambda: plain(*args), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            library=lib_name, V=V, csub=csub, M=M, W=W, G=G,
+            distinct_super_tiles=n_regions, bytes=by, ops=ops,
+            window=f"{window}_{short}", ptxas=ptx_lines[lib_key],
+            **({"max_rel_err": err} if name != "score_grouped_f"
+               else {"max_err_over_tol": err}))
+        out.append(kr)
+        log(f"{what} {tag}: {name}: ok (max abs err {kr['max_abs_err']:.3g}"
+            f"), {kr['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}, plain "
+            f"{kr['plain_ms']:.3f} ms, {lib_name} {lib:.4f} ms)")
+    r = dict(device_index_bytes=dv.nbytes(), G=G, W=W, runs=runs)
+    del tiles, tscale, q8, qf, qsum, a2, a4, a6, dp
+    return out, r
+
+
+# ---- phase 14: the probe drivers ----
+# recall@10 of each rung of JAX's probe_r5b record with a recall
+# (BENCH_STAGE_r5.json: the same labels, data, shapes and parameters, run
+# on its TPU): the port's rung must reach it less R5B_RECALL_TOL
+R5B_JAX_RECALL = {
+    "base_hier_qc13_p96r64": 0.9701, "stride8_exact_qc13_p96r64": 0.9448,
+    "stride8_approx_qc13_p96r64": 0.9448,
+    "rowmajor_qloc_qc13_p96r64": 0.9701, "sc48_qc13_p96r64": 0.9662,
+    "ddpost_qc13_p96r64": 0.9693, "pdt_hier_qc13_p96r64": 0.97,
+    "pdt_ddpost_qc13_p96r64": 0.9693, "pdt_ddpost_qc14_p96r64": 0.9709,
+    "pdt_ddpost_pr90_qc14_p96r64": 0.9689, "m32_hier_qc13_p96r64": 0.9701,
+    "m32_pdt_ddpost_qc13_p96r64": 0.9693,
+    "seg32_pdt_ddpost_qc13_p96r64": 0.9726,
+    "seg128_pdt_ddpost_qc13_p96r64": 0.9726,
+    "seg32a_pdt_ddpost_qc13_p96r64": 0.9726,
+    "seg32_pdt_ddpost_qc14_p96r64": 0.9741, "seg32_pdt_qc13_p96r64": 0.9737,
+    "knn16top4_qc12_p96r64": 0.9708, "knn16top2_qc12_p96r64": 0.9696,
+    "knn16top4_qc13_p96r64": 0.9731, "knn16top2_ddpost_qc12_p96r64": 0.9689,
+    "knn16top4_ddpost_qc12_p96r64": 0.9701,
+}
+R5B_RECALL_TOL = 0.01
+# the rungs of all nine families (probe_r5b.py; JAX's record lacks grid2,
+# 2pass, csub4 and knn16top0)
+R5B_RUNGS = 38
+# the cut drivers' cuts (PERF.md §4): the queue's 100k cache, r5c's 1M
+# recipe and r3j's 8.8M build at these many documents (the queue at the
+# stream's first QUEUE_CUT_QUERIES queries); the sweep's repetitions
+QUEUE_CUT_DOCS, QUEUE_CUT_QUERIES = 2000, 2048
+R5C_CUT_DOCS, R3J_CUT_DOCS, SWEEP_REPS = 2000, 5000, 2
+QUEUE = os.path.join(ROOT, "seismic_tpu_torch", "harness", "run_r5_queue.sh")
+# the JAX package's records at the repo root, which no driver may touch
+JAX_RECORDS = ("BENCH_STAGE_r5.json", "SCALE_BENCH.json",
+               "SCALE88_BENCH.json", os.path.join("experiments", "grid_synth"))
+
+
+def tree_digest(path: str) -> str:
+    """sha1 over the names and bytes of a file or of every file under a
+    directory ("" when missing)."""
+    import hashlib
+
+    if not os.path.exists(path):
+        return ""
+    h = hashlib.sha1()
+    files = ([path] if os.path.isfile(path) else sorted(
+        os.path.join(r, f) for r, _, fs in os.walk(path) for f in fs))
+    for f in files:
+        h.update(os.path.relpath(f, path).encode())
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+class env_vars:
+    """Environment variables set (None: removed) inside a `with`."""
+
+    def __init__(self, **kv):
+        self.kv, self.old = kv, {}
+
+    def __enter__(self):
+        for k, v in self.kv.items():
+            self.old[k] = os.environ.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def drivers_protocol(n_docs: int, cache: str):
+    """The drivers' protocol (harness/protocol.py) at the corpus's count:
+    the file names phase 14's cache takes."""
+    from seismic_tpu_torch.harness import protocol
+
+    return protocol.Protocol(n_docs=n_docs, cache=cache)
+
+
+def drivers_path(env, dev, record) -> list:
+    """Phase 14, inside phase 4 after the aligned-tile cache, which wrote
+    the `_nw512` dir and its aligned layout into env's `cache`: the probe
+    drivers through their `main(argv)` on the card (see the module
+    docstring). Returns the kernel records of K4, K2 and K6 at M 32 and
+    csub 4 (name@M32, name@csub4) for the `kernels` line."""
+    import shutil
+
+    import torch
+
+    from seismic_tpu_torch.harness import (
+        build_88m,
+        probe_r3j,
+        probe_r5b,
+        probe_r5c,
+        protocol,
+        rebuild_r3_cache,
+        sweep_configs,
+    )
+    from seismic_tpu_torch.search.grouped import (
+        plan_caps,
+        search_grouped_derive,
+    )
+    from seismic_tpu_torch.search.planner import PlannerContext
+
+    rec = record.setdefault("drivers", {})
+    t_phase = time.time()
+    before = {f: tree_digest(os.path.join(ROOT, f)) for f in JAX_RECORDS}
+    for f in ("bench_stage_r5.json", "scale_bench.json",
+              "scale88_bench.json", "grid_synth", "r5queue"):
+        path = os.path.join(OUT_DIR, f)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        elif os.path.exists(path):
+            os.remove(path)
+    windows = record["launch_windows"]
+    ds = env["ds"]
+    n = len(ds)
+    krs = []
+
+    def window(key, fn):
         torch.cuda.synchronize()
-        t2 = time.time()
-        caps = plan_caps(qc_np, qv_np, ctx, QC, M=M)
-        k4p = headline_params()
-        runs = {}
-        for tag, params, positive in (
-                ("k4", k4p, ("qloc", "score_grouped_i8_item", "rescore")),
-                ("k2", dataclasses.replace(k4p, kernel_unroll=1),
-                 ("qloc", "score_grouped_i8", "rescore")),
-                ("k6", GroupedParams(k=K, pool=128),
-                 ("qloc", "score_grouped_f"))):
-            def once(p_=params):
-                return search_grouped_derive(dv, qc_t, qv_t, p_, QC, M,
-                                             caps[0], caps[1],
-                                             ctx.zero_region)
-            once()  # warm-up
-            (s_, i_), wall, counts = counted(
-                f"phase 6b V {V} {tag}", f"v{V}_{tag}", record, once,
-                positive=positive)
-            fin = torch.isfinite(s_) & (i_ >= 0)
-            if fin.float().mean().item() < 0.99:
-                fail(f"phase 6b V {V} {tag}: under 99% of the top-k slots "
-                     "filled")
-            r = dict(recall_at_10=recall_at(gt, i_[:nq]), wall_ms=wall,
-                     launches={n_: c for n_, c in counts.items() if c})
-            if tag != "k6":  # rescore 64: every score the exact dot
-                r["max_rel_score_err"] = exact_scores_err(docs, qc_t, qv_t,
-                                                          s_, i_)
-                if not r["max_rel_score_err"] <= 1e-5:
-                    fail(f"phase 6b V {V} {tag}: scores differ from the "
-                         f"exact dots by {r['max_rel_score_err']}")
-            runs[tag] = r
-            log(f"phase 6b V {V} {tag}: recall@10 {r['recall_at_10']:.4f} "
-                f"on {nq} queries, {wall:.2f} ms, launches {r['launches']}")
+        zero_launches()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        windows[key] = read_launches()
+        rec[f"{key}_s"] = time.time() - t0
+        return out
 
-        # ---- the scorers against their plain versions on the batch's
-        # operands: the derived plan, K1's projections, qsum ----
-        dp = derive_plan_device(dv, qc_t, qv_t, QC, M, caps[0], caps[1],
-                                ctx.zero_region)
-        G, W = int(dp.G), int(dp.W)
-        G_cap = dp.slot_b.shape[0]
-        LLMAX = ll_pad_for(dv.max_list_len, CSUB)
-        top_c, top_v, sc = _query_terms(qc_t, qv_t, 64)
-        a1 = (dv.vocab16, dp.pair_list.reshape(-1).contiguous(),
-              top_c[:, :sc].contiguous(), top_v[:, :sc].contiguous(), QC)
-        q8p, _ = qloc.project_qloc_quantize(*a1)
-        qfp = qloc.project_qloc_f32(*a1)
-        slot = dp.slot_pair.long()
-        q8 = q8p[slot].reshape(G_cap, M, V).contiguous()
-        qf = qfp[slot].reshape(G_cap, M, V).contiguous()
-        qsum = (128.0 * qfp.sum(-1))[slot].reshape(G_cap, M).contiguous()
-        tiles, tscale = dv.doc_tiles_aligned, dv.tile_scale
-        wr, wg, ws = dp.work_region, dp.work_g, dp.work_s
-        wgl, wsl = wg[:W].long(), ws[:W].long()
-        n_regions = torch.unique(wr[:W]).numel()
-        tile_bytes = n_regions * ROWS * (V + 4)
-        ops = 2.0 * W * M * ROWS * V
+    def need(key, *names):
+        for n_ in names:
+            if not windows[key].get(n_, 0) > 0:
+                fail(f"phase 14 {key}: {n_} never launched: {windows[key]}")
 
-        def covered(o):
-            return o.view(G_cap, M, LLMAX // ROWS, ROWS)[wgl, :, wsl, :]
+    cache = env["cache"]
+    with env_vars(BENCH_N_DOCS=str(n), R3_CACHE_CPU_ONLY=None,
+                  R5C_FWD16=None):
+        p = protocol.from_env(cache=cache)
+        if p != drivers_protocol(n, cache):
+            fail(f"phase 14: the drivers' protocol {p} is not the cells'")
+        # ---- (a) the cache, from phases 3 / 4: the corpus, the f32
+        # index (its `_nw512` dir and aligned layout phase 4 wrote), the
+        # ground truth of the 16,384 protocol queries (the first 2048 the
+        # sweep's) ----
+        t0 = time.time()
+        np.savez(os.path.join(cache, f"docs_{n}_{DIM}.npz"),
+                 offsets=ds.offsets, components=ds.components,
+                 values=ds.values)
+        env["full"].save_dir(p.index_base + ".dir")
+        np.savez(p.gt_path(N_QUERIES), ids=env["gt"])
+        np.savez(p.gt_path(2048), ids=env["gt"][:2048])
+        # the knn16 graph as rebuild_r3_cache makes it: the engine's
+        # self-search on a csub-1 upload of the v1024 index (K7)
+        from seismic_tpu_torch.search import knn as knn_mod
 
-        def rel_err(k, p):
-            return float(((k - p).abs() / p.abs().clamp_min(1e-30)).max())
-
-        # K4 (item-major) and K2 (slot-major): int dots exact, 1e-6
-        a4 = (tiles, tscale, q8, wr, wg, CSUB)
-        a2 = (tiles, tscale, q8, wr, wg, ws, LLMAX, CSUB)
-        ones = torch.ones_like(tscale)
-        dots = grouped_scorer.grouped_dots_plain(
-            tiles, q8, wr[:W], wg[:W], rows_per_item=ROWS).to(torch.float32)
-        k4o = grouped_scorer_item.score_grouped_i8_item(*a4)[:W]
-        p4o = grouped_scorer_item.score_grouped_i8_item_plain(*a4)[:W]
-        d4 = grouped_scorer_item.score_grouped_i8_item(
-            tiles, ones, *a4[2:])[:W]
-        k2o = covered(grouped_scorer.score_grouped_i8(*a2))
-        p2o = covered(grouped_scorer.score_grouped_i8_plain(*a2))
-        d2 = covered(grouped_scorer.score_grouped_i8(tiles, ones, *a2[2:]))
-        checks = {"score_grouped_i8_item": (rel_err(k4o, p4o),
-                                            torch.equal(d4, dots),
-                                            (k4o - p4o).abs().max()),
-                  "score_grouped_i8": (rel_err(k2o, p2o),
-                                       torch.equal(d2, dots),
-                                       (k2o - p2o).abs().max())}
-        del k4o, p4o, d4, k2o, p2o, d2, dots
-        for name, (rel, dots_ok, _) in checks.items():
-            if not (dots_ok and rel <= 1e-6):
-                fail(f"phase 6b V {V}: {name} disagrees with its plain "
-                     f"version (int dots equal {dots_ok}, max rel err {rel})")
-        # K6, bf16 centred (as the search calls it): 1e-5 of the larger of
-        # the score and the centring term
-        a6 = (tiles, tscale, qf, qsum, wr, wg, ws, LLMAX, CSUB, "bf16")
-        k6o = covered(grouped_scorer_f.score_grouped_f(*a6))
-        p6o = covered(grouped_scorer_f.score_grouped_f_plain(*a6))
-        mag = (qsum[wgl][:, :, None]
-               * tscale[wr[:W].long()[:, None] * ROWS
-                        + torch.arange(ROWS, device=dev)][:, None, :])
-        err6 = (k6o - p6o).abs()
-        tol6 = 1e-5 * torch.maximum(mag.abs(), p6o.abs())
-        if not (err6 <= tol6).all():
-            fail(f"phase 6b V {V}: score_grouped_f disagrees, max abs err "
-                 f"{err6.max().item()}")
-        checks["score_grouped_f"] = (
-            float((err6 / tol6.clamp_min(1e-30)).max()), True, err6.max())
-        del k6o, p6o, err6, tol6, mag
-
-        # library yardstick of the int8 scorers: one int8 tensor-core
-        # product of the same operation count over the same gathered rows
-        rows = (wr[:W].long()[:, None] * ROWS
-                + torch.arange(ROWS, device=dev)).reshape(-1)
-        A = tiles[rows].view(torch.int8)
-        lib_i8 = time_ms(lambda: torch._int_mm(A, q8[0].t()), 10)
-        del A
-        Ab = tiles[rows].to(torch.bfloat16)
-        lib_bf16 = time_ms(lambda: torch.matmul(
-            Ab, qf[0].t().to(torch.bfloat16).contiguous()), 10)
-        del Ab, rows
-        for name, src, row, fn, plain, args, by, peak, lib, lib_name in (
-                ("score_grouped_i8_item", "grouped_scorer_item.cu", 326,
-                 grouped_scorer_item.score_grouped_i8_item,
-                 grouped_scorer_item.score_grouped_i8_item_plain, a4,
-                 tile_bytes + G * M * V + W * 8 + W * M * ROWS * 4,
-                 PEAK_INT8, lib_i8, "torch._int_mm"),
-                ("score_grouped_i8", "grouped_scorer.cu", 231,
-                 grouped_scorer.score_grouped_i8,
-                 grouped_scorer.score_grouped_i8_plain, a2,
-                 tile_bytes + G * M * V + W * 12 + W * M * ROWS * 4,
-                 PEAK_INT8, lib_i8, "torch._int_mm"),
-                ("score_grouped_f", "grouped_scorer_f.cu", 32,
-                 grouped_scorer_f.score_grouped_f,
-                 grouped_scorer_f.score_grouped_f_plain, a6,
-                 tile_bytes + G * M * V * 4 + G * M * 4 + W * 12
-                 + W * M * ROWS * 4, PEAK_BF16, lib_bf16, "torch.matmul")):
-            b_ms, b_by = bound(by, ops, peak)
-            err, _, abs_err = checks[name]
-            lib_key = {"score_grouped_i8_item": "grouped_scorer_item",
-                       "score_grouped_i8": "grouped_scorer",
-                       "score_grouped_f": "grouped_scorer_f"}[name]
-            window = f"v{V}_" + {"score_grouped_i8_item": "k4",
-                                 "score_grouped_i8": "k2",
-                                 "score_grouped_f": "k6"}[name]
-            kr = dict(
-                name=f"{name}@V{V}", route="cuda",
-                source=f"seismic_tpu_torch/csrc/{src}",
-                replaces=f"seismic_tpu/ops/pallas_grouped.py:{row}",
-                max_abs_err=float(abs_err), ms=time_ms(lambda: fn(*args), 10),
-                plain_ms=time_ms(lambda: plain(*args), 2),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library=lib_name, V=V, csub=CSUB, M=M, W=W, G=G,
-                distinct_super_tiles=n_regions, bytes=by, ops=ops,
-                window=window, ptxas=ptx_lines[lib_key],
-                **({"max_rel_err": err} if name != "score_grouped_f"
-                   else {"max_err_over_tol": err}))
-            out.append(kr)
-            log(f"phase 6b V {V}: {name}: ok (max abs err "
-                f"{kr['max_abs_err']:.3g}), {kr['ms']:.4f} ms (bound "
-                f"{b_ms:.4f} ms by {b_by}, plain {kr['plain_ms']:.3f} ms, "
-                f"{lib_name} {lib:.4f} ms)")
-        rec[f"v{V}"] = dict(narrow_s=t1 - t0, upload_s=t2 - t1,
-                            device_index_bytes=dv.nbytes(), G=G, W=W,
-                            runs=runs)
-        log(f"phase 6b V {V}: narrow_vocab {t1 - t0:.1f} s, upload "
-            f"{t2 - t1:.1f} s")
-        del dv, tiles, tscale, q8, qf, qsum, a2, a4, a6, dp
+        ix1 = env["full"].to_device(dev)
+        graph16 = window("knn16", lambda: knn_mod.build_knn(
+            env["full"], ix1, 16, batch_size=1024))
+        knn_mod.save_knn(graph16, p.index_base + ".knn16")
+        need("knn16", "score_tiles")
+        del ix1, graph16
         gc.collect()
         torch.cuda.empty_cache()
+        rec["cache_s"] = time.time() - t0
+
+        # ---- (b) the queue at its cut (a cache of its own):
+        # c100k (the corpus, index, ground truth, 1024 subset, _nw512,
+        # _nw768, knn16: K7), then r5b_grid2 ----
+        t0 = time.time()
+        qdir = os.path.join(OUT_DIR, "r5queue")
+        qcache = os.path.join(cache, "queue")
+        r = subprocess.run(
+            ["bash", QUEUE, "c100k", "r5b_grid2"],
+            env=dict(os.environ, CACHE_DIR=qcache, LOGDIR=qdir,
+                     PYTHON=sys.executable,
+                     BENCH_N_DOCS=str(QUEUE_CUT_DOCS),
+                     BENCH_N_QUERIES=str(QUEUE_CUT_QUERIES)),
+            capture_output=True, text=True, timeout=900)
+        rec["queue_s"] = time.time() - t0
+        qlog = open(os.path.join(qdir, "queue.log")).read()
+        c100k_log = open(os.path.join(qdir, "c100k.log")).read()
+        if r.returncode != 0 or any(f"stage {st}: OK" not in qlog
+                                    for st in ("c100k", "r5b_grid2")):
+            fail(f"phase 14 queue: rc {r.returncode}\n{qlog}\n{r.stderr}"
+                 f"\n{c100k_log[-2000:]}")
+        built = re.findall(r"done, built \[(.*)\]", c100k_log)
+        if not built or any(b_ not in built[-1] for b_ in (
+                "docs", "index", "gt", "nw512", "nw768", "knn16")):
+            fail(f"phase 14 c100k built {built}, not the whole cache")
+        # the queue's record, beside its logs: the full-size run below
+        # writes its own
+        rpath = os.path.join(OUT_DIR, "bench_stage_r5.json")
+        with open(rpath) as f:
+            qrows = [r_["label"] for r_ in json.load(f)["rungs"]]
+        os.replace(rpath, os.path.join(qdir, "bench_stage_r5.json"))
+        if len(qrows) != 4:
+            fail(f"phase 14 queue: r5b_grid2 wrote {qrows}")
+        rec["queue"] = dict(built=built[-1], grid2=qrows)
+        log(f"phase 14 queue ({QUEUE_CUT_DOCS} docs, {QUEUE_CUT_QUERIES} "
+            f"queries): c100k and r5b_grid2 OK in {rec['queue_s']:.1f} s; "
+            f"c100k built [{built[-1]}]")
+
+        # ---- (c) probe_r5b at full size in this process: every family,
+        # m32 and csub4 each in a counted window of its own ----
+        r5b = {}
+        for key, fams in (("r5b", [f for f in probe_r5b.FAMILIES
+                                   if f not in ("m32", "csub4")]),
+                          ("r5b_m32", ["m32"]), ("r5b_csub4", ["csub4"])):
+            r5b[key] = window(key, lambda f_=fams: probe_r5b.main(
+                f_ + ["--cache-dir", cache]))
+        need("r5b", "qloc", "score_grouped_i8_item", "rescore",
+             "qloc_rowmajor", "pack_epilogue", "score_grouped_i8")
+        need("r5b_m32", "score_grouped_i8_item")
+        need("r5b_csub4", "score_grouped_i8_item", "pack_epilogue")
+        with open(os.path.join(OUT_DIR, "bench_stage_r5.json")) as f:
+            rows = {r_["label"]: r_ for r_ in json.load(f)["rungs"]}
+        if len(rows) != R5B_RUNGS:
+            fail(f"phase 14 r5b: {len(rows)} rungs recorded, not "
+                 f"{R5B_RUNGS}: {sorted(rows)}")
+        low = {lb: (rows[lb]["recall_at_10"], ref) for lb, ref in
+               R5B_JAX_RECALL.items()
+               if not rows[lb]["recall_at_10"] >= ref - R5B_RECALL_TOL}
+        if low:
+            fail(f"phase 14 r5b: recall@10 under JAX's less "
+                 f"{R5B_RECALL_TOL}: {low}")
+        for lb, kern in (("m32_hier_qc13_p96r64", "score_grouped_i8_item"),
+                         ("csub4_hier_qc13_p96r64", "score_grouped_i8_item"),
+                         ("csub4_stride8_qc13_p96r64", "pack_epilogue"),
+                         ("b1_exact_ddpost_u1", "score_grouped_i8"),
+                         ("rowmajor_qloc_qc13_p96r64", "qloc_rowmajor"),
+                         ("knn16top4_qc12_p96r64", "rescore")):
+            if not rows[lb]["launches"].get(kern, 0) > 0:
+                fail(f"phase 14 r5b: {lb} launched no {kern}: "
+                     f"{rows[lb]['launches']}")
+        # the driver adds nothing: its base rung is a direct call's
+        gc16, wc16 = plan_caps(env["q_comps"], env["q_vals"], env["ctx"], 13,
+                               M=16)
+        _, i_d = search_grouped_derive(
+            env["dindex"], env["qcB"], env["qvB"], probe_r5b.base_params(),
+            13, 16, gc16, wc16, env["ctx"].zero_region)
+        if not np.array_equal(i_d.cpu().numpy(),
+                              r5b["r5b"]["ids"]["base_hier_qc13_p96r64"]):
+            fail("phase 14 r5b: the base rung's ids differ from a direct "
+                 "search_grouped_derive call's")
+        rec["r5b"] = {lb: {k_: r_.get(k_) for k_ in (
+            "recall_at_10", "ms_per_batch", "qps", "ms_per_call", "csub",
+            "M", "launches", "stage_ms_cum", "flagged")}
+            for lb, r_ in rows.items()}
+        log("phase 14 r5b: " + json.dumps(
+            {lb: (r_.get("recall_at_10"), r_.get("qps") or
+                  r_.get("ms_per_call")) for lb, r_ in rows.items()}))
+
+        # ---- (d) K4, K2 and K6 at M 32 (phase 4's csub-2 index) and at
+        # csub 4 (the same arrays uploaded with tile_csub=4) ----
+        fenv = dict(env, gt=env["gt"][:256])
+        krs += scorer_forms(env["dindex"], env["ctx"], 32, CSUB, "M32",
+                            "m32", fenv, dev, record, "phase 14")[0]
+        dv4 = env["arrays"].to_device(dev, tile_csub=4)
+        ctx4 = PlannerContext.from_arrays(env["arrays"], csub=4)
+        krs += scorer_forms(dv4, ctx4, BIG_M, 4, "csub4", "csub4", fenv,
+                            dev, record, "phase 14")[0]
+        del dv4, ctx4
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (e) probe_r5c at its cut: the 1m cache, the lever family,
+        # then lean16 on the half-width rows (K3's f16 form) ----
+        c5 = os.path.join(cache, "r5c")
+        t0 = time.time()
+        built5 = rebuild_r3_cache.main(["1m", "--n-docs", str(R5C_CUT_DOCS),
+                                        "--cache-dir", c5])["built"]
+        rec["r5c_cache_s"] = time.time() - t0
+        with env_vars(BENCH_N_DOCS=str(R5C_CUT_DOCS)):
+            o5 = window("r5c", lambda: probe_r5c.main(
+                [str(V0), "lever", "--cache-dir", c5]))
+            with env_vars(R5C_FWD16="1"):
+                o16 = window("r5c_lean16", lambda: probe_r5c.main(
+                    [str(V0), "lean16", "--cache-dir", c5]))
+        need("r5c", "qloc", "score_grouped_i8_item", "rescore")
+        need("r5c_lean16", "qloc", "score_grouped_i8_item", "rescore_f16")
+        rows5 = o5["rows"] + o16["rows"]
+        if len(rows5) != 8 or not all(
+                0.5 < r_["recall_at_10"] <= 1.0 for r_ in rows5):
+            fail(f"phase 14 r5c: {rows5}")
+        rec["r5c"] = dict(built=built5, device_bytes=o5["device_bytes"],
+                          rows=rows5)
+        log(f"phase 14 r5c ({R5C_CUT_DOCS} docs): " + json.dumps(
+            {r_["label"]: (r_["recall_at_10"], r_["qps"]) for r_ in rows5}))
+
+        # ---- (f) probe_r3j at its cut on build_88m's cache ----
+        c88 = os.path.join(cache, "b88")
+        t0 = time.time()
+        build_88m.build(n_docs=R3J_CUT_DOCS, cache_dir=c88)
+        rec["b88_s"] = time.time() - t0
+        with env_vars(B88_N_DOCS=str(R3J_CUT_DOCS)):
+            o3 = window("r3j", lambda: probe_r3j.main(
+                [str(V0), "--cache-dir", c88]))
+        need("r3j", "qloc", "rescore_u8")
+        if not (windows["r3j"]["score_grouped_i8_item"]
+                or windows["r3j"]["score_grouped_i8"]):
+            fail(f"phase 14 r3j: no int8 scorer launched: {windows['r3j']}")
+        if len(o3["rows"]) != 8 or not all(
+                0.5 < r_["recall_at_10"] <= 1.0 for r_ in o3["rows"]):
+            fail(f"phase 14 r3j: {o3['rows']}")
+        rec["r3j"] = dict(device_bytes=o3["device_bytes"], rows=o3["rows"])
+        log(f"phase 14 r3j ({R3J_CUT_DOCS} docs): " + json.dumps(
+            [(r_["qc"], r_["pool"], r_["recall_at_10"], r_["qps"])
+             for r_ in o3["rows"]]))
+
+        # ---- (g) the sweep on the v1024 index with the graph of (a) ----
+        srows = window("sweep", lambda: sweep_configs.main(
+            ["--index", p.index_base + ".dir", "--gt", p.gt_path(2048),
+             "--reps", str(SWEEP_REPS)]))
+        need("sweep", "qloc", "score_grouped_i8", "rescore")
+        names = sorted(os.listdir(os.path.join(OUT_DIR, "grid_synth")))
+        committed = sorted(os.listdir(os.path.join(ROOT, "experiments",
+                                                   "grid_synth")))
+        if names != committed or not all(
+                0.5 < r_["recall_at_10"] <= 1.0 for r_ in srows):
+            fail(f"phase 14 sweep: directories {names} against {committed};"
+                 f" {srows}")
+        rec["sweep"] = srows
+        log("phase 14 sweep: " + json.dumps(
+            [(r_["query_cut"], r_["n_knn"], round(r_["recall_at_10"], 4),
+              round(r_["us_per_query"], 2)) for r_ in srows]))
+
+    after = {f: tree_digest(os.path.join(ROOT, f)) for f in JAX_RECORDS}
+    if after != before:
+        fail(f"phase 14: a JAX record at the repo root changed: {before} -> "
+             f"{after}")
     rec["phase_s"] = time.time() - t_phase
-    log(f"phase 6b: {rec['phase_s']:.1f} s")
-    return out
+    log(f"phase 14: {rec['phase_s']:.1f} s ({json.dumps({k_: round(v, 1) for k_, v in rec.items() if k_.endswith('_s')})})")
+    return krs
 
 
 # ---- phase 10: the rest of the grouped search ----
@@ -3842,9 +4239,9 @@ def dotvbyte_rest_path(env, dev, record) -> dict:
 # sparse head emits over, at local vocabularies 512 wide
 LV_DIM, LV_V = 250_002, 512
 # phase 11d's documents: cut from the cells' 100,000 to keep the script,
-# with phases 12 and 13, inside its time limit; its aligned tiles (a 16.4
-# GB floor) and the kernels' shapes do not depend on the count
-LV_DOCS = 10_000
+# with phases 12-14, inside its time limit; its aligned tiles (a 16.4 GB
+# floor) and the kernels' shapes do not depend on the count
+LV_DOCS = 2_000
 # K3's tolerance against its plain version (phases 2 and 9)
 K3_RTOL = 1e-5
 # the cand_budget values of phase 11c
@@ -4594,13 +4991,13 @@ def lv_residue_path(arrays, plan, qct, qvt, gt, docs, r_plain, k1, dev,
 
 
 def aligned_cache_path(env, dev, record) -> None:
-    """Phase 4's aligned-tile cache: the index saved in a temporary
-    directory, `load_or_build_aligned` beside it twice (build and write,
-    then memory-mapped), an upload from the cache equal to the plain
-    upload, one B=4096 call on it equal to the plain upload's bit for
-    bit; the directory removed."""
-    import shutil
-    import tempfile
+    """Phase 4's aligned-tile cache: the index saved (its graph left out)
+    as env's `index_dir`, phase 14's `_nw512` dir, `load_or_build_aligned`
+    beside it twice (build and write, then memory-mapped), an upload from
+    the cache equal to the plain upload, one B=4096 call on it equal to
+    the plain upload's bit for bit. Phase 14's drivers read the dir and
+    its cache; its temporary directory removes both."""
+    import dataclasses
 
     import torch
 
@@ -4612,30 +5009,26 @@ def aligned_cache_path(env, dev, record) -> None:
 
     rec = record.setdefault("aligned_cache", {})
     arrays, dindex, ctx = env["arrays"], env["dindex"], env["ctx"]
-    tmp = tempfile.mkdtemp(prefix="aligned_cache")
-    try:
-        idx = os.path.join(tmp, "headline.dir")
-        t0 = time.perf_counter()
-        arrays.save_dir(idx)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        load_or_build_aligned(arrays, idx, CSUB)
-        first_s = time.perf_counter() - t0
-        cdir = os.path.join(tmp, f"headline.aligned_c{CSUB}.dir")
-        written = {f: os.path.getsize(os.path.join(cdir, f))
-                   for f in sorted(os.listdir(cdir))}
-        t0 = time.perf_counter()
-        cached = load_or_build_aligned(arrays, idx, CSUB)
-        second_s = time.perf_counter() - t0
-        if not isinstance(cached[0].base, np.memmap):
-            fail("phase 4: the second cache call did not map the files")
-        t0 = time.perf_counter()
-        cindex = arrays.to_device(dev, tile_csub=CSUB, aligned=cached)
-        torch.cuda.synchronize()
-        upload_s = time.perf_counter() - t0
-        del cached
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    idx = env["index_dir"]
+    t0 = time.perf_counter()
+    dataclasses.replace(arrays, knn=None).save_dir(idx)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_or_build_aligned(arrays, idx, CSUB)
+    first_s = time.perf_counter() - t0
+    cdir = idx[:-len(".dir")] + f".aligned_c{CSUB}.dir"
+    written = {f: os.path.getsize(os.path.join(cdir, f))
+               for f in sorted(os.listdir(cdir))}
+    t0 = time.perf_counter()
+    cached = load_or_build_aligned(arrays, idx, CSUB)
+    second_s = time.perf_counter() - t0
+    if not isinstance(cached[0].base, np.memmap):
+        fail("phase 4: the second cache call did not map the files")
+    t0 = time.perf_counter()
+    cindex = arrays.to_device(dev, tile_csub=CSUB, aligned=cached)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del cached
     if not (torch.equal(cindex.doc_tiles_aligned, dindex.doc_tiles_aligned)
             and torch.equal(cindex.tile_scale, dindex.tile_scale)
             and torch.equal(cindex.list_region_start,
@@ -4686,7 +5079,7 @@ def brute_top10(ds, qct, qvt, nq: int, dim: int, dev):
 
 # phase 12: document shards, and the docs of (c)'s cut of the corpus (cut
 # for the time limit)
-SHARDS, BLOCK_CUT = 4, 10_000
+SHARDS, BLOCK_CUT = 4, 5_000
 
 
 def sharded_path(ds, dev, record) -> None:
@@ -5270,7 +5663,7 @@ CLI_RECALL_FLOORS = {"recall_97": 0.962, "recall_98": 0.97}
 # documents of the cut corpora of 13, for the time limit: the grid's (d,
 # e, g) and the JSONL's (f: the enhanced build's default layout makes it
 # the slowest step per document)
-CLI_CUT_DOCS, CLI_JSONL_DOCS = 10_000, 2_000
+CLI_CUT_DOCS, CLI_JSONL_DOCS = 5_000, 2_000
 
 
 def _cli_toml(name: str, tmp: str, data: str, extra_query: str = "") -> str:

@@ -31,8 +31,8 @@
 // bf16 (the lower half is 0), and one __byte_perm packs two such halves.
 //
 // Layout. The block is 256 threads, 8 warps; warp w owns tile rows
-// [w * RW, (w + 1) * RW), RW = kRows / 8 (16 or 32: one or two m16 tiles),
-// and all kM query slots (one or two n8 tiles). A warp streams its rows
+// [w * RW, (w + 1) * RW), RW = kRows / 8 (16 a subtile: csub m16 tiles),
+// and all kM query slots (kM / 8 n8 tiles). A warp streams its rows
 // through a private ring of shared memory (kStages * 64 bytes a row),
 // filled with 16-byte cp.async (L2 only, .cg) a stage at a time; a stage
 // holds kSlicesPerStage k-slices of 64 bytes, each slice its RW rows at a
@@ -66,6 +66,7 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 constexpr int kMmaThreads = 256;
 constexpr int kMmaWarps = kMmaThreads / 32;
@@ -77,6 +78,13 @@ constexpr int kMaxSmemBytes = 232448;
 // V is a multiple of this: every policy streams whole 128-byte stages (K6
 // two 64-byte slices a stage), and JAX's kernel asks V % 128 == 0
 constexpr int kVAlign = 128;
+constexpr int kSubRows = 128;  // rows of a subtile; an item holds csub
+// The shapes every scorer takes: M query slots a multiple of 8 up to
+// kMaxM, csub subtiles an item up to kMaxCsub, each pair its own template
+// instance. JAX's kernel asks only M % 8 == 0 (pallas_grouped.py:76); no
+// code or record of the repo goes past M 32 or csub 4.
+constexpr int kMaxM = 32;
+constexpr int kMaxCsub = 4;
 
 // bytes of dynamic shared memory a block needs: the warps' rings, then
 // the group's queries, q_bytes a query value
@@ -92,6 +100,50 @@ __host__ __device__ constexpr int mma_max_v(int m, int rows, int q_bytes) {
              ? 0
              : (kMaxSmemBytes - mma_ring_smem(0, rows, 0, 0)) /
                    (m * q_bytes) / kVAlign * kVAlign;
+}
+
+// Blocks an SM the kernel of kM slots, kRows rows and operand policy Op is
+// compiled for (its __launch_bounds__): 2, so at most 128 registers a
+// thread, or 1, so up to 255, by the policy's min_blocks of the registers
+// that grow with the shape: a warp's MT x NT accumulator fragments and its
+// NT x kParts query fragments, 4 each. Every shape up to M 16 and csub 2
+// takes 2 in both policies.
+template <int kM, int kRows, class Op>
+struct MmaMinBlocks {
+  static constexpr int kAcc = (kRows / kSubRows) * (kM / 8) * 4;
+  static constexpr int kQFrag = (kM / 8) * Op::kParts * 4;
+  static constexpr int value = Op::min_blocks(kAcc, kQFrag);
+};
+
+__host__ __device__ constexpr bool mma_shape_ok(int m, int csub) {
+  return m % 8 == 0 && m >= 8 && m <= kMaxM && csub >= 1 && csub <= kMaxCsub;
+}
+
+// f(integral_constant<kM>, integral_constant<kRows>) at the pair (M, csub)
+// (kRows = csub * 128), the launch of that pair's instance; an error code
+// for a pair past the caps.
+template <int kM, class F>
+int dispatch_csub(int csub, F& f) {
+  using M = std::integral_constant<int, kM>;
+  switch (csub) {
+    case 1: return f(M{}, std::integral_constant<int, kSubRows>{});
+    case 2: return f(M{}, std::integral_constant<int, 2 * kSubRows>{});
+    case 3: return f(M{}, std::integral_constant<int, 3 * kSubRows>{});
+    case 4: return f(M{}, std::integral_constant<int, 4 * kSubRows>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <class F>
+int dispatch_shape(int M, int csub, F&& f) {
+  static_assert(kMaxM == 32 && kMaxCsub == 4, "the cases below");
+  switch (M) {
+    case 8: return dispatch_csub<8>(csub, f);
+    case 16: return dispatch_csub<16>(csub, f);
+    case 24: return dispatch_csub<24>(csub, f);
+    case 32: return dispatch_csub<32>(csub, f);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Above 48 KB a launch needs the kernel's opt-in, once per device; `done`
@@ -167,6 +219,12 @@ struct MmaU8S8 {
   static constexpr int kSlicesPerStage = 1;
   using Acc = int;
 
+  // no spill at 2 blocks an SM up to 64 such registers (ptxas: M 32 x
+  // csub 3, at 64, takes 110 registers)
+  static constexpr int min_blocks(int acc, int qfrag) {
+    return acc + qfrag <= 64 ? 2 : 1;
+  }
+
   // s_q[ks][m][64] <- qg[m, ks * 64 .. + 64)
   template <int kM>
   __device__ __forceinline__ void stage(const int8_t* __restrict__ qg,
@@ -198,6 +256,13 @@ struct MmaBf16 {
   static constexpr int kSlicesPerStage = 2;
   using Acc = float;
   float sub;  // 2^23 + off
+
+  // each accumulator register costs about two (its slice's fresh fragment
+  // and the conversions): ptxas spilled at 128 registers from M 16 x csub 4
+  // and M 32 x csub 2 in bf16 mode, and not below 2 * acc + qfrag / 2 = 64
+  static constexpr int min_blocks(int acc, int qfrag) {
+    return 2 * acc + qfrag / 2 <= 64 ? 2 : 1;
+  }
 
   // bytes j, j + 1 of w, each less off, as a bf16x2 (byte j low)
   template <int J>

@@ -9,7 +9,7 @@
 // and tile rows R0 = work_region[w] * ROWS .. R0 + ROWS - 1:
 //   out[g, m, s*ROWS + r] = (float)(sum_v q[g, m, v] * u8[R0 + r, v])
 //                           * tile_scale[R0 + r]
-// for the group's M query slots (8 or 16). The dot is exact int32; the
+// for the group's M query slots (a multiple of 8 up to 32; csub up to 4). The dot is exact int32; the
 // per-pair scale is applied later, in the regroup (search/grouped.py), in
 // the same order as the JAX program: (f32(dot) * tile_scale) * pair_scale.
 // With pack_idx the block goes through the packed epilogue instead and
@@ -44,7 +44,8 @@ constexpr int kSub = 128;  // rows per subtile
 // kPack: the packed epilogue, a compile-time choice so that the plain
 // store's kernel carries none of its code
 template <int kM, int kRows, bool kPack>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(
+    kMmaThreads, (MmaMinBlocks<kM, kRows, MmaU8S8>::value))
 score_grouped_i8_kernel(const uint8_t* __restrict__ tiles,    // [rows, V]
                         const float* __restrict__ tile_scale,  // [rows]
                         const int8_t* __restrict__ q,          // [G_cap, kM, V]
@@ -117,12 +118,15 @@ int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
 extern "C" {
 
 // The widest V at M query slots and csub: the warps' rings plus the [M, V]
-// int8 queries within 227 KB of shared memory, V a multiple of 128.
+// int8 queries within 227 KB of shared memory, V a multiple of 128; 0 for
+// a pair past the shapes the library takes.
 int seismic_score_grouped_i8_max_v(int M, int csub) {
-  return mma_max_v(M, csub * kSub, MmaU8S8::kParts);
+  return mma_shape_ok(M, csub) ? mma_max_v(M, csub * kSub, MmaU8S8::kParts)
+                               : 0;
 }
 
-// M 8 or 16; csub 1 or 2; V a multiple of 128 up to the cap above; ll_max
+// M a multiple of 8 up to 32; csub 1 to 4; V a multiple of 128 up to the
+// cap above; ll_max
 // a multiple of csub * 128. pack_window 0 writes f32 [G_cap, M, ll_max];
 // pack_window >= 1 writes the packed int32 [G_cap, M, ll_max / pack_window]
 // with idx_mask = 2^idx_bits - 1.
@@ -137,24 +141,12 @@ int seismic_score_grouped_i8(const uint8_t* tiles, const float* tile_scale,
     if (V <= 0 || V % kVAlign != 0 ||
         V > seismic_score_grouped_i8_max_v(M, csub)) {
       rc = static_cast<int>(cudaErrorInvalidValue);
-    } else if (M == 8 && csub == 1) {
-      rc = launch<8, kSub>(tiles, tile_scale, q, work_region, work_g, work_s,
-                           W_cap, V, ll_max, idx_mask, pack_window, out,
-                           stream);
-    } else if (M == 8 && csub == 2) {
-      rc = launch<8, 2 * kSub>(tiles, tile_scale, q, work_region, work_g,
-                               work_s, W_cap, V, ll_max, idx_mask,
-                               pack_window, out, stream);
-    } else if (M == 16 && csub == 1) {
-      rc = launch<16, kSub>(tiles, tile_scale, q, work_region, work_g, work_s,
-                            W_cap, V, ll_max, idx_mask, pack_window, out,
-                            stream);
-    } else if (M == 16 && csub == 2) {
-      rc = launch<16, 2 * kSub>(tiles, tile_scale, q, work_region, work_g,
-                                work_s, W_cap, V, ll_max, idx_mask,
-                                pack_window, out, stream);
     } else {
-      rc = static_cast<int>(cudaErrorInvalidValue);
+      rc = dispatch_shape(M, csub, [&](auto m, auto rows) {
+        return launch<decltype(m)::value, decltype(rows)::value>(
+            tiles, tile_scale, q, work_region, work_g, work_s, W_cap, V,
+            ll_max, idx_mask, pack_window, out, stream);
+      });
     }
     if (rc != 0) return rc;
   }

@@ -32,7 +32,7 @@
 //
 // Design: one 256-thread block per work item runs score_item_ring
 // (grouped_i8_mma.cuh, the tile body of K4 and K2) with the bf16 policy:
-// each warp streams its 16 or 32 rows, 128 bytes of each a stage, through
+// each warp streams its 16 x csub rows, 128 bytes of each a stage, through
 // a 2-stage cp.async ring and multiplies them on the bf16 tensor cores
 // (mma.sync m16n8k16, f32 accumulators) against the group's queries,
 // staged once a block as bf16 in the rings' k order. Tile bytes are
@@ -59,7 +59,8 @@ constexpr float kTwo23 = 8388608.0f;
 // kTerms: 1 in bf16 mode, 3 in f32 mode. kPack: the packed epilogue. Both
 // compile-time, so that each kernel carries only its own code.
 template <int kM, int kRows, int kTerms, bool kPack>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(
+    kMmaThreads, (MmaMinBlocks<kM, kRows, MmaBf16<kTerms>>::value))
 score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                        const float* __restrict__ tile_scale,  // [rows]
                        const float* __restrict__ q,           // [G_cap, kM, V]
@@ -100,7 +101,7 @@ score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
 
 int max_v(int M, int csub, int terms) {
   // 2 * terms: MmaBf16<terms>::kParts, bytes a query value
-  return mma_max_v(M, csub * kSub, 2 * terms);
+  return mma_shape_ok(M, csub) ? mma_max_v(M, csub * kSub, 2 * terms) : 0;
 }
 
 template <int kM, int kRows, int kTerms, bool kPack>
@@ -161,12 +162,14 @@ extern "C" {
 
 // The widest V at M query slots and csub: the warps' rings plus the [M, V]
 // queries (bf16, or three bf16 terms in f32 mode) within 227 KB of shared
-// memory, V a multiple of 128.
+// memory, V a multiple of 128; 0 for a pair past the shapes the library
+// takes.
 int seismic_score_grouped_f_max_v(int M, int csub, int round_bf16) {
   return max_v(M, csub, round_bf16 ? 1 : 3);
 }
 
-// M 8 or 16; csub 1 or 2; V a multiple of 128 up to the cap above; ll_max a
+// M a multiple of 8 up to 32; csub 1 to 4; V a multiple of 128 up to the
+// cap above; ll_max a
 // multiple of csub * 128; qsum f32 [G_cap, M] or null (the fixup form).
 // round_bf16 != 0 rounds the queries to bf16, 0 splits them into three bf16
 // terms (f32 mode). pack_window 0 writes f32 [G_cap, M, ll_max];
@@ -184,24 +187,12 @@ int seismic_score_grouped_f(const uint8_t* tiles, const float* tile_scale,
     if (V <= 0 || V % kVAlign != 0 ||
         V > seismic_score_grouped_f_max_v(M, csub, round_bf16)) {
       rc = static_cast<int>(cudaErrorInvalidValue);
-    } else if (M == 8 && csub == 1) {
-      rc = launch<8, kSub>(tiles, tile_scale, q, qsum, work_region, work_g,
-                           work_s, W_cap, V, ll_max, round_bf16, idx_mask,
-                           pack_window, out, stream);
-    } else if (M == 8 && csub == 2) {
-      rc = launch<8, 2 * kSub>(tiles, tile_scale, q, qsum, work_region,
-                               work_g, work_s, W_cap, V, ll_max, round_bf16,
-                               idx_mask, pack_window, out, stream);
-    } else if (M == 16 && csub == 1) {
-      rc = launch<16, kSub>(tiles, tile_scale, q, qsum, work_region, work_g,
-                            work_s, W_cap, V, ll_max, round_bf16, idx_mask,
-                            pack_window, out, stream);
-    } else if (M == 16 && csub == 2) {
-      rc = launch<16, 2 * kSub>(tiles, tile_scale, q, qsum, work_region,
-                                work_g, work_s, W_cap, V, ll_max, round_bf16,
-                                idx_mask, pack_window, out, stream);
     } else {
-      rc = static_cast<int>(cudaErrorInvalidValue);
+      rc = dispatch_shape(M, csub, [&](auto m, auto rows) {
+        return launch<decltype(m)::value, decltype(rows)::value>(
+            tiles, tile_scale, q, qsum, work_region, work_g, work_s, W_cap,
+            V, ll_max, round_bf16, idx_mask, pack_window, out, stream);
+      });
     }
     if (rc != 0) return rc;
   }

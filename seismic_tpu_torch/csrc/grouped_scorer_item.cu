@@ -33,7 +33,7 @@
 // CUDA-core issue, above the byte bound.
 //
 // Design: one 256-thread block per work item runs score_item_mma
-// (grouped_i8_mma.cuh): each warp streams its 16 or 32 rows in 64-byte
+// (grouped_i8_mma.cuh): each warp streams its 16 x csub rows in 64-byte
 // k-slices through a 4-stage cp.async ring (bank-conflict-free 64-byte
 // pitch) and multiplies them on the tensor cores (mma.sync m16n8k32, u8 x
 // s8 -> s32) against the group's queries, staged once in shared memory;
@@ -44,7 +44,9 @@
 // that 227 KB of shared memory leaves (seismic_score_grouped_i8_item_max_v);
 // the launch sizes the query staging to V. One instance takes V at run
 // time; the headline's M 16 at V 512 keeps an instance of its own, which
-// read faster there (PERF.md §6).
+// read faster there (PERF.md §6). Every M % 8 == 0 up to 32 and csub up to
+// 4 has its instance (dispatch_shape); at csub >= 3 the rings alone take
+// 96-128 KB, so one block holds an SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,7 +62,8 @@ constexpr int kSub = 128;  // rows per subtile
 // store's kernel carries none of its code. kV > 0 fixes the tile width at
 // compile time; kV = 0 takes it from v_arg, any multiple of 128.
 template <int kM, int kRows, int kV, bool kPack>
-__global__ void __launch_bounds__(kMmaThreads, 2)
+__global__ void __launch_bounds__(
+    kMmaThreads, (MmaMinBlocks<kM, kRows, MmaU8S8>::value))
 score_item_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                   const float* __restrict__ tile_scale,  // [rows]
                   const int8_t* __restrict__ q,          // [G_cap, kM, V]
@@ -129,13 +132,13 @@ int launch_v(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
 // Timed in turns with one instance for every V (NVIDIA H100 80GB HBM3,
 // 700.00 W; harness/scorer_timing.py), the V 512 instance read faster at
 // the headline's B=16384 / M 16 and slower at B=4096 / M 8, so only M 16
-// at V 512 takes it.
+// at V 512 (csub 1 and 2) takes it.
 template <int kM, int kRows>
 int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
            const int* work_region, const int* work_g, const int* work_s,
            int W_cap, int V, int idx_mask, int pack_window, void* out,
            cudaStream_t stream) {
-  if constexpr (kM == 16) {
+  if constexpr (kM == 16 && kRows <= 2 * kSub) {
     if (V == 512) {
       return launch_v<kM, kRows, 512>(tiles, tile_scale, q, work_region,
                                       work_g, work_s, W_cap, V, idx_mask,
@@ -152,12 +155,15 @@ int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
 extern "C" {
 
 // The widest V at M query slots and csub: the warps' rings plus the [M, V]
-// int8 queries within 227 KB of shared memory, V a multiple of 128.
+// int8 queries within 227 KB of shared memory, V a multiple of 128; 0 for
+// a pair past the shapes the library takes.
 int seismic_score_grouped_i8_item_max_v(int M, int csub) {
-  return mma_max_v(M, csub * kSub, MmaU8S8::kParts);
+  return mma_shape_ok(M, csub) ? mma_max_v(M, csub * kSub, MmaU8S8::kParts)
+                               : 0;
 }
 
-// M must be 8 or 16, csub 1 or 2, V a multiple of 128 up to the cap above.
+// M a multiple of 8 up to 32, csub 1 to 4, V a multiple of 128 up to the
+// cap above.
 // pack_window 0 writes f32 [W_cap, M, csub*128]; pack_window >= 1 writes
 // the packed int32 [W_cap, M, csub*128 / pack_window] with idx_mask =
 // 2^idx_bits - 1 and needs work_s.
@@ -172,22 +178,12 @@ int seismic_score_grouped_i8_item(const uint8_t* tiles,
     if (V <= 0 || V % kVAlign != 0 ||
         V > seismic_score_grouped_i8_item_max_v(M, csub)) {
       rc = static_cast<int>(cudaErrorInvalidValue);
-    } else if (M == 8 && csub == 1) {
-      rc = launch<8, kSub>(tiles, tile_scale, q, work_region, work_g, work_s,
-                           W_cap, V, idx_mask, pack_window, out, stream);
-    } else if (M == 8 && csub == 2) {
-      rc = launch<8, 2 * kSub>(tiles, tile_scale, q, work_region, work_g,
-                               work_s, W_cap, V, idx_mask, pack_window, out,
-                               stream);
-    } else if (M == 16 && csub == 1) {
-      rc = launch<16, kSub>(tiles, tile_scale, q, work_region, work_g, work_s,
-                            W_cap, V, idx_mask, pack_window, out, stream);
-    } else if (M == 16 && csub == 2) {
-      rc = launch<16, 2 * kSub>(tiles, tile_scale, q, work_region, work_g,
-                                work_s, W_cap, V, idx_mask, pack_window, out,
-                                stream);
     } else {
-      rc = static_cast<int>(cudaErrorInvalidValue);
+      rc = dispatch_shape(M, csub, [&](auto m, auto rows) {
+        return launch<decltype(m)::value, decltype(rows)::value>(
+            tiles, tile_scale, q, work_region, work_g, work_s, W_cap, V,
+            idx_mask, pack_window, out, stream);
+      });
     }
     if (rc != 0) return rc;
   }

@@ -93,22 +93,17 @@ def read_jsonl_dataset(
 ):
     """Returns (CsrDataset, doc_ids, token_to_id, contents).
 
-    Pass 1 builds the token map (unless one is provided); pass 2 encodes every
-    document, sorting components per doc. ``max_vocab`` mirrors the vocab
-    overflow assert (wrapper.rs:414-419) for the u16-component API class.
+    One pass over the file: every document's tokens are numbered in order
+    of first appearance (unless a map is provided) and the document is
+    encoded with its components sorted. This is the map and the encoding
+    of the reference's two passes (build the map, then encode): a token's
+    id is fixed when it is first seen, before any document that holds it
+    is encoded. ``max_vocab`` mirrors the vocab overflow assert
+    (wrapper.rs:414-419) for the u16-component API class.
     """
     build_map = token_to_id is None
     if build_map:
         token_to_id = {}
-        for rec in iter_documents(path):
-            for tok in rec["vector"].keys():
-                if tok not in token_to_id:
-                    token_to_id[tok] = len(token_to_id)
-    if max_vocab is not None and len(token_to_id) > max_vocab:
-        raise ValueError(
-            f"vocabulary size {len(token_to_id)} exceeds the component type "
-            f"capacity {max_vocab}; use the LV (large-vocabulary) variant"
-        )
 
     doc_ids: list[str] = []
     contents: list[Optional[str]] = []
@@ -117,12 +112,21 @@ def read_jsonl_dataset(
         doc_ids.append(str(rec["id"]))
         contents.append(rec.get("content") if load_content else None)
         vec = rec["vector"]
+        if build_map:
+            for tok in vec:
+                if tok not in token_to_id:
+                    token_to_id[tok] = len(token_to_id)
         comps, vals = list(map(token_to_id.get, vec)), list(vec.values())
         if None in comps:  # tokens outside a given map are dropped
             keep = [i for i, tid in enumerate(comps) if tid is not None]
             comps = [comps[i] for i in keep]
             vals = [vals[i] for i in keep]
         growable.push(comps, vals)
+    if max_vocab is not None and len(token_to_id) > max_vocab:
+        raise ValueError(
+            f"vocabulary size {len(token_to_id)} exceeds the component type "
+            f"capacity {max_vocab}; use the LV (large-vocabulary) variant"
+        )
     dataset = growable.freeze()
     if dataset.dim < len(token_to_id):
         dataset = CsrDataset(

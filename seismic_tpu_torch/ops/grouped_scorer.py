@@ -26,8 +26,14 @@ import torch
 from . import _cuda, pack_epilogue
 from .tiles_prep import SUB
 
-M_SLOTS = (8, 16)  # query slots per group the kernel serves
-CSUBS = (1, 2)  # subtiles per work item the kernel serves
+# The shapes of the three grouped scorers (K2, K4, K6; `kMaxM` and
+# `kMaxCsub` of `csrc/grouped_i8_mma.cuh`): M query slots a group, any
+# multiple of 8 up to MAX_M, and csub subtiles a work item from 1 to
+# MAX_CSUB, each pair an instance of its own. JAX's kernel asks only
+# M % 8 == 0 (`pallas_grouped.py:76`); no code or record of the repo goes
+# past these caps.
+MAX_M = 32
+MAX_CSUB = 4
 # The tile width rule of the three grouped scorers (K2, K4, K6), as in
 # JAX's kernel: V a multiple of 128, up to the cap that each library
 # computes from the shared memory its rings and [M, V] queries take
@@ -42,6 +48,15 @@ def max_v(M: int, csub: int) -> int:
     """The widest V the kernel takes at M query slots and csub (the
     library's `seismic_score_grouped_i8_max_v`; builds it if needed)."""
     return _lib().seismic_score_grouped_i8_max_v(M, csub)
+
+
+def check_shape(M: int, csub: int, what: str) -> None:
+    """Raise ValueError unless M is a multiple of 8 from 8 to MAX_M and
+    csub is from 1 to MAX_CSUB, naming the caps."""
+    _cuda.require(
+        M % 8 == 0 and 8 <= M <= MAX_M and 1 <= csub <= MAX_CSUB,
+        f"{what}: M={M}, csub={csub} is past the kernels' shapes: M a "
+        f"multiple of 8 up to {MAX_M}, csub from 1 to {MAX_CSUB}")
 
 
 def check_width(V: int, cap: int, what: str) -> None:
@@ -146,8 +161,7 @@ def score_grouped_i8(tiles, tile_scale, q, work_region, work_g, work_s,
             for t in (tiles, tile_scale, q, work_region, work_g, work_s)),
         "operands must be contiguous")
     G_cap, M, V = q.shape
-    req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
-    req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
+    check_shape(M, csub, "score_grouped_i8")
     check_width(V, max_v(M, csub), f"score_grouped_i8 (M={M}, csub={csub})")
     out = torch.empty(
         (G_cap, M, ll_max // pack_window if pack_window else ll_max),

@@ -34,8 +34,6 @@ import torch
 from . import _cuda, grouped_scorer, pack_epilogue
 from .tiles_prep import SUB
 
-M_SLOTS = (8, 16)  # query slots per group the kernel serves
-CSUBS = (1, 2)  # subtiles per work item the kernel serves
 COMPUTE_DTYPES = ("bf16", "f32")
 # kernel launches since the count was last set to 0
 launches = 0
@@ -158,8 +156,7 @@ def score_grouped_f(tiles, tile_scale, q, qsum, work_region, work_g, work_s,
     req(tiles.is_contiguous() and all(t.is_contiguous() for t in operands),
         "operands must be contiguous")
     G_cap, M, V = q.shape
-    req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
-    req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
+    grouped_scorer.check_shape(M, csub, "score_grouped_f")
     grouped_scorer.check_width(
         V, max_v(M, csub, compute_dtype),
         f"score_grouped_f ({compute_dtype}, M={M}, csub={csub})")

@@ -23,11 +23,14 @@ import ctypes
 import torch
 
 from . import _cuda, pack_epilogue
-from .grouped_scorer import check_width, grouped_dots_plain, item_scores_plain
+from .grouped_scorer import (
+    check_shape,
+    check_width,
+    grouped_dots_plain,
+    item_scores_plain,
+)
 from .tiles_prep import SUB
 
-M_SLOTS = (8, 16)  # query slots per group the kernel serves
-CSUBS = (1, 2)  # subtiles per work item the kernel serves
 # kernel launches since the count was last set to 0
 launches = 0
 _handle = None
@@ -104,8 +107,7 @@ def score_grouped_i8_item(tiles, tile_scale, q, work_region, work_g,
     req(all(t.is_contiguous() for t in (tiles, tile_scale, q) + works),
         "operands must be contiguous")
     M, V = q.shape[1], tiles.shape[1]
-    req(M in M_SLOTS, f"groups must have {M_SLOTS} slots, not {M}")
-    req(csub in CSUBS, f"csub={csub} is not one of {CSUBS}")
+    check_shape(M, csub, "score_grouped_i8_item")
     check_width(V, max_v(M, csub),
                 f"score_grouped_i8_item (M={M}, csub={csub})")
     W_cap = work_region.shape[0]

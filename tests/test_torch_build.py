@@ -5,6 +5,7 @@ port's import isolation (no JAX, nothing of seismic_tpu)."""
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -161,6 +162,11 @@ def test_pad_queries_matches_jax():
         assert np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
 
 
+# what no module of the port imports: JAX, the JAX package, and the
+# repo's bench.py (the probes' protocol has its own copy)
+FORBIDDEN = ("jax", "jaxlib", "seismic_tpu", "bench")
+
+
 def _port_sources():
     """(module name, source path) of every module of the port."""
     out = []
@@ -176,8 +182,9 @@ def _port_sources():
 
 def test_port_imports_no_jax_and_no_seismic_tpu():
     """Every module of the port, imported in a fresh interpreter, loads
-    neither jax nor any module of seismic_tpu; and no source names them
-    in an import statement."""
+    neither jax, nor any module of seismic_tpu, nor the repo's bench.py;
+    no source names them in an import statement; and the port's shell
+    scripts invoke only seismic_tpu_torch modules."""
     sources = _port_sources()
     mods = [m for m, _ in sources]
     for m in ("api", "data.io", "search.exact", "search.knn",
@@ -192,7 +199,9 @@ def test_port_imports_no_jax_and_no_seismic_tpu():
               "harness.run_grid_search", "harness.best_configs",
               "harness.bench_knn", "harness.profile_stages",
               "harness.bench_mem", "harness.build_88m",
-              "harness.scorer_timing"):
+              "harness.scorer_timing", "harness.protocol",
+              "harness.rebuild_r3_cache", "harness.sweep_configs",
+              "harness.probe_r5b", "harness.probe_r5c", "harness.probe_r3j"):
         assert f"seismic_tpu_torch.{m}" in mods, m
     for mod, path in sources:
         with open(path) as fh:
@@ -205,13 +214,13 @@ def test_port_imports_no_jax_and_no_seismic_tpu():
                 names = [node.module or ""]
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "seismic_tpu"), (mod, n)
+                assert top not in FORBIDDEN, (mod, n)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'seismic_tpu')]\n"
+        f"{FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -220,6 +229,21 @@ def test_port_imports_no_jax_and_no_seismic_tpu():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=os.path.dirname(PKG), env=env)
     assert r.returncode == 0, r.stdout + r.stderr
+    scripts = [os.path.join(root, f) for root, _, files in os.walk(PKG)
+               for f in files if f.endswith(".sh")]
+    assert scripts
+    for path in scripts:
+        with open(path) as fh:
+            text = fh.read()
+        # python -m <module> (or a module handed to a stage runner) only
+        # under seismic_tpu_torch; no python script of the repo's root
+        assert "seismic_tpu_torch.harness" in text, path
+        mods = re.findall(r"(?:python3?|PYTHON\")\s+-m\s+\"?([\w.]+)",
+                          text)
+        assert mods, path
+        assert all(m.startswith("seismic_tpu_torch") for m in mods), mods
+        assert not re.search(r"python3?\s+[\w./]+\.py", text), path
+        assert "seismic_tpu." not in text, path
 
 
 def test_default_device_is_the_card():
