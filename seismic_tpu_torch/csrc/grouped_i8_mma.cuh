@@ -42,7 +42,8 @@
 // K2 take one slice a stage (4 stages); K6 takes two, so each fetch asks
 // for 128 contiguous bytes of a row (2 stages): against 64-byte fetches
 // that cut its time by a quarter on the card (PERF.md). The group's
-// [kM, V] queries are staged once per block in the same k-slice order,
+// [kM, V] queries are staged once per block (once per V chunk past the
+// instance's widest V) in the same k-slice order,
 // kParts 64-byte rows a slot and a slice: s_q[ks][part][m][64 bytes], the
 // same conflict-free pitch.
 //
@@ -61,6 +62,28 @@
 // After the last slice every warp's ring is free: s_out (kM * kRows f32)
 // aliases the start of shared memory. The function ends with
 // __syncthreads().
+//
+// Shapes. An instance holds kM <= 32 query slots and kRows <= 512 rows
+// (csub <= 4): its accumulators live in registers and its rings in 227 KB
+// of shared memory beside the staged queries. JAX's kernel takes every
+// M % 8 == 0, every csub and every V % 128 == 0 (pallas_grouped.py:76),
+// and the scorers serve them with those instances:
+// - V past what one instance's shared memory holds beside its rings
+//   (mma_max_v): the ring streams the tile rows over all of V as before,
+//   and at each kVMax columns the block stages the next chunk's [kM,
+//   chunk] queries over the last (two barriers), its accumulators carried
+//   on, so the int32 dots stay exact and the f32 sums keep their slice
+//   order;
+// - M past 32: the group's slots in chunks of 32 along the grid (y), and
+//   one more launch for the rest (for_m_chunks); a chunk reads its rows of
+//   the [M, V] queries and writes its own output rows;
+// - csub past 4: the item's subtiles in parts of chunk_csub(csub)
+//   subtiles (the largest divisor of csub up to 4), one launch a part, in
+//   stream order; the packed epilogue then takes each window's max across
+//   the parts as a running integer max (store_packed_part of
+//   pack_epilogue.cuh).
+// One V chunk, one M chunk and one part (a launch, no restaging) is the
+// path of every shape up to M 32, csub 4 and the instance's widest V.
 #pragma once
 
 #include <cstdint>
@@ -68,23 +91,21 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
+#include "opt_in.cuh"
+
 constexpr int kMmaThreads = 256;
 constexpr int kMmaWarps = kMmaThreads / 32;
 constexpr int kSliceBytes = 64;  // bytes of a row one pipeline stage holds
 constexpr int kStages = 4;       // ring depth of each warp
-constexpr int kMaxDevices = 64;
-// dynamic shared memory a block may opt into on an H100 (227 KB)
-constexpr int kMaxSmemBytes = 232448;
 // V is a multiple of this: every policy streams whole 128-byte stages (K6
 // two 64-byte slices a stage), and JAX's kernel asks V % 128 == 0
 constexpr int kVAlign = 128;
 constexpr int kSubRows = 128;  // rows of a subtile; an item holds csub
-// The shapes every scorer takes: M query slots a multiple of 8 up to
-// kMaxM, csub subtiles an item up to kMaxCsub, each pair its own template
-// instance. JAX's kernel asks only M % 8 == 0 (pallas_grouped.py:76); no
-// code or record of the repo goes past M 32 or csub 4.
-constexpr int kMaxM = 32;
-constexpr int kMaxCsub = 4;
+// The instances: kM query slots a multiple of 8 up to kChunkM, kRows =
+// csub * 128 rows for csub up to kChunkCsub, each pair its own template
+// instance; wider shapes run as chunks of these (see above).
+constexpr int kChunkM = 32;
+constexpr int kChunkCsub = 4;
 
 // bytes of dynamic shared memory a block needs: the warps' rings, then
 // the group's queries, q_bytes a query value
@@ -94,7 +115,8 @@ __host__ __device__ constexpr int mma_ring_smem(int m, int rows, int v,
          m * v * q_bytes;
 }
 
-// the widest V whose rings and [m, V] queries fit in kMaxSmemBytes
+// the widest V whose rings and [m, V] queries fit in kMaxSmemBytes: the
+// widest V chunk of the instance (m, rows)
 __host__ __device__ constexpr int mma_max_v(int m, int rows, int q_bytes) {
   return m <= 0 || rows <= 0
              ? 0
@@ -102,26 +124,75 @@ __host__ __device__ constexpr int mma_max_v(int m, int rows, int q_bytes) {
                    (m * q_bytes) / kVAlign * kVAlign;
 }
 
+// the shared memory a launch of the instance (m, rows) sizes for V: the
+// rings and one V chunk of queries
+__host__ __device__ constexpr int mma_launch_smem(int m, int rows, int v,
+                                                  int q_bytes) {
+  return mma_ring_smem(m, rows,
+                       v < mma_max_v(m, rows, q_bytes)
+                           ? v
+                           : mma_max_v(m, rows, q_bytes),
+                       q_bytes);
+}
+
 // Blocks an SM the kernel of kM slots, kRows rows and operand policy Op is
 // compiled for (its __launch_bounds__): 2, so at most 128 registers a
 // thread, or 1, so up to 255, by the policy's min_blocks of the registers
 // that grow with the shape: a warp's MT x NT accumulator fragments and its
 // NT x kParts query fragments, 4 each. Every shape up to M 16 and csub 2
-// takes 2 in both policies.
+// takes 2 in both policies. Rings over half of the shared memory (csub 4:
+// 128 KB) leave one block an SM whatever the registers, so those take 1.
 template <int kM, int kRows, class Op>
 struct MmaMinBlocks {
   static constexpr int kAcc = (kRows / kSubRows) * (kM / 8) * 4;
   static constexpr int kQFrag = (kM / 8) * Op::kParts * 4;
-  static constexpr int value = Op::min_blocks(kAcc, kQFrag);
+  static constexpr int value =
+      2 * mma_ring_smem(0, kRows, 0, 0) > kMaxSmemBytes
+          ? 1
+          : Op::min_blocks(kAcc, kQFrag);
 };
 
-__host__ __device__ constexpr bool mma_shape_ok(int m, int csub) {
-  return m % 8 == 0 && m >= 8 && m <= kMaxM && csub >= 1 && csub <= kMaxCsub;
+// JAX's shape rule (pallas_grouped.py:76): M % 8 == 0, V % 128 == 0;
+// csub >= 1 (ll_max % (csub * 128) == 0 is the caller's)
+__host__ __device__ constexpr bool mma_shape_ok(int m, int csub, int v) {
+  return m % 8 == 0 && m >= 0 && csub >= 1 && v % kVAlign == 0 && v >= 0;
+}
+
+// the subtiles of one part of an item of csub subtiles: the largest
+// divisor of csub up to kChunkCsub
+__host__ __device__ constexpr int chunk_csub(int csub) {
+  return csub % 4 == 0 ? 4 : csub % 3 == 0 ? 3 : csub % 2 == 0 ? 2 : 1;
+}
+
+// the query slots of the instance that serves M (its first chunk)
+__host__ __device__ constexpr int chunk_m(int m) {
+  return m < kChunkM ? m : kChunkM;
+}
+
+// the widest V chunk of the instance that serves (M, csub) at q_bytes a
+// query value (0 for a shape past JAX's rule)
+__host__ __device__ constexpr int mma_chunk_v(int m, int csub,
+                                              int q_bytes) {
+  return mma_shape_ok(m, csub, 0) && m > 0
+             ? mma_max_v(chunk_m(m), chunk_csub(csub) * kSubRows, q_bytes)
+             : 0;
+}
+
+// f(km, m_base, n_y) for each launch of M slots: chunks of kChunkM slots
+// along the grid's y (n_y of them from slot 0), then one launch of the
+// M % kChunkM left (from slot m_base); nothing for M = 0. Returns the
+// first error.
+template <class F>
+int for_m_chunks(int M, F&& f) {
+  const int n32 = M / kChunkM, rest = M % kChunkM;
+  int rc = n32 > 0 ? f(kChunkM, 0, n32) : 0;
+  if (rc == 0 && rest > 0) rc = f(rest, n32 * kChunkM, 1);
+  return rc;
 }
 
 // f(integral_constant<kM>, integral_constant<kRows>) at the pair (M, csub)
 // (kRows = csub * 128), the launch of that pair's instance; an error code
-// for a pair past the caps.
+// for a pair past the instances.
 template <int kM, class F>
 int dispatch_csub(int csub, F& f) {
   using M = std::integral_constant<int, kM>;
@@ -136,7 +207,7 @@ int dispatch_csub(int csub, F& f) {
 
 template <class F>
 int dispatch_shape(int M, int csub, F&& f) {
-  static_assert(kMaxM == 32 && kMaxCsub == 4, "the cases below");
+  static_assert(kChunkM == 32 && kChunkCsub == 4, "the cases below");
   switch (M) {
     case 8: return dispatch_csub<8>(csub, f);
     case 16: return dispatch_csub<16>(csub, f);
@@ -144,23 +215,6 @@ int dispatch_shape(int M, int csub, F&& f) {
     case 32: return dispatch_csub<32>(csub, f);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// Above 48 KB a launch needs the kernel's opt-in, once per device; `done`
-// remembers the devices already opted in. The instances that take V at run
-// time opt in at their widest V (mma_max_v), so one call covers every V.
-// Returns the error.
-template <typename F>
-cudaError_t opt_in_smem(F kernel, int smem, bool (&done)[kMaxDevices]) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return e;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -225,16 +279,18 @@ struct MmaU8S8 {
     return acc + qfrag <= 64 ? 2 : 1;
   }
 
-  // s_q[ks][m][64] <- qg[m, ks * 64 .. + 64)
+  // s_q[ks][m][64] <- qg[m * ld + ks * 64 .. + 64), ks < vc / 64; m * ld
+  // in 32 bits (kM * V < 2^31): with a 64-bit product the headline's V 512
+  // instance read 0.9% slower (PERF.md §6)
   template <int kM>
   __device__ __forceinline__ void stage(const int8_t* __restrict__ qg,
-                                        uint8_t* s_q, int V) const {
-    for (int i = threadIdx.x; i < kM * V / 16; i += kMmaThreads) {
-      const int m = i / (V / 16);
-      const int c = i % (V / 16);
+                                        int ld, uint8_t* s_q, int vc) const {
+    for (int i = threadIdx.x; i < kM * vc / 16; i += kMmaThreads) {
+      const int m = i / (vc / 16);
+      const int c = i % (vc / 16);
       *reinterpret_cast<int4*>(s_q + (c >> 2) * (kM * kSliceBytes) +
                                m * kSliceBytes + (c & 3) * 16) =
-          reinterpret_cast<const int4*>(qg + m * V)[c];
+          reinterpret_cast<const int4*>(qg + m * ld)[c];
     }
   }
 
@@ -275,14 +331,14 @@ struct MmaBf16 {
   }
 
   // s_q[ks][term * 2 + p][m][t * 16 ..] <- the bf16 terms of
-  // qg[m, ks * 64 + t * 16 + 8p .. + 8)
+  // qg[m * ld + ks * 64 + t * 16 + 8p .. + 8), ks < vc / 64
   template <int kM>
-  __device__ __forceinline__ void stage(const float* __restrict__ qg,
-                                        uint8_t* s_q, int V) const {
-    for (int i = threadIdx.x; i < kM * V / 8; i += kMmaThreads) {
-      const int m = i / (V / 8);
-      const int c = i % (V / 8);  // 8-value chunk of the row
-      const float4* src = reinterpret_cast<const float4*>(qg + m * V) + 2 * c;
+  __device__ __forceinline__ void stage(const float* __restrict__ qg, int ld,
+                                        uint8_t* s_q, int vc) const {
+    for (int i = threadIdx.x; i < kM * vc / 8; i += kMmaThreads) {
+      const int m = i / (vc / 8);
+      const int c = i % (vc / 8);  // 8-value chunk of the row
+      const float4* src = reinterpret_cast<const float4*>(qg + m * ld) + 2 * c;
       const float4 x = src[0], y = src[1];
       float r[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
       uint8_t* dst = s_q + (c >> 3) * (kParts * kM * kSliceBytes) +
@@ -332,6 +388,60 @@ struct MmaBf16 {
 
 // ---- the tile body ----
 
+// The warp's ring stages [k0, k1) of NS (stage ks in ring slot ks %
+// kRing, the next stages' loads issued as it goes) multiplied into acc
+// against the staged queries of the V chunk that starts at stage q0.
+template <int kM, int kRows, class Op, class Load>
+__device__ __forceinline__ void ring_stages(
+    const Op& op, const Load& load_stage,
+    typename Op::Acc (&acc)[kRows / kMmaWarps / 16][kM / 8][4],
+    const uint8_t* ring, const uint8_t* s_q, int NS, int k0, int k1,
+    int q0) {
+  constexpr int MT = kRows / kMmaWarps / 16;
+  constexpr int NT = kM / 8;
+  constexpr int kP = Op::kParts;
+  constexpr int kSS = Op::kSlicesPerStage;
+  constexpr int kRing = kStages / kSS;
+  constexpr int kSliceRows = kRows / kMmaWarps * kSliceBytes;
+  constexpr int kStageBytes = kSS * kSliceRows;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+#pragma unroll 1
+  for (int ks = k0; ks < k1; ++ks) {
+    if (ks + kRing - 1 < NS) load_stage(ks + kRing - 1);
+    cp_async_commit();           // (empty past the last stage)
+    cp_async_wait<kRing - 1>();  // this lane's copies of stage ks landed
+    __syncwarp();                // ... and every lane's
+    // kept rolled: unrolled, both slices' B fragments stay live and the
+    // f32 policy spills
+#pragma unroll 1
+    for (int h = 0; h < kSS; ++h) {
+      const uint8_t* st = ring + (ks % kRing) * kStageBytes + h * kSliceRows;
+      const uint8_t* sq =
+          s_q + ((ks - q0) * kSS + h) * (kP * kM * kSliceBytes);
+      int4 b[NT][kP];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          b[n][p] = *reinterpret_cast<const int4*>(
+              sq + (p * kM + n * 8 + g) * kSliceBytes + t * 16);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int4 lo = *reinterpret_cast<const int4*>(
+            st + (mt * 16 + g) * kSliceBytes + t * 16);
+        const int4 hi = *reinterpret_cast<const int4*>(
+            st + (mt * 16 + g + 8) * kSliceBytes + t * 16);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) op.mma(acc[mt][n], lo, hi, b[n]);
+      }
+    }
+    __syncwarp();  // the next iteration refills this stage
+  }
+}
+
 template <int kM, int kRows, class Op>
 __device__ __forceinline__ void score_item_ring(
     const Op& op,
@@ -350,14 +460,12 @@ __device__ __forceinline__ void score_item_ring(
   constexpr int kSliceRows = RW * kSliceBytes;  // one slice of the rows
   constexpr int kStageBytes = kSS * kSliceRows;
   constexpr int kCopies = kStageBytes / 16 / 32;  // cp.async a lane a stage
+  // the widest V chunk: its [kM, chunk] queries beside the rings
+  constexpr int kVMax = mma_max_v(kM, kRows, kP);
   static_assert(MT >= 1 && NT >= 1 && kCopies >= 1 && kRing >= 2, "shape");
   static_assert(kM * kRows * 4 <= kMmaWarps * kRing * kStageBytes,
                 "s_out must fit in the rings");
-  // ring stages to stream: V is a multiple of kVAlign, so whole stages; at
-  // V 128 that is 2 (K4, K2) or 1 (K6), under the ring's depth, and the
-  // prologue loads only those while still committing one group a stage, so
-  // the wait counts below hold for any NS >= 1
-  const int NS = V / (kSS * kSliceBytes);
+  static_assert(kVMax >= kVAlign, "one V chunk must fit");
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
@@ -365,6 +473,15 @@ __device__ __forceinline__ void score_item_ring(
   uint8_t* ring = smem + warp * (kRing * kStageBytes);
   uint8_t* s_q = smem + kMmaWarps * kRing * kStageBytes;
   const uint8_t* wrows = tiles + (row0 + warp * RW) * V;
+
+  // ring stages to stream over all of V: V is a multiple of kVAlign, so
+  // whole stages; at V 128 that is 2 (K4, K2) or 1 (K6), under the ring's
+  // depth, and the prologue loads only those while still committing one
+  // group a stage, so the wait counts below hold for any NS >= 1
+  const int NS = V / (kSS * kSliceBytes);
+  // the stages one chunk of staged queries covers: past them (V wider
+  // than kVMax) the block stages the next chunk's queries over the last
+  constexpr int kChunkStages = kVMax / (kSS * kSliceBytes);
 
   // stage ks % kRing <- rows' bytes [ks * kSS * 64, + kSS * 64): chunk i =
   // row i / (4 kSS), 16-byte column c = i % (4 kSS), lands in slice c / 4
@@ -385,7 +502,7 @@ __device__ __forceinline__ void score_item_ring(
     cp_async_commit();
   }
 
-  op.template stage<kM>(qg, s_q, V);
+  op.template stage<kM>(qg, V, s_q, V < kVMax ? V : kVMax);
   float scale[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -411,38 +528,27 @@ __device__ __forceinline__ void score_item_ring(
     }
   }
 
+  if (NS <= kChunkStages) {
+    // one V chunk (every shape up to the instance's widest V, and at
+    // compile time in an instance of one V): the queries staged once
+    ring_stages<kM, kRows>(op, load_stage, acc, ring, s_q, NS, 0, NS, 0);
+  } else {
+    // the stages in chunks of kChunkStages, one chunk of staged queries
+    // each: the next chunk's queries once every warp is done with the
+    // last chunk's (the accumulators carry on)
 #pragma unroll 1
-  for (int ks = 0; ks < NS; ++ks) {
-    if (ks + kRing - 1 < NS) load_stage(ks + kRing - 1);
-    cp_async_commit();           // (empty past the last stage)
-    cp_async_wait<kRing - 1>();  // this lane's copies of stage ks landed
-    __syncwarp();                // ... and every lane's
-    // kept rolled: unrolled, both slices' B fragments stay live and the
-    // f32 policy spills
-#pragma unroll 1
-    for (int h = 0; h < kSS; ++h) {
-      const uint8_t* st = ring + (ks % kRing) * kStageBytes + h * kSliceRows;
-      const uint8_t* sq = s_q + (ks * kSS + h) * (kP * kM * kSliceBytes);
-      int4 b[NT][kP];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          b[n][p] = *reinterpret_cast<const int4*>(
-              sq + (p * kM + n * 8 + g) * kSliceBytes + t * 16);
-        }
+    for (int kc = 0; kc < NS; kc += kChunkStages) {
+      if (kc > 0) {
+        const int v0 = kc * (kSS * kSliceBytes);
+        __syncthreads();
+        op.template stage<kM>(qg + v0, V, s_q,
+                              V - v0 < kVMax ? V - v0 : kVMax);
+        __syncthreads();
       }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int4 lo = *reinterpret_cast<const int4*>(
-            st + (mt * 16 + g) * kSliceBytes + t * 16);
-        const int4 hi = *reinterpret_cast<const int4*>(
-            st + (mt * 16 + g + 8) * kSliceBytes + t * 16);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) op.mma(acc[mt][n], lo, hi, b[n]);
-      }
+      ring_stages<kM, kRows>(op, load_stage, acc, ring, s_q, NS, kc,
+                             NS - kc < kChunkStages ? NS : kc + kChunkStages,
+                             kc);
     }
-    __syncwarp();  // the next iteration refills this stage
   }
 
   // D fragment: acc[.][n][i] is row g + 8 * (i / 2), slot n * 8 + 2t + i % 2

@@ -43,7 +43,13 @@
 // only the order of the f32 sum differs from the plain version. The
 // epilogue adds qsum (__fadd_rn), scales (__fmul_rn) and stores the
 // [M, ROWS] block from the freed rings with 16-byte stores, or through
-// store_packed (K5, a compile-time variant).
+// store_packed (K5, a compile-time variant). V is any multiple of 128:
+// past the cap that 227 KB of shared memory leaves beside the rings
+// (seismic_score_grouped_f_max_v; the f32 mode's three terms take 6 bytes
+// a query value) the block walks V in chunks, its f32 sums carried
+// across them in the same slice order. M past 32 runs in chunks of slots
+// along the grid and csub past 4 in parts of each item
+// (grouped_i8_mma.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,22 +59,25 @@
 
 namespace {
 
-constexpr int kSub = 128;  // rows per subtile
 constexpr float kTwo23 = 8388608.0f;
 
 // kTerms: 1 in bf16 mode, 3 in f32 mode. kPack: the packed epilogue. Both
-// compile-time, so that each kernel carries only its own code.
+// compile-time, so that each kernel carries only its own code. The block
+// scores the slots [m0, m0 + kM) of M, m0 = m_base + blockIdx.y * kM,
+// over rows [r0, r0 + kRows) of the item's R rows (one part of them when
+// R > kRows: a launch a part).
 template <int kM, int kRows, int kTerms, bool kPack>
 __global__ void __launch_bounds__(
     kMmaThreads, (MmaMinBlocks<kM, kRows, MmaBf16<kTerms>>::value))
 score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                        const float* __restrict__ tile_scale,  // [rows]
-                       const float* __restrict__ q,           // [G_cap, kM, V]
-                       const float* __restrict__ qsum,  // [G_cap, kM] or null
+                       const float* __restrict__ q,           // [G_cap, M, V]
+                       const float* __restrict__ qsum,  // [G_cap, M] or null
                        const int* __restrict__ work_region,   // [W_cap]
                        const int* __restrict__ work_g,
                        const int* __restrict__ work_s,
-                       int V, int ll_max, int idx_mask, int pack_window,
+                       int V, int M, int m_base, int R, int r0, int ll_max,
+                       int idx_mask, int pack_window,
                        void* __restrict__ out) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* s_out = reinterpret_cast<float*>(smem);
@@ -76,52 +85,59 @@ score_grouped_f_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
   const int w = blockIdx.x;
   const int g = work_g[w];
   const int s = work_s[w];
+  const int m0 = m_base + blockIdx.y * kM;
+  const int64_t slot0 = static_cast<int64_t>(g) * M + m0;
   const bool centred = qsum != nullptr;
   const MmaBf16<kTerms> op{centred ? kTwo23 + 128.0f : kTwo23};
   score_item_ring<kM, kRows>(
-      op, tiles, tile_scale, q + static_cast<int64_t>(g) * kM * V,
-      centred ? qsum + static_cast<int64_t>(g) * kM : nullptr, V,
-      static_cast<int64_t>(work_region[w]) * kRows, smem, s_out);
+      op, tiles, tile_scale, q + slot0 * V, centred ? qsum + slot0 : nullptr,
+      V, static_cast<int64_t>(work_region[w]) * R + r0, smem, s_out);
 
-  if constexpr (kPack) {  // packed int32 [G_cap, kM, ll_max / pack_window]
+  if constexpr (kPack) {  // packed int32 [G_cap, M, ll_max / pack_window]
     const int64_t stride = ll_max / pack_window;
-    store_packed<kM, kRows>(
-        s_out,
-        static_cast<int*>(out) + static_cast<int64_t>(g) * kM * stride +
-            static_cast<int64_t>(s) * (kRows / pack_window),
-        stride, s * kRows, idx_mask, pack_window, threadIdx.x, kMmaThreads);
-  } else {  // f32 [G_cap, kM, ll_max]
+    int* dst = static_cast<int*>(out) + slot0 * stride +
+               static_cast<int64_t>(s) * (R / pack_window);
+    if (R == kRows) {
+      store_packed<kM, kRows>(s_out, dst, stride, s * R, idx_mask,
+                              pack_window, threadIdx.x, kMmaThreads);
+    } else {
+      store_packed_part<kM, kRows>(s_out, dst, stride, s * R, r0,
+                                   R / pack_window, idx_mask, threadIdx.x,
+                                   kMmaThreads);
+    }
+  } else {  // f32 [G_cap, M, ll_max]
     store_scores<kM, kRows>(
         s_out,
-        static_cast<float*>(out) + static_cast<int64_t>(g) * kM * ll_max +
-            static_cast<int64_t>(s) * kRows,
+        static_cast<float*>(out) + slot0 * ll_max +
+            static_cast<int64_t>(s) * R + r0,
         ll_max, threadIdx.x, kMmaThreads);
   }
-}
-
-int max_v(int M, int csub, int terms) {
-  // 2 * terms: MmaBf16<terms>::kParts, bytes a query value
-  return mma_shape_ok(M, csub) ? mma_max_v(M, csub * kSub, 2 * terms) : 0;
 }
 
 template <int kM, int kRows, int kTerms, bool kPack>
 int launch_one(const uint8_t* tiles, const float* tile_scale, const float* q,
                const float* qsum, const int* work_region, const int* work_g,
-               const int* work_s, int W_cap, int V, int ll_max, int idx_mask,
+               const int* work_s, int W_cap, int V, int M, int m_base,
+               int n_y, int R, int ll_max, int idx_mask,
                int pack_window, void* out, cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
   constexpr int kQBytes = MmaBf16<kTerms>::kParts;  // bytes a query value
   auto kernel = score_grouped_f_kernel<kM, kRows, kTerms, kPack>;
-  // the opt-in is for the widest V, so one call per device covers all
+  // the opt-in is for the widest V chunk, so one call per device covers
+  // every V
   const cudaError_t e = opt_in_smem(
       kernel,
       mma_ring_smem(kM, kRows, mma_max_v(kM, kRows, kQBytes), kQBytes),
       opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem = mma_ring_smem(kM, kRows, V, kQBytes);
-  kernel<<<W_cap, kMmaThreads, smem, stream>>>(
-      tiles, tile_scale, q, qsum, work_region, work_g, work_s, V, ll_max,
-      idx_mask, pack_window, out);
+  const int smem = mma_launch_smem(kM, kRows, V, kQBytes);
+  // one launch a part of the item's R rows, in stream order (the packed
+  // epilogue's running max reads the parts before it)
+  for (int r0 = 0; r0 < R; r0 += kRows) {
+    kernel<<<dim3(W_cap, n_y), kMmaThreads, smem, stream>>>(
+        tiles, tile_scale, q, qsum, work_region, work_g, work_s, V, M,
+        m_base, R, r0, ll_max, idx_mask, pack_window, out);
+  }
   return 0;
 }
 
@@ -129,52 +145,57 @@ template <int kM, int kRows, int kTerms>
 int launch_terms(const uint8_t* tiles, const float* tile_scale,
                  const float* q, const float* qsum, const int* work_region,
                  const int* work_g, const int* work_s, int W_cap, int V,
-                 int ll_max, int idx_mask, int pack_window, void* out,
+                 int M, int m_base, int n_y, int R, int ll_max,
+                 int idx_mask, int pack_window, void* out,
                  cudaStream_t stream) {
   return pack_window > 0
              ? launch_one<kM, kRows, kTerms, true>(
                    tiles, tile_scale, q, qsum, work_region, work_g, work_s,
-                   W_cap, V, ll_max, idx_mask, pack_window, out, stream)
+                   W_cap, V, M, m_base, n_y, R, ll_max, idx_mask,
+                   pack_window, out, stream)
              : launch_one<kM, kRows, kTerms, false>(
                    tiles, tile_scale, q, qsum, work_region, work_g, work_s,
-                   W_cap, V, ll_max, idx_mask, pack_window, out, stream);
+                   W_cap, V, M, m_base, n_y, R, ll_max, idx_mask,
+                   pack_window, out, stream);
 }
 
 template <int kM, int kRows>
 int launch(const uint8_t* tiles, const float* tile_scale, const float* q,
            const float* qsum, const int* work_region, const int* work_g,
-           const int* work_s, int W_cap, int V, int ll_max, int round_bf16,
-           int idx_mask, int pack_window, void* out, cudaStream_t stream) {
+           const int* work_s, int W_cap, int V, int M, int m_base, int n_y,
+           int R, int ll_max, int round_bf16, int idx_mask,
+           int pack_window, void* out, cudaStream_t stream) {
   return round_bf16
              ? launch_terms<kM, kRows, 1>(tiles, tile_scale, q, qsum,
                                           work_region, work_g, work_s, W_cap,
-                                          V, ll_max, idx_mask, pack_window,
-                                          out, stream)
+                                          V, M, m_base, n_y, R, ll_max,
+                                          idx_mask, pack_window, out, stream)
              : launch_terms<kM, kRows, 3>(tiles, tile_scale, q, qsum,
                                           work_region, work_g, work_s, W_cap,
-                                          V, ll_max, idx_mask, pack_window,
-                                          out, stream);
+                                          V, M, m_base, n_y, R, ll_max,
+                                          idx_mask, pack_window, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The widest V at M query slots and csub: the warps' rings plus the [M, V]
-// queries (bf16, or three bf16 terms in f32 mode) within 227 KB of shared
-// memory, V a multiple of 128; 0 for a pair past the shapes the library
-// takes.
+// The widest V one chunk holds at M query slots and csub: the warps'
+// rings plus the [min(M, 32), V] queries (bf16, or three bf16 terms in
+// f32 mode) of the instance that serves them within 227 KB of shared
+// memory, V a multiple of 128 (a wider V is walked in chunks); 0 for a
+// shape past JAX's rule.
 int seismic_score_grouped_f_max_v(int M, int csub, int round_bf16) {
-  return max_v(M, csub, round_bf16 ? 1 : 3);
+  // 2 * terms: MmaBf16<terms>::kParts, bytes a query value
+  return mma_chunk_v(M, csub, round_bf16 ? 2 : 6);
 }
 
-// M a multiple of 8 up to 32; csub 1 to 4; V a multiple of 128 up to the
-// cap above; ll_max a
-// multiple of csub * 128; qsum f32 [G_cap, M] or null (the fixup form).
-// round_bf16 != 0 rounds the queries to bf16, 0 splits them into three bf16
-// terms (f32 mode). pack_window 0 writes f32 [G_cap, M, ll_max];
-// pack_window >= 1 writes the packed int32 [G_cap, M, ll_max / pack_window]
-// with idx_mask = 2^idx_bits - 1.
+// M % 8 == 0; csub >= 1; V % 128 == 0; ll_max a multiple of csub * 128;
+// qsum f32 [G_cap, M] or null (the fixup form). round_bf16 != 0 rounds
+// the queries to bf16, 0 splits them into three bf16 terms (f32 mode).
+// pack_window 0 writes f32 [G_cap, M, ll_max]; pack_window >= 1 writes
+// the packed int32 [G_cap, M, ll_max / pack_window] with idx_mask =
+// 2^idx_bits - 1.
 int seismic_score_grouped_f(const uint8_t* tiles, const float* tile_scale,
                             const float* q, const float* qsum,
                             const int* work_region, const int* work_g,
@@ -183,17 +204,18 @@ int seismic_score_grouped_f(const uint8_t* tiles, const float* tile_scale,
                             int idx_mask, int pack_window, void* out,
                             cudaStream_t stream) {
   if (W_cap > 0) {
-    int rc;
-    if (V <= 0 || V % kVAlign != 0 ||
-        V > seismic_score_grouped_f_max_v(M, csub, round_bf16)) {
-      rc = static_cast<int>(cudaErrorInvalidValue);
-    } else {
-      rc = dispatch_shape(M, csub, [&](auto m, auto rows) {
+    if (!mma_shape_ok(M, csub, V)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int cc = chunk_csub(csub);
+    const int rc = for_m_chunks(M, [&](int km, int m_base, int n_y) {
+      return dispatch_shape(km, cc, [&](auto m, auto rows) {
         return launch<decltype(m)::value, decltype(rows)::value>(
             tiles, tile_scale, q, qsum, work_region, work_g, work_s, W_cap,
-            V, ll_max, round_bf16, idx_mask, pack_window, out, stream);
+            V, M, m_base, n_y, csub * kSubRows, ll_max, round_bf16,
+            idx_mask, pack_window, out, stream);
       });
-    }
+    });
     if (rc != 0) return rc;
   }
   return static_cast<int>(cudaGetLastError());

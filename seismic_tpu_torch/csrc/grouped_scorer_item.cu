@@ -40,13 +40,16 @@
 // three blocks fit on an SM at csub 2, V 512, so one block's epilogue
 // overlaps the others' loads. The [M, ROWS] f32 block is staged in the
 // freed rings and written with 16-byte stores, or through store_packed
-// (K5, a compile-time variant). V is any multiple of 128 up to the cap
-// that 227 KB of shared memory leaves (seismic_score_grouped_i8_item_max_v);
-// the launch sizes the query staging to V. One instance takes V at run
-// time; the headline's M 16 at V 512 keeps an instance of its own, which
-// read faster there (PERF.md §6). Every M % 8 == 0 up to 32 and csub up to
-// 4 has its instance (dispatch_shape); at csub >= 3 the rings alone take
-// 96-128 KB, so one block holds an SM.
+// (K5, a compile-time variant). V is any multiple of 128; the launch
+// sizes the query staging to one V chunk, up to the cap that 227 KB of
+// shared memory leaves (seismic_score_grouped_i8_item_max_v), and the
+// block walks a wider V in chunks. One instance takes V at run time; the
+// headline's M 16 at V 512 keeps an instance of its own, which read
+// faster there (PERF.md §6). Every M % 8 == 0 up to 32 and csub up to 4
+// has its instance (dispatch_shape); at csub >= 3 the rings alone take
+// 96-128 KB, so one block holds an SM. M past 32 runs in chunks of slots
+// along the grid and csub past 4 in parts of each item
+// (grouped_i8_mma.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,46 +62,64 @@ namespace {
 constexpr int kSub = 128;  // rows per subtile
 
 // kPack: the packed epilogue, a compile-time choice so that the plain
-// store's kernel carries none of its code. kV > 0 fixes the tile width at
-// compile time; kV = 0 takes it from v_arg, any multiple of 128.
+// store's kernel carries none of its code. kV = 0 takes the tile width
+// from v_arg, any multiple of 128, and the block scores the slots [m0, m0
+// + kM) of M, m0 = m_base + blockIdx.y * kM, over rows [r0, r0 + kRows)
+// of the item's R rows (one part of them when R > kRows: a launch a
+// part). kV > 0 is the instance of one shape: V = kV, M = kM and R =
+// kRows (one chunk, one part), every extent a compile-time constant (the
+// launch takes it only there).
 template <int kM, int kRows, int kV, bool kPack>
 __global__ void __launch_bounds__(
     kMmaThreads, (MmaMinBlocks<kM, kRows, MmaU8S8>::value))
 score_item_kernel(const uint8_t* __restrict__ tiles,     // [rows, V]
                   const float* __restrict__ tile_scale,  // [rows]
-                  const int8_t* __restrict__ q,          // [G_cap, kM, V]
+                  const int8_t* __restrict__ q,          // [G_cap, M, V]
                   const int* __restrict__ work_region,   // [W_cap]
                   const int* __restrict__ work_g,        // [W_cap]
                   const int* __restrict__ work_s,        // [W_cap] or null
-                  int v_arg, int idx_mask, int pack_window,
-                  void* __restrict__ out) {
+                  int v_arg, int M, int m_base, int R, int r0, int idx_mask,
+                  int pack_window, void* __restrict__ out) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* s_out = reinterpret_cast<float*>(smem);
-  const int V = kV > 0 ? kV : v_arg;
+  constexpr bool kOne = kV > 0;
+  const int V = kOne ? kV : v_arg;
+  const int Mq = kOne ? kM : M;
+  const int Rq = kOne ? kRows : R;
+  const int rp = kOne ? 0 : r0;
 
   const int w = blockIdx.x;
-  const int col0 = kPack ? work_s[w] * kRows : 0;  // read before the dots
+  const int m0 = kOne ? 0 : m_base + blockIdx.y * kM;
+  const int col0 = kPack ? work_s[w] * Rq : 0;  // read before the dots
   score_item_mma<kM, kRows>(
-      tiles, tile_scale, q + static_cast<int64_t>(work_g[w]) * kM * V, V,
-      static_cast<int64_t>(work_region[w]) * kRows, smem, s_out);
+      tiles, tile_scale,
+      q + (static_cast<int64_t>(work_g[w]) * Mq + m0) * V, V,
+      static_cast<int64_t>(work_region[w]) * Rq + rp, smem, s_out);
 
-  // the item's block is contiguous in the output
-  if constexpr (kPack) {  // packed int32 [W_cap, kM, kRows / pack_window]
-    const int step = kRows / pack_window;
-    store_packed<kM, kRows>(
-        s_out, static_cast<int*>(out) + static_cast<int64_t>(w) * kM * step,
-        step, col0, idx_mask, pack_window, threadIdx.x, kMmaThreads);
-  } else {  // f32 [W_cap, kM, kRows]
+  // the item's slots are contiguous in the output
+  const int64_t slot0 = static_cast<int64_t>(w) * Mq + m0;
+  if constexpr (kPack) {  // packed int32 [W_cap, M, R / pack_window]
+    const int step = Rq / pack_window;
+    int* dst = static_cast<int*>(out) + slot0 * step;
+    if (Rq == kRows) {
+      store_packed<kM, kRows>(s_out, dst, step, col0, idx_mask, pack_window,
+                              threadIdx.x, kMmaThreads);
+    } else {
+      store_packed_part<kM, kRows>(s_out, dst, step, col0, rp, step,
+                                   idx_mask, threadIdx.x, kMmaThreads);
+    }
+  } else {  // f32 [W_cap, M, R]
     store_scores<kM, kRows>(
-        s_out, static_cast<float*>(out) + static_cast<int64_t>(w) * kM * kRows,
-        kRows, threadIdx.x, kMmaThreads);
+        s_out, static_cast<float*>(out) + slot0 * Rq + rp, Rq, threadIdx.x,
+        kMmaThreads);
   }
 }
 
 template <int kM, int kRows, int kV, bool kPack>
 int launch_one(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
                const int* work_region, const int* work_g, const int* work_s,
-               int W_cap, int V, int idx_mask, int pack_window, void* out,
+               int W_cap, int V, int M, int m_base, int n_y, int R,
+               int idx_mask, int pack_window, void* out,
                cudaStream_t stream) {
   static bool opted_in[kMaxDevices];
   constexpr int kQBytes = MmaU8S8::kParts;  // bytes a query value
@@ -109,64 +130,71 @@ int launch_one(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
                     kQBytes),
       opted_in);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem = mma_ring_smem(kM, kRows, V, kQBytes);
-  kernel<<<W_cap, kMmaThreads, smem, stream>>>(tiles, tile_scale, q,
-      work_region, work_g, work_s, V, idx_mask, pack_window, out);
+  const int smem = mma_launch_smem(kM, kRows, V, kQBytes);
+  // one launch a part of the item's R rows, in stream order (the packed
+  // epilogue's running max reads the parts before it)
+  for (int r0 = 0; r0 < R; r0 += kRows) {
+    kernel<<<dim3(W_cap, n_y), kMmaThreads, smem, stream>>>(
+        tiles, tile_scale, q, work_region, work_g, work_s, V, M, m_base, R,
+        r0, idx_mask, pack_window, out);
+  }
   return 0;
 }
 
 template <int kM, int kRows, int kV>
 int launch_v(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
              const int* work_region, const int* work_g, const int* work_s,
-             int W_cap, int V, int idx_mask, int pack_window, void* out,
-             cudaStream_t stream) {
+             int W_cap, int V, int M, int m_base, int n_y, int R,
+             int idx_mask, int pack_window, void* out, cudaStream_t stream) {
   return pack_window > 0
              ? launch_one<kM, kRows, kV, true>(
                    tiles, tile_scale, q, work_region, work_g, work_s, W_cap,
-                   V, idx_mask, pack_window, out, stream)
+                   V, M, m_base, n_y, R, idx_mask, pack_window, out,
+                   stream)
              : launch_one<kM, kRows, kV, false>(
                    tiles, tile_scale, q, work_region, work_g, work_s, W_cap,
-                   V, idx_mask, pack_window, out, stream);
+                   V, M, m_base, n_y, R, idx_mask, pack_window, out,
+                   stream);
 }
 
 // Timed in turns with one instance for every V (NVIDIA H100 80GB HBM3,
 // 700.00 W; harness/scorer_timing.py), the V 512 instance read faster at
 // the headline's B=16384 / M 16 and slower at B=4096 / M 8, so only M 16
-// at V 512 (csub 1 and 2) takes it.
+// at V 512 (csub 1 and 2, in one chunk and one part) takes it.
 template <int kM, int kRows>
 int launch(const uint8_t* tiles, const float* tile_scale, const int8_t* q,
            const int* work_region, const int* work_g, const int* work_s,
-           int W_cap, int V, int idx_mask, int pack_window, void* out,
-           cudaStream_t stream) {
+           int W_cap, int V, int M, int m_base, int n_y, int R,
+           int idx_mask, int pack_window, void* out, cudaStream_t stream) {
   if constexpr (kM == 16 && kRows <= 2 * kSub) {
-    if (V == 512) {
+    if (V == 512 && M == kM && R == kRows) {
       return launch_v<kM, kRows, 512>(tiles, tile_scale, q, work_region,
-                                      work_g, work_s, W_cap, V, idx_mask,
-                                      pack_window, out, stream);
+                                      work_g, work_s, W_cap, V, M, m_base,
+                                      n_y, R, idx_mask, pack_window,
+                                      out, stream);
     }
   }
   return launch_v<kM, kRows, 0>(tiles, tile_scale, q, work_region, work_g,
-                                work_s, W_cap, V, idx_mask, pack_window, out,
-                                stream);
+                                work_s, W_cap, V, M, m_base, n_y, R,
+                                idx_mask, pack_window, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The widest V at M query slots and csub: the warps' rings plus the [M, V]
-// int8 queries within 227 KB of shared memory, V a multiple of 128; 0 for
-// a pair past the shapes the library takes.
+// The widest V one chunk holds at M query slots and csub: the warps'
+// rings plus the [min(M, 32), V] int8 queries of the instance that serves
+// them within 227 KB of shared memory, V a multiple of 128 (a wider V is
+// walked in chunks); 0 for a shape past JAX's rule.
 int seismic_score_grouped_i8_item_max_v(int M, int csub) {
-  return mma_shape_ok(M, csub) ? mma_max_v(M, csub * kSub, MmaU8S8::kParts)
-                               : 0;
+  return mma_chunk_v(M, csub, MmaU8S8::kParts);
 }
 
-// M a multiple of 8 up to 32, csub 1 to 4, V a multiple of 128 up to the
-// cap above.
-// pack_window 0 writes f32 [W_cap, M, csub*128]; pack_window >= 1 writes
-// the packed int32 [W_cap, M, csub*128 / pack_window] with idx_mask =
-// 2^idx_bits - 1 and needs work_s.
+// M % 8 == 0, csub >= 1, V % 128 == 0. pack_window 0 writes f32
+// [W_cap, M, csub*128]; pack_window >= 1 writes the packed int32 [W_cap,
+// M, csub*128 / pack_window] with idx_mask = 2^idx_bits - 1 and needs
+// work_s.
 int seismic_score_grouped_i8_item(const uint8_t* tiles,
                                   const float* tile_scale, const int8_t* q,
                                   const int* work_region, const int* work_g,
@@ -174,17 +202,17 @@ int seismic_score_grouped_i8_item(const uint8_t* tiles,
                                   int csub, int idx_mask, int pack_window,
                                   void* out, cudaStream_t stream) {
   if (W_cap > 0) {
-    int rc;
-    if (V <= 0 || V % kVAlign != 0 ||
-        V > seismic_score_grouped_i8_item_max_v(M, csub)) {
-      rc = static_cast<int>(cudaErrorInvalidValue);
-    } else {
-      rc = dispatch_shape(M, csub, [&](auto m, auto rows) {
-        return launch<decltype(m)::value, decltype(rows)::value>(
-            tiles, tile_scale, q, work_region, work_g, work_s, W_cap, V,
-            idx_mask, pack_window, out, stream);
-      });
+    if (!mma_shape_ok(M, csub, V)) {
+      return static_cast<int>(cudaErrorInvalidValue);
     }
+    const int cc = chunk_csub(csub);
+    const int rc = for_m_chunks(M, [&](int km, int m_base, int n_y) {
+      return dispatch_shape(km, cc, [&](auto m, auto rows) {
+        return launch<decltype(m)::value, decltype(rows)::value>(
+            tiles, tile_scale, q, work_region, work_g, work_s, W_cap, V, M,
+            m_base, n_y, csub * kSub, idx_mask, pack_window, out, stream);
+      });
+    });
     if (rc != 0) return rc;
   }
   return static_cast<int>(cudaGetLastError());

@@ -12,7 +12,8 @@
 //   dst[m * row_stride + c] = max_{u < rk} packed(u * STEP + c)   (signed)
 // with mask = 2^idx_bits - 1 (idx_bits from the group's row capacity, given
 // by the caller) and col0 = work_s * kRows, the item's first row inside its
-// group. The integer max picks the window's best score (to 2^-(23-idx_bits)
+// group (an item walked in parts: store_packed_part, below). The integer
+// max picks the window's best score (to 2^-(23-idx_bits)
 // relative) together with its row; it never crosses a work item, so cells
 // nothing wrote conflate only with cells nothing wrote.
 //
@@ -60,5 +61,36 @@ __device__ __forceinline__ void store_packed(const float* s_out, int* dst,
       best = max(best, pack_score(row[r], col0 + r, mask));
     }
     dst[m * row_stride + c] = best;
+  }
+}
+
+// The same for one part of an item walked in parts (csub past 4): s_out
+// holds the item's rows [r0, r0 + kRows), and every window column c <
+// step (= item rows / rk) takes the max of the part's rows that land on
+// it, r = c + u * step. The part that holds row c (u = 0) is the first to
+// touch column c and writes it; a later part maxes into what the earlier
+// ones wrote. Each cell is read and written by one thread, the same in
+// every part, so the running max needs no barrier; an integer max of the
+// same packed values in another order, so equal to the plain version's.
+template <int kM, int kRows>
+__device__ __forceinline__ void store_packed_part(const float* s_out,
+                                                  int* dst,
+                                                  int64_t row_stride,
+                                                  int col0, int r0, int step,
+                                                  int mask, int tid,
+                                                  int n_threads) {
+  for (int i = tid; i < kM * step; i += n_threads) {
+    const int m = i / step;
+    const int c = i % step;
+    const int u0 = c >= r0 ? 0 : (r0 - c + step - 1) / step;
+    int r = c + u0 * step;
+    if (r >= r0 + kRows) continue;
+    const float* row = s_out + m * kRows;
+    int best = pack_score(row[r - r0], col0 + r, mask);
+    for (r += step; r < r0 + kRows; r += step) {
+      best = max(best, pack_score(row[r - r0], col0 + r, mask));
+    }
+    int* d = dst + m * row_stride + c;
+    *d = u0 == 0 ? best : max(*d, best);
   }
 }

@@ -41,9 +41,12 @@
 // Design: one block per query row of terms, serving that row's QC
 // consecutive pairs (one warp for QC = 1, the row-major entry point). Warp
 // 0 stages the row's real terms in shared memory by ballot compaction
-// (qloc_common.cuh); every distinct term id then enters a 512-slot
+// (qloc_common.cuh); every distinct term id then enters an
 // open-addressed hash table in shared memory (term_table.cuh, which the
-// fused rescore, rescore.cu, shares; 8-byte entries of an int32
+// fused rescore, rescore.cu, shares): 512 static slots up to 256 padded
+// terms, and past them, in an instance of its own (kBig), a table in
+// dynamic shared memory sized to the row's terms at a load factor <= 1/2;
+// 8-byte entries of an int32
 // key, PAD the empty key, which no staged term and no int16 code equals,
 // and the f32 sum of the id's values in term order), one atomicCAS a
 // term; only a row with a repeated id takes a second pass, in which the
@@ -53,7 +56,10 @@
 // together; about one 8-byte shared load a code at a load factor <= 1/8
 // for 64 terms), keeps up to 1024 values in registers while it reduces
 // the amax with shuffles, then quantizes and stores 8 codes a store.
-// Wider rows look their remaining chunks up twice.
+// Wider rows look their remaining chunks up twice. A row of more terms
+// than the largest table holds (8192) has no table: each code sums the
+// row's matching terms, walked in order in device memory, into the same
+// bits the table would give.
 //
 // The vocabulary is int16 (-1 padded) up to dim 32766 and int32
 // (PAD_COMPONENT padded) past it, the JAX package's vocab16 / list_vocab
@@ -68,14 +74,16 @@
 // K9 is the same body over one table of two kinds of key
 // (qloc_residue_kernel). Warp 0 stages the row's plain terms and then its
 // real bucket entries (id >= 0, so the -2 padding stays out), each in
-// order, into one array under the key key(id, t) = id * 2048 + t: t = r
+// order, into one array under the key key(id, t) = id * 65536 + t: t = r
 // for an entry of bucket r, t = R for a plain term (an id outside int16
-// equals no code and stays out). R <= 1024, so no two (id, t) share a key,
-// and a plain key never equals a bucket key. One table of all those keys
-// (dynamic shared memory, 2^bits slots, 512 to 4096, a load factor <= 1/4
-// for SC + R * scb keys where 4096 slots allow it, <= 5/16 for the most)
+// equals no code and stays out). R < 65535, so no two (id, t) share a
+// key, and a plain key never equals a bucket key. One table of all those
+// keys (dynamic shared memory, 2^bits slots from 512, a load factor <= 1/4
+// for SC + R * scb keys where 16384 slots allow it, <= 1/2 at the most)
 // is built from the array: most codes miss, and a miss walks on past
-// every key in its way, so the table is kept sparse. VRS and V are multiples of
+// every key in its way, so the table is kept sparse. Past that many keys
+// (or R) the row is walked: a code of group r sums bucket r's matching
+// entries, a spill code the plain terms, in order. VRS and V are multiples of
 // 8, so a chunk of 8 codes lies wholly in one group r or wholly in the
 // spill region: its lane looks up key(code, r), or key(code, R). A key
 // holds its entries' values summed in order from 0.0f, which is the
@@ -95,8 +103,8 @@
 //
 // K9 on an int32 vocabulary (dim past 32766, -1 padded after the residue
 // permutation; qloc_residue_kernel<int>) keys the same table by the pair
-// itself: id * 2048 + t is exact only for ids below 2^20, and the ids run
-// to 2^31 - 2. An entry is 16 bytes, (int32 id, int32 tag, f32 value
+// itself: id * 65536 + t is exact only for ids below 2^15, and the ids
+// run to 2^31 - 2. An entry is 16 bytes, (int32 id, int32 tag, f32 value
 // bits, unused): the 8-byte (id, tag) word is claimed by one 64-bit
 // atomicCAS, the empty key is (-1, -1) (no staged tag is negative), and
 // the slot is a multiplicative hash of id and tag. A probe is one 16-byte
@@ -104,9 +112,9 @@
 // the upload holds, and the sums are the int16 instance's, term order
 // kept. The plain terms are every id but PAD (a negative id matches the
 // vocab's -1 as the plain version's compare does), the bucket entries
-// the ids >= 0. The table has the int16 instance's 2^bits slots at twice
-// the bytes (up to 64 KB, plus 12 bytes a staged key), so past 48 KB of
-// dynamic shared memory the kernel is opted in once per device.
+// the ids >= 0. The table has up to 8192 slots at twice the int16 bytes
+// (128 KB, plus 12 bytes a staged key). Past 48 KB of dynamic shared
+// memory each kernel is opted in once per device.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -186,14 +194,19 @@ struct Buckets {
   int bits;          // the table has 2^bits slots
 };
 
-constexpr int kMaxBucketSlots = 1024;  // R * scb
-constexpr int kResidueMaxBits = 12;  // 32 KB of table at most (64 KB of pairs)
+// K9's tables: 2^bits slots, at a load factor <= 1/4 where the most slots
+// allow and <= 1/2 at the most; past that the row is walked (bits 0)
+constexpr int kResidueMaxBits = kTermMaxBits;      // 8-byte int16 keys
+constexpr int kPairsMaxBits = kTermMaxBits - 1;    // 16-byte pairs
 constexpr int kMinCode = -32768, kMaxCode = 32767;  // the int16 codes
+// tags an int16 key holds: a bucket r < R, or R for the plain terms
+constexpr int kMaxKeyTags = 65535;
 
-// K9's keys: an int16 id c with a tag t <= 1024 (a bucket r < R, or R for
-// the plain terms), distinct for every (c, t) and never kTermEmpty
+// K9's keys: an int16 id c with a tag t < kMaxKeyTags, distinct for every
+// (c, t) and never kTermEmpty (32767 * 65536 + 65535)
 __device__ __forceinline__ int key_of(int c, int t) {
-  return c * (2 * kMaxBucketSlots) + t;
+  return static_cast<int>(static_cast<unsigned>(c) * 65536u +
+                          static_cast<unsigned>(t));
 }
 
 // K9 on int32 ids: the table of (id, tag) pairs (16-byte entries: id, tag,
@@ -313,7 +326,7 @@ __device__ __forceinline__ void lookup8_pair(const int4* s_tab,
 
 // The kernels' body: a block per query row; lane l of a pair's warp holds
 // chunks l + 32 i, i < kHeldN.
-template <bool kResidue, int kHeldN, class T>
+template <bool kResidue, int kHeldN, class T, bool kBig = false>
 __device__ __forceinline__ void qloc_body(
     const T* __restrict__ vocab,        // [n_lists, V] or [P, V]
     const int* __restrict__ pair_list,  // [P], or null: row p
@@ -324,28 +337,37 @@ __device__ __forceinline__ void qloc_body(
     float* __restrict__ scale,          // [P]
     float* __restrict__ out_f32,        // [P, V], or null: quantize
     const Buckets& bk) {                // K9 only
-  // K1: the staged terms and the 512-slot table, static; K9: the table of
-  // 2^bits slots, then its SC + R * scb staged keys and values, dynamic
-  // (on int32 ids the table of pairs and the staged pairs)
+  // K1 / K8 up to kTermStaticTerms terms (kStatic): the staged terms and
+  // the 512-slot table, static. Else dynamic: the table of 2^bits slots
+  // (K1 past them: term_bits(SC); K9: bk.bits), then the row's staged
+  // keys and values (K1: SC; K9: SC + R * scb; on int32 ids the table of
+  // pairs and the staged pairs). bits 0: no table, the row's terms (and
+  // K9's buckets) are walked in device memory.
   constexpr bool kPairs = kResidue && sizeof(T) == 4;
-  __shared__ int s_qc1[kResidue ? 1 : kQlocMaxTerms];
-  __shared__ float s_qv1[kResidue ? 1 : kQlocMaxTerms];
-  __shared__ int2 s_tab1[kResidue ? 1 : kTermSlots];
+  constexpr bool kStatic = !kResidue && !kBig;
+  __shared__ int s_qc1[kStatic ? kTermStaticTerms : 1];
+  __shared__ float s_qv1[kStatic ? kTermStaticTerms : 1];
+  __shared__ int2 s_tab1[kStatic ? kTermSlots : 1];
   __shared__ int s_n;
   __shared__ int s_dup;  // some key repeats in the row
   extern __shared__ __align__(16) int2 s_dyn[];
-  const int bits = kResidue ? bk.bits : kTermBits;
+  const int bits = kStatic    ? kTermBits
+                   : kResidue ? bk.bits
+                              : (SC > kTableMaxTerms ? 0 : term_bits(SC));
+  const bool walk = !kStatic && bits == 0;
   const int n_keys = SC + bk.R * bk.scb;
-  int2* s_tab = kResidue ? s_dyn : s_tab1;  // (key, f32 value bits)
-  int* s_qc = kResidue ? reinterpret_cast<int*>(s_dyn + (1 << bits)) : s_qc1;
-  float* s_qv = kResidue ? reinterpret_cast<float*>(s_qc + n_keys) : s_qv1;
+  int2* s_tab = kStatic ? s_tab1 : s_dyn;  // (key, f32 value bits)
+  int* s_qc = kStatic ? s_qc1 : reinterpret_cast<int*>(s_dyn + (1 << bits));
+  float* s_qv = kStatic ? s_qv1 : reinterpret_cast<float*>(s_qc + n_keys);
   int4* s_ptab = reinterpret_cast<int4*>(s_dyn);  // kPairs only
   int2* s_pkey = reinterpret_cast<int2*>(s_ptab + (1 << bits));
   float* s_pval = reinterpret_cast<float*>(s_pkey + n_keys);
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
-  if constexpr (kPairs) {
+  if (walk) {
+    // nothing to build
+  } else if constexpr (kPairs) {
     for (int i = tid; i < (1 << bits); i += blockDim.x) {
       s_ptab[i] = make_int4(-1, -1, 0, 0);
     }
@@ -396,10 +418,38 @@ __device__ __forceinline__ void qloc_body(
   auto tag_of = [&](int c) {
     return 8 * c < n_group ? 8 * c / bk.VRS : bk.R;
   };
+  // Without a table: the values of the 8 codes k, each the sum in order
+  // from 0.0f of the entries equal to it among K9's bucket `tag` (ids >=
+  // 0) or, in the spill region and in K1 / K8, the row's plain terms (not
+  // PAD): what the table's keys hold, bit for bit.
+  auto walk8 = [&](int tag, const int (&k)[8], float (&x)[8]) {
+    const bool bucket = kResidue && tag < bk.R;
+    const int64_t at = bucket ? (static_cast<int64_t>(b) * bk.R + tag) *
+                                    bk.scb
+                              : static_cast<int64_t>(b) * SC;
+    const int* ids = (bucket ? bk.qcb : qc) + at;
+    const float* vals = (bucket ? bk.qvb : qv) + at;
+    const int n = bucket ? bk.scb : SC;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const int c = __ldg(ids + i);
+      if (bucket ? c < 0 : c == kQlocPad) continue;
+      const float v = __ldg(vals + i);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (k[j] == c) x[j] = __fadd_rn(x[j], v);
+      }
+    }
+  };
   // chunk c's 8 values: its codes' keys looked up, key(code, tag) for K9
   auto find8 = [&](int tag, const Codes<T>& chunk, float (&x)[8]) {
     int k[8];
     chunk.decode(k);
+    if (walk) {
+      walk8(tag, k, x);
+      return;
+    }
     if constexpr (kPairs) {
       lookup8_pair(s_ptab, k, tag, x, bits);
       return;
@@ -473,9 +523,12 @@ __device__ __forceinline__ void qloc_body(
       float* __restrict__ out_f32, Buckets bk
 #define QLOC_ARGS vocab, pair_list, qc, qv, V, SC, QC, out, scale, out_f32, bk
 
-template <class T>
+// kBig: a row of more than kTermStaticTerms terms (its table sized at run
+// time, or walked), an instance of its own, so the one of every main path
+// keeps its static table and compile-time hash
+template <class T, bool kBig>
 __global__ void __launch_bounds__(kQlocThreads) qloc_kernel(QLOC_PARAMS) {
-  qloc_body<false, kHeld, T>(QLOC_ARGS);
+  qloc_body<false, kHeld, T, kBig>(QLOC_ARGS);
 }
 
 // K9 keeps more in registers than K1 (its chunks' tags, the key
@@ -491,56 +544,41 @@ __global__ void __launch_bounds__(kQlocThreads, kResidueBlocks)
   qloc_body<true, kResidueHeld, T>(QLOC_ARGS);
 }
 
-// The int32 instance of K9 past 48 KB of dynamic shared memory: opted in
-// once per device to its most (2^12 slots of 16 bytes and 1280 staged
-// pairs of 12).
-constexpr int kMaxDevices = 64;
-constexpr int kPairsMaxSmem = (16 << kResidueMaxBits) + kMaxBucketSlots * 12 +
-                              kQlocMaxTerms * 12;
-bool g_pairs_opted[kMaxDevices];
-
-template <typename F>
-cudaError_t opt_in_pairs(F kernel) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && g_pairs_opted[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kPairsMaxSmem);
-  if (e == cudaSuccess && dev < kMaxDevices) g_pairs_opted[dev] = true;
-  return e;
-}
-
 template <bool kResidue, class T>
 int launch(const T* vocab, const int* pair_list, const int* qc,
            const float* qv, int P, int V, int SC, int QC, int8_t* out,
            float* scale, float* out_f32, const Buckets& bk,
            cudaStream_t stream) {
-  if (V % 8 != 0 || SC > kQlocMaxTerms) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (V % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (P > 0) {
     // QC pairs on as few rounds of at most 8 warps as they need
     const int rounds = (QC + kMaxWarps - 1) / kMaxWarps;
     const int warps = (QC + rounds - 1) / rounds;
     const dim3 grid(P / QC), block(warps * 32);
+    // the table, then the staged keys and values (K9 on int32 ids:
+    // 16-byte entries and 12 bytes a staged pair); none for a walked row.
+    // Past 48 KB each instance is opted in once per device to the most
+    // any row takes (kTermMaxSmem bounds all three layouts).
+    static bool opted[kMaxDevices];
+    size_t smem = 0;
+    auto kernel = qloc_kernel<T, false>;
     if constexpr (kResidue) {
-      // the table, then the staged keys and values (on int32 ids 16-byte
-      // entries and 12 bytes a staged pair)
       constexpr bool pairs = sizeof(T) == 4;
-      const size_t smem =
-          ((pairs ? sizeof(int4) : sizeof(int2)) << bk.bits) +
-          static_cast<size_t>(SC + bk.R * bk.scb) * (pairs ? 12 : 8);
-      if constexpr (pairs) {
-        if (smem > 48 * 1024) {
-          const cudaError_t e = opt_in_pairs(qloc_residue_kernel<T>);
-          if (e != cudaSuccess) return static_cast<int>(e);
-        }
-      }
-      qloc_residue_kernel<T><<<grid, block, smem, stream>>>(QLOC_ARGS);
-    } else {
-      qloc_kernel<T><<<grid, block, 0, stream>>>(QLOC_ARGS);
+      smem = bk.bits == 0
+                 ? 0
+                 : ((pairs ? sizeof(int4) : sizeof(int2)) << bk.bits) +
+                       static_cast<size_t>(SC + bk.R * bk.scb) *
+                           (pairs ? 12 : 8);
+      kernel = qloc_residue_kernel<T>;
+    } else if (SC > kTermStaticTerms) {
+      smem = term_smem(SC);
+      kernel = qloc_kernel<T, true>;
     }
+    if (smem > 48 * 1024) {
+      const cudaError_t e = opt_in_smem(kernel, kTermMaxSmem, opted);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, block, smem, stream>>>(QLOC_ARGS);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -554,8 +592,6 @@ constexpr Buckets kNoBuckets = {nullptr, nullptr, 0, 0, 0, 0};
 
 extern "C" {
 
-int seismic_qloc_max_terms() { return kQlocMaxTerms; }
-int seismic_qloc_residue_max_bucket_slots() { return kMaxBucketSlots; }
 
 // K1 over vocab [n_lists, V] of vocab_bytes 2 (int16, -1 padded) or 4
 // (int32, PAD_COMPONENT padded); qc / qv [B, SC], P = B * QC
@@ -607,21 +643,29 @@ int seismic_qloc_rowmajor(const void* vocab_rows, int vocab_bytes,
 // K9: vocab residue-ordered (R groups of VRS slots, then the spill) of
 // vocab_bytes 2 (int16) or 4 (int32), -1 padded; qcb / qvb [B, R * scb].
 // out_f32 null: int8 out [P, V] + scale [P]; else the f32 projection.
-// V % 8 == 0, VRS % 8 == 0, R * VRS <= V, SC <= 256, R * scb <= 1024.
+// V % 8 == 0, VRS % 8 == 0, R * VRS <= V; any SC, R and scb.
 int seismic_qloc_residue(const void* vocab, int vocab_bytes,
                          const int* pair_list,
                          const int* qcb, const float* qvb, const int* qc,
                          const float* qv, int P, int V, int SC, int QC,
                          int R, int scb, int VRS, int8_t* out, float* scale,
                          float* out_f32, cudaStream_t stream) {
-  if (R <= 0 || scb <= 0 || R * scb > kMaxBucketSlots || VRS < 0 ||
-      VRS % 8 != 0 || R * VRS > V) {
+  if (R <= 0 || scb <= 0 || VRS < 0 || VRS % 8 != 0 ||
+      static_cast<int64_t>(R) * VRS > V) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // a load factor <= 1/4 for SC plain terms and R * scb bucket entries,
-  // in at most 2^12 slots (<= 5/16 for the most keys, 256 + 1024)
+  // a load factor <= 1/4 for SC plain terms and R * scb bucket entries
+  // where the most slots allow, <= 1/2 at the most; past that (or past
+  // the tags an int16 key holds) the row is walked (bits 0)
+  const int64_t keys = static_cast<int64_t>(SC) + static_cast<int64_t>(R) *
+                                                      scb;
+  const int max_bits = vocab_bytes == 4 ? kPairsMaxBits : kResidueMaxBits;
   int bits = kTermBits;
-  while (bits < kResidueMaxBits && (1 << bits) < 4 * (SC + R * scb)) ++bits;
+  while (bits < max_bits && (int64_t{1} << bits) < 4 * keys) ++bits;
+  if ((int64_t{1} << bits) < 2 * keys ||
+      (vocab_bytes != 4 && R >= kMaxKeyTags)) {
+    bits = 0;
+  }
   const Buckets bk = {qcb, qvb, R, scb, VRS, bits};
   if (vocab_bytes == 4) {
     return launch<true>(static_cast<const int32_t*>(vocab), pair_list, qc,

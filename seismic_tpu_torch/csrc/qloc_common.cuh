@@ -6,8 +6,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "opt_in.cuh"
+
 constexpr int kQlocThreads = 256;
-constexpr int kQlocMaxTerms = 256;
 constexpr int kQlocPad = 0x7fffffff;        // PAD_COMPONENT
 
 // Order-keeping compaction, by the one warp that calls it, with one ballot

@@ -21,7 +21,13 @@
 // terms by ballot compaction (qloc_common.cuh), and the block enters them
 // into K1's shared-memory hash table (term_table.cuh), which holds each
 // id's values summed in term order: one lookup then gives an entry's
-// inner sum bit for bit. A warp takes one candidate row at a time and
+// inner sum bit for bit. A query of more than the static table's 256
+// terms takes an instance of its own (kBig) whose table is sized to the
+// row at run time in dynamic shared memory, as K1's (term_bits /
+// term_smem of term_table.cuh: 2^bits slots at a load factor <= 1/2, up
+// to 8192 terms in 192 KB); only past those does it walk its terms in
+// device memory (term_walk), with the same sums. A warp takes one
+// candidate row at a time and
 // reads its ids in chunks of 64 (8 bytes a lane): the first two chunks at
 // once, then one chunk at a time while the last one was full. A row's
 // padding sits at its end, so a chunk with a PAD id ends the row (found
@@ -122,18 +128,81 @@ __device__ __forceinline__ const int* start_row(const int* fwd, int d,
   return row;
 }
 
-__global__ void __launch_bounds__(kThreads, 8)
+// A block's query terms: its row b of SC terms (the kernel's operands).
+// kBig false (SC <= kTermStaticTerms): the block's static 512-slot table
+// and staged terms, a compile-time hash. kBig: a table of term_bits(SC)
+// bits at the start of dynamic shared memory, the staged terms after it
+// (term_smem(SC) bytes), or past kTableMaxTerms no table (bits 0) and the
+// row walked in device memory (term_walk), with the same sums. The build
+// ends on a barrier.
+template <bool kBig>
+struct Terms {
+  const int* qc;    // [B, SC]
+  const float* qv;  // [B, SC]
+  int SC;
+  int bits;         // the table's; 0: walked
+  int2* tab;        // (term id, f32 value bits)
+  int* s_qc;
+  float* s_qv;
+
+  __device__ __forceinline__ Terms(const int* qc_, const float* qv_, int SC_,
+                                   int2* s_tab1, int* s_qc1, float* s_qv1,
+                                   int2* s_dyn)
+      : qc(qc_), qv(qv_), SC(SC_) {
+    if constexpr (kBig) {
+      bits = SC > kTableMaxTerms ? 0 : term_bits(SC);
+      tab = s_dyn;
+      s_qc = reinterpret_cast<int*>(s_dyn + (1 << bits));
+      s_qv = reinterpret_cast<float*>(s_qc + SC);
+    } else {
+      bits = kTermBits;
+      tab = s_tab1;
+      s_qc = s_qc1;
+      s_qv = s_qv1;
+    }
+  }
+  __device__ __forceinline__ bool walk() const { return kBig && bits == 0; }
+  __device__ __forceinline__ float walk_value(int c) const {
+    const int64_t row = static_cast<int64_t>(blockIdx.x) * SC;
+    return term_walk(qc + row, qv + row, SC, c);
+  }
+  // stage and enter row b's real terms (table path), or only wait (walk)
+  __device__ __forceinline__ void build(int* s_n, int* s_dup) const {
+    if (walk()) {
+      __syncthreads();
+      return;
+    }
+    term_table_clear(tab, s_dup, bits);
+    stage_terms(qc, qv, blockIdx.x, SC, s_qc, s_qv, s_n);
+    __syncthreads();
+    term_table_build(tab, s_qc, s_qv, *s_n, s_dup, bits);
+  }
+};
+
+// The block's static term arrays: the static table's, or one element each
+// where kBig keeps its table in dynamic shared memory.
+#define K3_TERM_SMEM(kBig)                                   \
+  __shared__ int s_qc1[(kBig) ? 1 : kTermStaticTerms];       \
+  __shared__ float s_qv1[(kBig) ? 1 : kTermStaticTerms];     \
+  __shared__ int2 s_tab1[(kBig) ? 1 : kTermSlots];           \
+  extern __shared__ __align__(16) int2 s_dyn[];              \
+  __shared__ int s_n;                                        \
+  __shared__ int s_dup
+
+// Blocks an SM of the kBig instances: their table's bits and pointers
+// take registers that the static table's compile-time hash does not
+constexpr int kBigFusedBlocks = 4;
+constexpr int kBigLeanBlocks = 2;
+
+template <bool kBig>
+__global__ void __launch_bounds__(kThreads, kBig ? kBigFusedBlocks : 8)
 rescore_fused_kernel(const int* __restrict__ fwd,      // [n_docs, 2W]
                      const int* __restrict__ doc_ids,  // [B, R]
                      const int* __restrict__ qc,       // [B, SC]
                      const float* __restrict__ qv,     // [B, SC]
                      int n_docs, int W, int R, int SC,
                      float* __restrict__ out) {        // [B, R]
-  __shared__ int s_qc[kQlocMaxTerms];
-  __shared__ float s_qv[kQlocMaxTerms];
-  __shared__ int2 s_tab[kTermSlots];  // (term id, f32 value bits)
-  __shared__ int s_n;
-  __shared__ int s_dup;
+  K3_TERM_SMEM(kBig);
 
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -144,10 +213,8 @@ rescore_fused_kernel(const int* __restrict__ fwd,      // [n_docs, 2W]
   int c[4] = {kPad, kPad, kPad, kPad};  // [chunk][2] ids
   const int* row = r < R ? start_row(fwd, __ldg(ids_b + r), n_docs, W, c)
                          : fwd;
-  term_table_clear(s_tab, &s_dup);
-  stage_terms(qc, qv, b, SC, s_qc, s_qv, &s_n);
-  __syncthreads();
-  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);
+  const Terms<kBig> terms(qc, qv, SC, s_tab1, s_qc1, s_qv1, s_dyn);
+  terms.build(&s_n, &s_dup);
 
   for (; r < R; r += kWarps) {
     const int d_next = r + kWarps < R ? __ldg(ids_b + r + kWarps) : 0;
@@ -156,7 +223,12 @@ rescore_fused_kernel(const int* __restrict__ fwd,      // [n_docs, 2W]
     int step = 2;  // chunks in c this round
     while (true) {
       float a[4];
-      term_find_n(s_tab, c, a);
+      if (terms.walk()) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = terms.walk_value(c[j]);
+      } else {
+        term_find_n(terms.tab, c, a, terms.bits);
+      }
       // the value bits where a term hits, both loads issued before a use
       int2 v[2];
 #pragma unroll
@@ -436,38 +508,43 @@ __device__ __forceinline__ unsigned part_hits(const Part<F>& p,
 // This lane's share of the row's score: each id tested in the filter,
 // and only the hits looked up, decoded and multiplied by their summed
 // value.
-template <class F>
+template <class F, bool kBig>
 __device__ __forceinline__ float score_part(const Part<F>& p,
                                             const unsigned* s_bits,
-                                            const int2* s_tab) {
+                                            const Terms<kBig>& terms) {
   unsigned hit = part_hits(p, s_bits);
   float part = 0.0f;
   while (hit != 0u) {
     const int j = __ffs(hit) - 1;
     hit &= hit - 1u;
     const int c = static_cast<int>(part_id(p, j));
-    const float t = F::kWide ? term_find_or_zero(s_tab, c)
-                             : term_find_present(s_tab, c);
+    float t;
+    if (terms.walk()) {
+      t = terms.walk_value(c);
+    } else {
+      t = F::kWide ? term_find_or_zero(terms.tab, c, terms.bits)
+                   : term_find_present(terms.tab, c, terms.bits);
+    }
     part += __fmul_rn(part_value(p, j), t);
   }
   return part;
 }
 
 // Score row r (doc d >= 0, its first span in p) and write it.
-template <class F, bool kVec>
+template <class F, bool kVec, bool kBig>
 __device__ __forceinline__ void finish_row(
     const Part<F>& p, int d, int r, const void* __restrict__ ids,
     const void* __restrict__ codes, const float* __restrict__ vmin,
     const float* __restrict__ vstep, const unsigned* s_bits,
-    const int2* s_tab, int W, float* __restrict__ out_b) {
-  float part = score_part(p, s_bits, s_tab);
+    const Terms<kBig>& terms, int W, float* __restrict__ out_b) {
+  float part = score_part<F, kBig>(p, s_bits, terms);
   // a row longer than a span goes on while its last span held no padding
   if (W > kSpanU8) {
     Part<F> c = p;
     for (int w0 = kSpanU8; w0 < W; w0 += kSpanU8) {
       if (__ballot_sync(0xffffffffu, part_has_pad(c)) != 0u) break;
       c = load_part<F, kVec>(ids, codes, vmin, vstep, d, w0, W);
-      part += score_part(c, s_bits, s_tab);
+      part += score_part<F, kBig>(c, s_bits, terms);
     }
   }
 #pragma unroll
@@ -477,8 +554,12 @@ __device__ __forceinline__ void finish_row(
   if ((threadIdx.x & 31) == 0) out_b[r] = part;
 }
 
-template <class F, bool kVec, bool kSkip>
-__global__ void __launch_bounds__(kThreads, F::kBlocks)
+// kBig: a query of more than kTermStaticTerms terms, its table in dynamic
+// shared memory or its row walked (Terms; an instance of its own, so the
+// static table's carries nothing of it)
+template <class F, bool kVec, bool kSkip, bool kBig>
+__global__ void __launch_bounds__(kThreads,
+                                  kBig ? kBigLeanBlocks : F::kBlocks)
 rescore_lean_kernel(const void* __restrict__ ids,    // [n_docs, W]
                     const void* __restrict__ codes,  // [n_docs, W] or null
                     const float* __restrict__ vmin,  // [n_docs] or null
@@ -488,12 +569,8 @@ rescore_lean_kernel(const void* __restrict__ ids,    // [n_docs, W]
                     const float* __restrict__ qv,    // [B, SC]
                     int n_docs, int W, int R, int SC,
                     float* __restrict__ out) {       // [B, R]
-  __shared__ int s_qc[kQlocMaxTerms];
-  __shared__ float s_qv[kQlocMaxTerms];
-  __shared__ int2 s_tab[kTermSlots];
+  K3_TERM_SMEM(kBig);
   __shared__ unsigned s_bits[kFilterWords];
-  __shared__ int s_n;
-  __shared__ int s_dup;
 
   const int64_t base = static_cast<int64_t>(blockIdx.x) * R;
   const int* ids_b = doc_ids + base;
@@ -547,40 +624,84 @@ rescore_lean_kernel(const void* __restrict__ ids,    // [n_docs, W]
   bool have_a = next_row(ra, da);
   Part<F> a;
   if (have_a) a = load_part<F, kVec>(ids, codes, vmin, vstep, da, 0, W);
-  term_table_clear(s_tab, &s_dup);
   term_filter_clear(s_bits);
-  stage_terms(qc, qv, blockIdx.x, SC, s_qc, s_qv, &s_n);
-  __syncthreads();
-  term_filter_build<F::kWide>(s_bits, s_qc, s_n);
-  term_table_build(s_tab, s_qc, s_qv, s_n, &s_dup);  // its barrier: both
+  const Terms<kBig> terms(qc, qv, SC, s_tab1, s_qc1, s_qv1, s_dyn);
+  if (terms.walk()) {
+    // the filter from the row in device memory, after the clear
+    __syncthreads();
+    term_filter_build<F::kWide>(
+        s_bits, qc + static_cast<int64_t>(blockIdx.x) * SC, SC);
+    __syncthreads();
+  } else {
+    term_table_clear(terms.tab, &s_dup, terms.bits);
+    stage_terms(qc, qv, blockIdx.x, SC, terms.s_qc, terms.s_qv, &s_n);
+    __syncthreads();
+    term_filter_build<F::kWide>(s_bits, terms.s_qc, s_n);
+    // its barrier: both
+    term_table_build(terms.tab, terms.s_qc, terms.s_qv, s_n, &s_dup,
+                     terms.bits);
+  }
 
   while (have_a) {
     const bool have_b = next_row(rb, db);
     // with no next row, this row's part again: an L1 hit, never scored
     const Part<F> b = load_part<F, kVec>(ids, codes, vmin, vstep,
                                          have_b ? db : da, 0, W);
-    finish_row<F, kVec>(a, da, ra, ids, codes, vmin, vstep, s_bits, s_tab,
-                        W, out_b);
+    finish_row<F, kVec, kBig>(a, da, ra, ids, codes, vmin, vstep, s_bits,
+                              terms, W, out_b);
     if (!have_b) break;
     have_a = next_row(ra, da);
     a = load_part<F, kVec>(ids, codes, vmin, vstep, have_a ? da : db, 0, W);
-    finish_row<F, kVec>(b, db, rb, ids, codes, vmin, vstep, s_bits, s_tab,
-                        W, out_b);
+    finish_row<F, kVec, kBig>(b, db, rb, ids, codes, vmin, vstep, s_bits,
+                              terms, W, out_b);
   }
 }
 
-template <class F, bool kVec>
-void launch_lean(const void* ids, const void* codes, const float* vmin,
-                 const float* vstep, const int* doc_ids, const int* qc,
-                 const float* qv, int B, int R, int SC, int n_docs, int W,
-                 bool skip, float* out, cudaStream_t stream) {
-  if (skip) {
-    rescore_lean_kernel<F, kVec, true><<<B, kThreads, 0, stream>>>(
-        ids, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
+// The dynamic shared memory of a kBig instance for a row of SC terms
+// (term_smem: 0 where the row is walked), the kernel opted in once per
+// device to the most any row takes; minus the CUDA error if that failed.
+template <typename K>
+int big_smem(K kernel, int SC, bool (&opted)[kMaxDevices]) {
+  const int smem = term_smem(SC);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = opt_in_smem(kernel, kTermMaxSmem, opted);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+  }
+  return smem;
+}
+
+template <class F, bool kVec, bool kSkip>
+int launch_lean_one(const void* ids, const void* codes, const float* vmin,
+                    const float* vstep, const int* doc_ids, const int* qc,
+                    const float* qv, int B, int R, int SC, int n_docs, int W,
+                    float* out, cudaStream_t stream) {
+  if (SC > kTermStaticTerms) {
+    // the kBig instance loads a part's entries one at a time (one instance
+    // a form and contract, whatever the alignment)
+    auto kernel = rescore_lean_kernel<F, false, kSkip, true>;
+    static bool opted[kMaxDevices];
+    const int rc = big_smem(kernel, SC, opted);
+    if (rc < 0) return -rc;
+    kernel<<<B, kThreads, rc, stream>>>(ids, codes, vmin, vstep, doc_ids, qc,
+                                        qv, n_docs, W, R, SC, out);
   } else {
-    rescore_lean_kernel<F, kVec, false><<<B, kThreads, 0, stream>>>(
+    rescore_lean_kernel<F, kVec, kSkip, false><<<B, kThreads, 0, stream>>>(
         ids, codes, vmin, vstep, doc_ids, qc, qv, n_docs, W, R, SC, out);
   }
+  return 0;
+}
+
+template <class F, bool kVec>
+int launch_lean(const void* ids, const void* codes, const float* vmin,
+                const float* vstep, const int* doc_ids, const int* qc,
+                const float* qv, int B, int R, int SC, int n_docs, int W,
+                bool skip, float* out, cudaStream_t stream) {
+  return skip ? launch_lean_one<F, kVec, true>(ids, codes, vmin, vstep,
+                                               doc_ids, qc, qv, B, R, SC,
+                                               n_docs, W, out, stream)
+              : launch_lean_one<F, kVec, false>(ids, codes, vmin, vstep,
+                                                doc_ids, qc, qv, B, R, SC,
+                                                n_docs, W, out, stream);
 }
 
 bool aligned(const void* p, uintptr_t a) {
@@ -599,13 +720,14 @@ int run_lean(const void* ids, const void* codes, const float* vmin,
     const bool vec = W % 8 == 0 && aligned(ids, 16) &&
                      (F::kVal == Val::kF16 ||
                       aligned(codes, F::kVal == Val::kU8 ? 8 : 16));
-    if (vec) {
-      launch_lean<F, true>(ids, codes, vmin, vstep, doc_ids, qc, qv, B, R,
-                           SC, n_docs, W, skip != 0, out, stream);
-    } else {
-      launch_lean<F, false>(ids, codes, vmin, vstep, doc_ids, qc, qv, B, R,
-                            SC, n_docs, W, skip != 0, out, stream);
-    }
+    const int rc =
+        vec ? launch_lean<F, true>(ids, codes, vmin, vstep, doc_ids, qc, qv,
+                                   B, R, SC, n_docs, W, skip != 0, out,
+                                   stream)
+            : launch_lean<F, false>(ids, codes, vmin, vstep, doc_ids, qc,
+                                    qv, B, R, SC, n_docs, W, skip != 0, out,
+                                    stream);
+    if (rc != 0) return rc;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -614,14 +736,24 @@ int run_lean(const void* ids, const void* codes, const float* vmin,
 
 extern "C" {
 
-int seismic_rescore_max_terms() { return kQlocMaxTerms; }
-
+// Any SC: up to 256 the query's terms go into the static table, past it
+// into one sized at run time in dynamic shared memory, and past 8192 they
+// are walked in device memory.
 int seismic_rescore_fused(const int* fwd, const int* doc_ids, const int* qc,
                           const float* qv, int B, int R, int SC, int n_docs,
                           int W, float* out, cudaStream_t stream) {
   if (B > 0 && R > 0) {
-    rescore_fused_kernel<<<B, kThreads, 0, stream>>>(fwd, doc_ids, qc, qv,
-                                                     n_docs, W, R, SC, out);
+    if (SC > kTermStaticTerms) {
+      auto kernel = rescore_fused_kernel<true>;
+      static bool opted[kMaxDevices];
+      const int rc = big_smem(kernel, SC, opted);
+      if (rc < 0) return -rc;
+      kernel<<<B, kThreads, rc, stream>>>(fwd, doc_ids, qc, qv, n_docs, W, R,
+                                          SC, out);
+    } else {
+      rescore_fused_kernel<false><<<B, kThreads, 0, stream>>>(
+          fwd, doc_ids, qc, qv, n_docs, W, R, SC, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,18 +27,20 @@ __device__ __forceinline__ void term_filter_clear(unsigned* s_bits) {
   for (int i = threadIdx.x; i < kFilterWords; i += blockDim.x) s_bits[i] = 0u;
 }
 
-// Set the bits of the n staged terms (one atomicOr a term): an int16
-// term's own bit (a term outside the int16 range matches no entry and
-// sets nothing), or with kHashed the bit of its low 16 bits. No barrier:
-// the caller synchronises before the first test (term_table_build's
-// barrier does, when it runs after this).
+// Set the bits of the n terms of qc (the staged ones, or a row in device
+// memory; one atomicOr a term): an int16 term's own bit (a term outside
+// the int16 range matches no entry and sets nothing), or with kHashed the
+// bit of its low 16 bits; a PAD term sets none. No barrier: the caller
+// synchronises before the first test (term_table_build's barrier does,
+// when it runs after this).
 template <bool kHashed>
 __device__ __forceinline__ void term_filter_build(unsigned* s_bits,
-                                                  const int* s_qc, int n) {
+                                                  const int* qc, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int c = s_qc[i];
-    if (kHashed ||
-        static_cast<unsigned>(c) < static_cast<unsigned>(kFilterIds)) {
+    const int c = qc[i];
+    if (kHashed ? c != kTermEmpty
+                : static_cast<unsigned>(c) <
+                      static_cast<unsigned>(kFilterIds)) {
       atomicOr(&s_bits[(c >> 5) & (kFilterWords - 1)], 1u << (c & 31));
     }
   }
@@ -67,11 +69,12 @@ __device__ __forceinline__ unsigned term_filter_pair(const unsigned* s_bits,
 
 // The summed value of id c, which the table holds (its filter bit is
 // set): the walk ends on c, never on an empty slot.
-__device__ __forceinline__ float term_find_present(const int2* s_tab, int c) {
-  int h = term_slot(c);
+__device__ __forceinline__ float term_find_present(const int2* s_tab, int c,
+                                                   int bits = kTermBits) {
+  int h = term_slot(c, bits);
   int2 e = s_tab[h];
   while (e.x != c) {
-    h = term_next(h);
+    h = term_next(h, bits);
     e = s_tab[h];
   }
   return __int_as_float(e.y);
@@ -80,11 +83,12 @@ __device__ __forceinline__ float term_find_present(const int2* s_tab, int c) {
 // The summed value of id c, or 0.0f where no term has it (the walk ends on
 // an empty slot, whose value bits are 0; a PAD id finds the empty key).
 __device__ __forceinline__ float term_find_or_zero(const int2* s_tab,
-                                                   int c) {
-  int h = term_slot(c);
+                                                   int c,
+                                                   int bits = kTermBits) {
+  int h = term_slot(c, bits);
   int2 e = s_tab[h];
   while (e.x != c && e.x != kTermEmpty) {
-    h = term_next(h);
+    h = term_next(h, bits);
     e = s_tab[h];
   }
   return e.x == c ? __int_as_float(e.y) : 0.0f;

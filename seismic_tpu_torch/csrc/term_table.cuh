@@ -1,19 +1,14 @@
 // The term lookup shared by the projection (qloc.cu: K1, K8, K9) and the
 // fused rescore (rescore.cu, K3): an open-addressed hash table in shared
-// memory of one query row's real terms, built once a block. The row's
-// plain terms take a 512-slot table (kTermBits); K9's table of its plain
-// terms and bucket entries (up to 1280 keys) takes 2^bits slots, sized by
-// its caller for a load factor <= 5/16.
-//
-// An entry is 8 bytes, (int32 term id, f32 value bits); PAD_COMPONENT is
-// the empty key. The staged terms never hold PAD (stage_terms drops it),
-// and term_find_n answers a PAD id with 0.0f without probing (an empty
-// slot's key is PAD too, so a probe would "find" it). The table holds
-// each id's values summed in term order from 0.0f, as a compare loop over
-// the terms adds them: 0.0f + v for an id that appears once (which turns
-// -0.0 into +0.0, as that loop does); a row with a repeated id takes a
-// second pass in which the first of its terms sums them in order. So a
-// lookup gives the loop's sum bit for bit.
+// memory of one query row's real terms, built once a block. Up to 256
+// terms K1 / K8 and K3 keep a static 512-slot table (kTermSlots); past
+// them K1 / K8 and K3 size it at run time, in dynamic shared memory
+// (2^term_bits(n) slots, a load factor <= 1/2), and K9's table of its
+// plain terms and bucket entries takes 2^bits slots, sized by its caller.
+// A row of more terms than a table takes is looked up term by term
+// instead: term_walk goes over the row's terms in device memory, in term
+// order, and sums the values of the id it looks for from 0.0f, which is
+// what a table entry holds (below), so both give the same bits.
 #pragma once
 
 #include <cstdint>
@@ -21,9 +16,44 @@
 
 #include "qloc_common.cuh"
 
-constexpr int kTermBits = 9;
-constexpr int kTermSlots = 1 << kTermBits;  // >= 2 * kQlocMaxTerms
+constexpr int kTermBits = 9;  // the static table, 512 slots
+constexpr int kTermSlots = 1 << kTermBits;
+constexpr int kTermStaticTerms = 256;  // the terms it takes (load <= 1/2)
+constexpr int kTermMaxBits = 14;  // the largest, 16384 slots (128 KB)
+// the most terms a table takes, at a load factor <= 1/2
+constexpr int kTableMaxTerms = 1 << (kTermMaxBits - 1);
 constexpr int kTermEmpty = kQlocPad;
+
+// The bits of the table of n terms: the least 2^bits >= 2n, from
+// kTermBits (n <= kTableMaxTerms).
+__host__ __device__ inline int term_bits(int n) {
+  int bits = kTermBits;
+  while ((1 << bits) < 2 * n) ++bits;
+  return bits;
+}
+
+// Bytes of dynamic shared memory for a row of n terms: the table of
+// (int32 id, f32 value bits) entries, then the n staged ids and values;
+// 0 past kTableMaxTerms, where the row is walked instead.
+__host__ __device__ inline int term_smem(int n) {
+  return n > kTableMaxTerms ? 0 : (8 << term_bits(n)) + 8 * n;
+}
+// the most term_smem gives (192 KB)
+constexpr int kTermMaxSmem = (8 << kTermMaxBits) + 8 * kTableMaxTerms;
+
+// The values of id c among the row's n terms (qc / qv in device memory,
+// PAD padded) summed in term order from 0.0f, 0.0f for none (a PAD id
+// too): what a table holds for c.
+__device__ __forceinline__ float term_walk(const int* __restrict__ qc,
+                                           const float* __restrict__ qv,
+                                           int n, int c) {
+  float s = 0.0f;
+  if (c == kTermEmpty) return s;
+  for (int i = 0; i < n; ++i) {
+    if (__ldg(qc + i) == c) s = __fadd_rn(s, __ldg(qv + i));
+  }
+  return s;
+}
 
 __device__ __forceinline__ int term_slot(int c, int bits = kTermBits) {
   return static_cast<int>((static_cast<unsigned>(c) * 2654435761u) >>
@@ -99,13 +129,14 @@ __device__ __forceinline__ void term_table_build(int2* s_tab,
 template <int N>
 __device__ __forceinline__ void term_find_n(const int2* s_tab,
                                             const int (&c)[N],
-                                            float (&a)[N]) {
+                                            float (&a)[N],
+                                            int bits = kTermBits) {
   int h[N];
   int2 e[N];
   bool walk = false;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    h[j] = term_slot(c[j]);
+    h[j] = term_slot(c[j], bits);
     e[j] = c[j] != kTermEmpty ? s_tab[h[j]] : make_int2(kTermEmpty, 0);
     walk = walk || (e[j].x != c[j] && e[j].x != kTermEmpty);
   }
@@ -113,7 +144,7 @@ __device__ __forceinline__ void term_find_n(const int2* s_tab,
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       while (e[j].x != c[j] && e[j].x != kTermEmpty) {
-        h[j] = term_next(h[j]);
+        h[j] = term_next(h[j], bits);
         e[j] = s_tab[h[j]];
       }
     }

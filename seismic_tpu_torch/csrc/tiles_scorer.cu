@@ -93,13 +93,53 @@ struct Item {
   int V;
 };
 
+// The plain-load twin of load_slice for a V whose rows are not 16-byte
+// aligned (cp.async needs the alignment of its size): the same chunks,
+// read a byte (a float) at a time, zeros past V, stored to the stage.
+__device__ __forceinline__ void load_slice_bytes(const Item& it,
+                                                 uint8_t* st, int col0) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < kSub * 4; i += kThreads) {
+    const int r = i >> 2;
+    const int col = col0 + (i & 3) * 16;
+    const uint8_t* src = it.tiles + static_cast<int64_t>(r) * it.V;
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      if (col + e < it.V) w[e >> 2] |= static_cast<unsigned>(src[col + e])
+                                       << (8 * (e & 3));
+    }
+    *reinterpret_cast<uint4*>(st + r * kPitch + (i & 3) * 16) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  const int p = tid >> 4;
+  if (p < it.m) {
+    const int col = col0 + (tid & 15) * 4;
+    const float* src = it.qloc + static_cast<int64_t>(it.pid[p]) * it.V;
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = col + e < it.V ? src[col + e] : 0.0f;
+    *reinterpret_cast<float4*>(st + kTileBytes + p * (kSlice * 4) +
+                               (tid & 15) * 16) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
 // Stage slice ks of the subtile and of the group's qloc rows into ring
 // stage ks % kRing: 512 16-byte tile chunks and m * 16 qloc chunks.
+// kVec: V % 16 == 0 and both bases 16-byte aligned, so cp.async; else
+// the plain loads of load_slice_bytes (an instance of its own, so the
+// aligned one carries none of it).
+template <bool kVec>
 __device__ __forceinline__ void load_slice(const Item& it, uint8_t* smem,
                                            int ks) {
   uint8_t* st = smem + (ks % kRing) * kStageBytes;
   const int tid = threadIdx.x;
   const int col0 = ks * kSlice;
+  if constexpr (!kVec) {
+    load_slice_bytes(it, st, col0);
+    return;
+  }
 #pragma unroll
   for (int i = tid; i < kSub * 4; i += kThreads) {
     const int r = i >> 2;
@@ -124,7 +164,7 @@ __device__ __forceinline__ void load_slice(const Item& it, uint8_t* smem,
 
 // The item's dot products, quarter q's share, into red[q][p][row] (red
 // aliases the ring; the function ends synchronised).
-template <int MB>
+template <int MB, bool kVec>
 __device__ __forceinline__ void score_item(const Item& it, uint8_t* smem) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -139,14 +179,14 @@ __device__ __forceinline__ void score_item(const Item& it, uint8_t* smem) {
 
 #pragma unroll
   for (int s = 0; s < kRing - 1; ++s) {
-    if (s < nk) load_slice(it, smem, s);
+    if (s < nk) load_slice<kVec>(it, smem, s);
     cp_async_commit();
   }
 #pragma unroll 1
   for (int ks = 0; ks < nk; ++ks) {
     cp_async_wait<kRing - 2>();  // this thread's copies of slice ks landed
     __syncthreads();  // ... every thread's; and slice ks - 1 is consumed
-    if (ks + kRing - 1 < nk) load_slice(it, smem, ks + kRing - 1);
+    if (ks + kRing - 1 < nk) load_slice<kVec>(it, smem, ks + kRing - 1);
     cp_async_commit();
     const uint8_t* st = smem + (ks % kRing) * kStageBytes;
     const float* sq = reinterpret_cast<const float*>(st + kTileBytes);
@@ -201,6 +241,7 @@ __device__ __forceinline__ void score_item(const Item& it, uint8_t* smem) {
   __syncthreads();
 }
 
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 3)
 score_tiles_kernel(const uint8_t* __restrict__ tiles,      // [rows, V]
                    const float* __restrict__ tile_scale,   // [rows]
@@ -262,15 +303,15 @@ score_tiles_kernel(const uint8_t* __restrict__ tiles,      // [rows, V]
       const int64_t row0 = (static_cast<int64_t>(s_region) + s) * kSub;
       const Item it{tiles + row0 * V, qloc, s_pid, m, V};
       switch (m) {
-        case 1: score_item<1>(it, smem); break;
-        case 2: score_item<2>(it, smem); break;
-        case 3: score_item<3>(it, smem); break;
-        case 4: score_item<4>(it, smem); break;
+        case 1: score_item<1, kVec>(it, smem); break;
+        case 2: score_item<2, kVec>(it, smem); break;
+        case 3: score_item<3, kVec>(it, smem); break;
+        case 4: score_item<4, kVec>(it, smem); break;
         default:
           if (m <= 8) {
-            score_item<8>(it, smem);
+            score_item<8, kVec>(it, smem);
           } else {
-            score_item<16>(it, smem);
+            score_item<16, kVec>(it, smem);
           }
       }
       // row r of pair p: the four quarters' sum, scaled; a pair whose own
@@ -298,14 +339,43 @@ score_tiles_kernel(const uint8_t* __restrict__ tiles,      // [rows, V]
   }
 }
 
-bool g_opted[kMaxDevices];
-int g_grid[kMaxDevices];
+// the persistent grid of instance kVec: as many blocks as fit, each
+// instance opted in to its shared memory once per device
+template <bool kVec>
+int launch(const uint8_t* tiles, const float* tile_scale, const float* qloc,
+           const int* pair_len, const int64_t* order, const int* region,
+           const int64_t* first, const int64_t* n_groups, int* next_group,
+           int V, int n_sub, float* out, cudaStream_t stream) {
+  static bool opted[kMaxDevices];
+  static int grids[kMaxDevices];
+  auto kernel = score_tiles_kernel<kVec>;
+  cudaError_t e = opt_in_smem(kernel, kSmem, opted);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0;
+  e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int grid = dev < kMaxDevices ? grids[dev] : 0;
+  if (grid == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, kSmem);
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    grid = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < kMaxDevices) grids[dev] = grid;
+  }
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      tiles, tile_scale, qloc, pair_len, order, region, first, n_groups,
+      next_group, V, n_sub, out);
+  return 0;
+}
 
 }  // namespace
 
 extern "C" {
 
-int seismic_score_tiles_max_v() { return 2048; }
 int seismic_score_tiles_group_pairs() { return kM; }
 
 // tiles u8 [rows, V]; tile_scale f32 [rows]; qloc f32 [P, V]; pair_len
@@ -313,36 +383,28 @@ int seismic_score_tiles_group_pairs() { return kM; }
 // region), region int32 [P] (their region starts in that order), first
 // int64 [P + 1] (group g is order[first[g]:first[g + 1]], at most 16
 // pairs) and n_groups int64 [1]; next_group int32 [1], zeroed; out f32
-// [P, n_sub * 128], zeroed. Returns a CUDA error code, or -1 for a V the
-// kernel does not take.
+// [P, n_sub * 128], zeroed. Any V >= 1: the ring holds 64 columns a stage
+// whatever V is; a V that is not a multiple of 16 (or a base off 16
+// bytes) loads its stages without cp.async. Returns a CUDA error code, or
+// -1 for V < 1.
 int seismic_score_tiles(const uint8_t* tiles, const float* tile_scale,
                         const float* qloc, const int* pair_len,
                         const int64_t* order, const int* region,
                         const int64_t* first, const int64_t* n_groups,
                         int* next_group, int P, int V, int n_sub, float* out,
                         cudaStream_t stream) {
-  if (V <= 0 || V % 16 != 0 || V > seismic_score_tiles_max_v()) return -1;
+  if (V <= 0) return -1;
   if (P <= 0 || n_sub <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t e = opt_in_smem(score_tiles_kernel, kSmem, g_opted);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int dev = 0;
-  e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int grid = dev < kMaxDevices ? g_grid[dev] : 0;
-  if (grid == 0) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, score_tiles_kernel, kThreads, kSmem);
-    }
-    if (e != cudaSuccess) return static_cast<int>(e);
-    grid = sms * (per_sm > 0 ? per_sm : 1);
-    if (dev < kMaxDevices) g_grid[dev] = grid;
-  }
-  score_tiles_kernel<<<grid, kThreads, kSmem, stream>>>(
-      tiles, tile_scale, qloc, pair_len, order, region, first, n_groups,
-      next_group, V, n_sub, out);
+  const bool vec = V % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(tiles) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(qloc) % 16 == 0;
+  const int rc =
+      vec ? launch<true>(tiles, tile_scale, qloc, pair_len, order, region,
+                         first, n_groups, next_group, V, n_sub, out, stream)
+          : launch<false>(tiles, tile_scale, qloc, pair_len, order, region,
+                          first, n_groups, next_group, V, n_sub, out,
+                          stream);
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -65,9 +65,10 @@ def hold(calls: dict, hbm, idx) -> dict:
     return errs
 
 
-def in_turns(calls: dict, dev) -> dict:
+def in_turns(calls: dict, dev, rounds: int = ROUNDS) -> dict:
     """{name: {reading: [us forward, us backward]}}: each reading taken
-    for every call in `calls`, in order and then in reverse."""
+    for every call in `calls`, in order and then in reverse, over
+    `rounds` window pairs."""
     passes = dp.flush_passes(dev)
     evicts = dict(zip(READINGS, (None, passes["cold"], passes["cold_read"])))
     rec = {name: {k: [] for k in READINGS} for name in calls}
@@ -75,7 +76,7 @@ def in_turns(calls: dict, dev) -> dict:
     for kind, evict in evicts.items():
         for name in order + order[::-1]:
             rec[name][kind].append(
-                dp.device_ms(calls[name], dev, 50, evict, ROUNDS) * 1e3)
+                dp.device_ms(calls[name], dev, 50, evict, rounds) * 1e3)
     return rec
 
 
@@ -109,8 +110,9 @@ def fit(rows, us) -> dict:
     return dict(intercept_us=float(icpt), slope_ns_per_row=float(slope * 1e3))
 
 
-def readings(dev) -> dict:
-    """The record of the module docstring."""
+def readings(dev, rounds: int = ROUNDS) -> dict:
+    """The record of the module docstring, each flushed reading behind
+    `rounds` window pairs."""
     hbm, cases = operands(dev)
     idx = cases["probe"]
     W = hbm.shape[1]
@@ -120,8 +122,8 @@ def readings(dev) -> dict:
     errs = hold(calls, hbm, idx)
     calls.update(index_select=lambda: torch.index_select(hbm, 0, idx),
                  empty=lambda: pk.empty_launch(dev))
-    rec = dict(rounds=ROUNDS, max_abs_err=errs,
-               bound_us=bound_us(idx, W), turns=in_turns(calls, dev))
+    rec = dict(rounds=rounds, max_abs_err=errs,
+               bound_us=bound_us(idx, W), turns=in_turns(calls, dev, rounds))
     diag = {}
     for case, rows in cases.items():
         if case != "probe":
@@ -132,7 +134,7 @@ def readings(dev) -> dict:
             **in_turns({"K11": lambda: pk.row_gather(hbm, rows),
                         "index_select":
                             lambda: torch.index_select(hbm, 0, rows)},
-                       dev))
+                       dev, rounds))
     rec["diagnostics"] = diag
     sweep = [f"rows_{SWEEP[0]}", "probe", f"rows_{SWEEP[-1]}"]
     rec["line"] = {

@@ -1,12 +1,21 @@
-"""Device time of the int8 grouped scorers (K2 slot-major, K4 item-major)
-at the shapes of the port's cells, on synthetic operands made from a seed.
+"""Device time of the int8 grouped scorers (K2 slot-major, K4 item-major),
+and of the term lookups (K1, K3) and the engine's tile scorer (K7), at the
+shapes of the port's cells, on synthetic operands made from a seed.
 
     python -m seismic_tpu_torch.harness.scorer_timing [--reps 50] [--out PATH]
 
 Shapes (work items, distinct super-tiles, groups as chip_smoke read them
 on the 100K-doc cells, NVIDIA H100 80GB HBM3): the API cell's K2 (M 8,
 csub 1, V 1024), the headline cell's K4 at B=4096 / M=8 and B=16384 /
-M=16 (csub 2, V 512), and both scorers at V 384 and 128 (csub 2, M 8).
+M=16 (csub 2, V 512), and both scorers at V 384 and 128 (csub 2, M 8);
+K1 at the API cell (4096 queries of 128 padded terms, 64 real, 14 lists
+each, V 1024 over 30,522 lists) and the headline's B=16384 (64 terms, V
+512), K3's fused form on [4096, 48] candidates of 100,000 rows of 256
+slots (150 real) against 64 terms, and past its static table against
+320 and 1024 terms (each beside its bound: the distinct rows' real
+entries in 32-byte sectors, the candidate ids, the terms and the output
+over 3.35 TB/s), K7 on 57,344 pairs over 17,717 lists (V 1024, 512 rows,
+5% of each projection nonzero).
 Each kernel is timed as the mean of `--reps` back-to-back launches
 between two CUDA events, after a warm-up; the L2 cache holds no tile
 rows the next launch reads beyond what the previous left (tile pools of
@@ -15,7 +24,8 @@ K2 / K4 run on the tensor cores, so the script times any such checkout's
 kernels when run from its root (an earlier one unpacked with `git
 archive`, for timings in turns); the JSON record names the card. It is
 the yardstick of K4's one fixed-width instance (M 16 at V 512, beside
-the run-time-V instance). Card only.
+the run-time-V instance), and of a change to K1's, K3's or K7's code
+paths that must leave the cells' times as they were. Card only.
 """
 
 from __future__ import annotations
@@ -60,6 +70,83 @@ def operands(M, csub, V, W, regions, G, seed, dev):
     ll_max = rows * (int(ws.max()) + 1)
     t = [torch.from_numpy(a).to(dev) for a in (wr, wg, ws)]
     return tiles, scale, q, t[0], t[1], t[2], ll_max
+
+
+def k3_bound_ms(fused, doc, qc) -> float:
+    """K3's byte bound on an H100 (3.35 TB/s; its lookups' f32 operations
+    take less): each distinct candidate row's real entries (4-byte id,
+    4-byte value, each run in 32-byte sectors), the candidate ids, the
+    query terms and the output, each moved once."""
+    import torch
+
+    W = fused.shape[1] // 2
+    real = (fused[torch.unique(doc.long()), :W] != 2 ** 31 - 1).sum(-1)
+    rows = 2 * int(((real * 4 + 31) // 32 * 32).sum().item())
+    return (rows + doc.numel() * 8 + qc.numel() * 8) / 3.35e12 * 1e3
+
+
+def term_calls(dev):
+    """({tag: a call of K1, K3 or K7 on operands made on `dev` from a
+    seed} at the cells' shapes (the module docstring), {tag: K3's bound
+    ms})."""
+    import torch
+
+    from ..ops import qloc, rescore, tiles_scorer
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    pad = 2 ** 31 - 1
+
+    def ints(hi, shape, dtype=torch.int32):
+        return torch.randint(0, hi, shape, generator=g, device=dev).to(dtype)
+
+    def terms(B, SCP, real):
+        qc, qv = ints(30522, (B, SCP)), torch.rand((B, SCP), generator=g,
+                                                   device=dev)
+        qc[:, real:], qv[:, real:] = pad, 0.0
+        return qc, qv
+
+    QC, n_lists = 14, 30522
+    vocab = ints(n_lists, (n_lists, 1024), torch.int16)
+    qc, qv = terms(4096, 128, 64)
+    pl = ints(n_lists, (4096 * QC,))
+    vocab5 = vocab[:, :512].contiguous()
+    qcB, qvB = terms(16384, 64, 64)
+    plB = ints(n_lists, (16384 * QC,))
+    n_docs, W = 100_000, 256
+    ids = torch.sort(ints(n_lists, (n_docs, W)), dim=1).values
+    vals = torch.rand((n_docs, W), generator=g, device=dev)
+    ids[:, 150:], vals[:, 150:] = pad, 0.0
+    fused = torch.cat([ids, vals.view(torch.int32)], 1).contiguous()
+    doc = ints(n_docs, (4096, 48))
+    q64c, q64v = qc[:, :64].contiguous(), qv[:, :64].contiguous()
+    many = {n: terms(4096, n, n) for n in (320, 1024)}
+    P, LL, nl = 57_344, 512, 17_717
+    lens = ints(LL, (nl,)) + 1
+    n_sub = (lens + 127) // 128
+    region = (torch.cumsum(n_sub, 0) - n_sub).to(torch.int32)
+    rows = int(n_sub.sum()) * 128 + LL
+    tiles = torch.randint(0, 256, (rows, 1024), dtype=torch.uint8,
+                          generator=g, device=dev)
+    tscale = torch.rand(rows, generator=g, device=dev)
+    lst = ints(nl, (P,), torch.int64)
+    ql = (torch.rand((P, 1024), generator=g, device=dev)
+          * (torch.rand((P, 1024), generator=g, device=dev) < 0.05))
+    a7 = (tiles, tscale, region[lst].contiguous(), ql.contiguous(),
+          lens[lst].contiguous(), LL)
+    calls = {
+        "api_k1": lambda: qloc.project_qloc_quantize(vocab, pl, qc, qv, QC),
+        "headline_k1_b16384": lambda: qloc.project_qloc_quantize(
+            vocab5, plB, qcB, qvB, QC),
+        "api_k3": lambda: rescore.score_docs_rowmajor(fused, doc, q64c,
+                                                      q64v, n_docs),
+        "engine_k7": lambda: tiles_scorer.score_tiles(*a7),
+    }
+    bounds = {"api_k3": k3_bound_ms(fused, doc, q64c)}
+    for n, (c, v) in many.items():
+        calls[f"k3_t{n}"] = (lambda c=c, v=v: rescore.score_docs_rowmajor(
+            fused, doc, c, v, n_docs))
+        bounds[f"k3_t{n}"] = k3_bound_ms(fused, doc, c)
+    return calls, bounds
 
 
 def time_ms(fn, reps: int) -> float:
@@ -113,6 +200,14 @@ def main(argv=None) -> dict:
             out["ms"][tag] = f"refused: {e}"
         print(f"{tag}: {out['ms'][tag]}", file=sys.stderr, flush=True)
         del tiles, scale, q, wr, wg, ws
+        torch.cuda.empty_cache()
+    calls, out["bound_ms"] = term_calls(dev)
+    for tag, fn in calls.items():
+        try:
+            out["ms"][tag] = time_ms(fn, args.reps)
+        except ValueError as e:  # a row this checkout's kernel refuses
+            out["ms"][tag] = f"refused: {e}"
+        print(f"{tag}: {out['ms'][tag]}", file=sys.stderr, flush=True)
         torch.cuda.empty_cache()
     if args.out:
         with open(args.out, "w") as f:

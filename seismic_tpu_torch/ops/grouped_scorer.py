@@ -26,18 +26,12 @@ import torch
 from . import _cuda, pack_epilogue
 from .tiles_prep import SUB
 
-# The shapes of the three grouped scorers (K2, K4, K6; `kMaxM` and
-# `kMaxCsub` of `csrc/grouped_i8_mma.cuh`): M query slots a group, any
-# multiple of 8 up to MAX_M, and csub subtiles a work item from 1 to
-# MAX_CSUB, each pair an instance of its own. JAX's kernel asks only
-# M % 8 == 0 (`pallas_grouped.py:76`); no code or record of the repo goes
-# past these caps.
-MAX_M = 32
-MAX_CSUB = 4
-# The tile width rule of the three grouped scorers (K2, K4, K6), as in
-# JAX's kernel: V a multiple of 128, up to the cap that each library
-# computes from the shared memory its rings and [M, V] queries take
-# (`mma_max_v` of `csrc/grouped_i8_mma.cuh`).
+# The shape rule of the three grouped scorers (K2, K4, K6), JAX's
+# (`pallas_grouped.py:76`): M query slots a group a multiple of 8, V a
+# multiple of 128, any csub >= 1 with ll_max % (csub * 128) == 0. The
+# kernels' instances hold up to 32 slots, 4 subtiles and the V their
+# shared memory leaves (`max_v`); wider shapes run as chunks of them
+# (`csrc/grouped_i8_mma.cuh`).
 V_ALIGN = 128
 # kernel launches since the count was last set to 0
 launches = 0
@@ -45,28 +39,19 @@ _handle = None
 
 
 def max_v(M: int, csub: int) -> int:
-    """The widest V the kernel takes at M query slots and csub (the
-    library's `seismic_score_grouped_i8_max_v`; builds it if needed)."""
+    """The widest V one chunk of the kernel holds at M query slots and
+    csub (the library's `seismic_score_grouped_i8_max_v`; builds it if
+    needed); a wider V is walked in chunks."""
     return _lib().seismic_score_grouped_i8_max_v(M, csub)
 
 
-def check_shape(M: int, csub: int, what: str) -> None:
-    """Raise ValueError unless M is a multiple of 8 from 8 to MAX_M and
-    csub is from 1 to MAX_CSUB, naming the caps."""
+def check_shape(M: int, csub: int, V: int, what: str) -> None:
+    """Raise ValueError unless (M, csub, V) keeps JAX's rule: M % 8 == 0,
+    csub >= 1, V % 128 == 0, as `score_grouped_pallas` asserts."""
     _cuda.require(
-        M % 8 == 0 and 8 <= M <= MAX_M and 1 <= csub <= MAX_CSUB,
-        f"{what}: M={M}, csub={csub} is past the kernels' shapes: M a "
-        f"multiple of 8 up to {MAX_M}, csub from 1 to {MAX_CSUB}")
-
-
-def check_width(V: int, cap: int, what: str) -> None:
-    """Raise ValueError unless V is a multiple of 128 from 128 to `cap`,
-    the kernel's widest V, which the message names."""
-    _cuda.require(
-        V_ALIGN <= V <= cap and V % V_ALIGN == 0,
-        f"{what}: V={V} is not a multiple of {V_ALIGN} from {V_ALIGN} to "
-        f"the kernel's cap {cap} (its rings and [M, V] queries in 227 KB "
-        f"of shared memory)")
+        M % 8 == 0 and M >= 0 and csub >= 1 and V % V_ALIGN == 0,
+        f"{what}: M={M}, csub={csub}, V={V} breaks the kernels' rule (JAX's):"
+        f" M a multiple of 8, csub >= 1, V a multiple of {V_ALIGN}")
 
 
 def grouped_dots_plain(tiles, q, work_region, work_g, chunk: int = 256,
@@ -161,8 +146,7 @@ def score_grouped_i8(tiles, tile_scale, q, work_region, work_g, work_s,
             for t in (tiles, tile_scale, q, work_region, work_g, work_s)),
         "operands must be contiguous")
     G_cap, M, V = q.shape
-    check_shape(M, csub, "score_grouped_i8")
-    check_width(V, max_v(M, csub), f"score_grouped_i8 (M={M}, csub={csub})")
+    check_shape(M, csub, V, "score_grouped_i8")
     out = torch.empty(
         (G_cap, M, ll_max // pack_window if pack_window else ll_max),
         dtype=torch.int32 if pack_window else torch.float32, device=dev)

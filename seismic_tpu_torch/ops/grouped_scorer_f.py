@@ -106,9 +106,10 @@ def _lib():
 
 
 def max_v(M: int, csub: int, compute_dtype: str) -> int:
-    """The widest V the kernel takes (its shared memory holds the warps'
-    rings and the group's bf16 queries, three terms of them in f32
-    mode). Builds the kernel library if needed."""
+    """The widest V one chunk of the kernel holds (its shared memory
+    holds the warps' rings and the group's bf16 queries, three terms of
+    them in f32 mode); a wider V is walked in chunks. Builds the kernel
+    library if needed."""
     return _lib().seismic_score_grouped_f_max_v(
         M, csub, int(compute_dtype == "bf16"))
 
@@ -156,10 +157,7 @@ def score_grouped_f(tiles, tile_scale, q, qsum, work_region, work_g, work_s,
     req(tiles.is_contiguous() and all(t.is_contiguous() for t in operands),
         "operands must be contiguous")
     G_cap, M, V = q.shape
-    grouped_scorer.check_shape(M, csub, "score_grouped_f")
-    grouped_scorer.check_width(
-        V, max_v(M, csub, compute_dtype),
-        f"score_grouped_f ({compute_dtype}, M={M}, csub={csub})")
+    grouped_scorer.check_shape(M, csub, V, "score_grouped_f")
     out = torch.empty(
         (G_cap, M, ll_max // pack_window if pack_window else ll_max),
         dtype=torch.int32 if pack_window else torch.float32, device=dev)

@@ -25,7 +25,6 @@ import torch
 from . import _cuda, pack_epilogue
 from .grouped_scorer import (
     check_shape,
-    check_width,
     grouped_dots_plain,
     item_scores_plain,
 )
@@ -62,8 +61,9 @@ def _lib():
 
 
 def max_v(M: int, csub: int) -> int:
-    """The widest V the kernel takes at M query slots and csub (the
-    library's `seismic_score_grouped_i8_item_max_v`)."""
+    """The widest V one chunk of the kernel holds at M query slots and
+    csub (the library's `seismic_score_grouped_i8_item_max_v`); a wider V
+    is walked in chunks."""
     return _lib().seismic_score_grouped_i8_item_max_v(M, csub)
 
 
@@ -107,9 +107,7 @@ def score_grouped_i8_item(tiles, tile_scale, q, work_region, work_g,
     req(all(t.is_contiguous() for t in (tiles, tile_scale, q) + works),
         "operands must be contiguous")
     M, V = q.shape[1], tiles.shape[1]
-    check_shape(M, csub, "score_grouped_i8_item")
-    check_width(V, max_v(M, csub),
-                f"score_grouped_i8_item (M={M}, csub={csub})")
+    check_shape(M, csub, V, "score_grouped_i8_item")
     W_cap = work_region.shape[0]
     out = torch.empty((W_cap, M, step),
                       dtype=torch.int32 if pack_window else torch.float32,

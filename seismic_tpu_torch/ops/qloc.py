@@ -86,8 +86,6 @@ def _lib():
         lib.seismic_qloc_residue.argtypes = [  # K9 (ops/qloc_residue.py)
             p, i, p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p]
         lib.seismic_qloc_residue.restype = ctypes.c_int
-        lib.seismic_qloc_residue_max_bucket_slots.restype = ctypes.c_int
-        lib.seismic_qloc_max_terms.restype = ctypes.c_int
         _handle = lib
     return _handle
 
@@ -128,8 +126,6 @@ def _check_cuda(vocab, pair_list, qc, qv):
         "operands must be contiguous")
     lib = _lib()
     req(vocab.shape[1] % 8 == 0, f"V={vocab.shape[1]} is not a multiple of 8")
-    req(qc.shape[1] <= lib.seismic_qloc_max_terms(),
-        f"{qc.shape[1]} terms exceed the cap")
     return lib
 
 

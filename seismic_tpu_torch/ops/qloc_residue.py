@@ -23,8 +23,10 @@ lookup a code) over one hash table of two kinds of key: the row's real
 bucket entries, each keyed by its id and its bucket, serve the group
 slots, and its plain terms, keyed by their id and R, the spill slots. So a
 slot costs one lookup instead of a compare with every term of its bucket,
-and the sums are the plain version's bit for bit. Operands it takes: V % 8 == 0, at most 256
-plain terms, R * scb <= 1024; bucket ids below 0 are padding.
+and the sums are the plain version's bit for bit. Operands it takes: V %
+8 == 0, any number of plain terms, any R and scb (past what its largest
+table holds, a row's terms and buckets are walked in order in device
+memory, with the same sums); bucket ids below 0 are padding.
 
 The vocabulary is int16 up to dim 32766 and int32 past it (both -1
 padded after the residue permutation), as JAX's kernel takes either
@@ -114,9 +116,6 @@ def project_qloc_residue(vocab, pair_list, qcb, qvb, qc, qv, QC: int, R: int,
         "operands must be contiguous")
     lib = _lib()
     P, SC = pair_list.shape[0], qc.shape[1]
-    req(SC <= lib.seismic_qloc_max_terms(), f"{SC} terms exceed the cap")
-    req(R * scb <= lib.seismic_qloc_residue_max_bucket_slots(),
-        f"{R * scb} bucket slots exceed the cap")
     p = _cuda.ptr
     q_i8 = scale = out_f32 = None
     if quantize:

@@ -70,7 +70,6 @@ def project_qloc_rowmajor(vocab_rows, qc, qv):
     P, V = vocab_rows.shape
     SC = qc.shape[1]
     req(V % 8 == 0, f"V={V} is not a multiple of 8")
-    req(SC <= lib.seismic_qloc_max_terms(), f"{SC} terms exceed the cap")
     out = torch.empty((P, V), dtype=torch.int8, device=dev)
     scale = torch.empty(P, dtype=torch.float32, device=dev)
     p = _cuda.ptr

@@ -194,7 +194,6 @@ def _lib():
         lib.seismic_rescore_lean.argtypes = [p, i, p, i, p, p, p, p, p, i, i,
                                              i, i, i, i, p, p]
         lib.seismic_rescore_lean.restype = ctypes.c_int
-        lib.seismic_rescore_max_terms.restype = ctypes.c_int
         _handle = lib
     return _handle
 
@@ -209,15 +208,12 @@ def _check_query(doc_ids, qc, qv):
         "qv must be f32 of qc's shape")
 
 
-def _cuda_lib(ops, qc):
+def _cuda_lib(ops):
     """The loaded library, after the checks only the kernel needs."""
     req = _cuda.require
     req(ops[0].device.type == "cuda", f"unsupported device {ops[0].device}")
     req(all(t.is_contiguous() for t in ops), "operands must be contiguous")
-    lib = _lib()
-    req(qc.shape[1] <= lib.seismic_rescore_max_terms(),
-        f"{qc.shape[1]} terms exceed the cap")
-    return lib
+    return _lib()
 
 
 def score_docs_rowmajor(fwd_fused, doc_ids, qc, qv, n_docs: int):
@@ -237,7 +233,7 @@ def score_docs_rowmajor(fwd_fused, doc_ids, qc, qv, n_docs: int):
         "all operands must be on one device")
     if dev.type == "cpu":
         return score_docs_rowmajor_plain(*ops, n_docs)
-    lib = _cuda_lib(ops, qc)
+    lib = _cuda_lib(ops)
     B, R = doc_ids.shape
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     p = _cuda.ptr
@@ -269,7 +265,7 @@ def score_docs_rowmajor_fused16(fwd_fused16, doc_ids, qc, qv, n_docs: int,
     if dev.type == "cpu":
         return score_docs_rowmajor_fused16_plain(*ops, n_docs,
                                                  skip_out_of_range)
-    lib = _cuda_lib(ops, qc)
+    lib = _cuda_lib(ops)
     B, R = doc_ids.shape
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     p = _cuda.ptr
@@ -309,7 +305,7 @@ def score_docs_rowmajor_lean(comps, codes, vmin, vstep, doc_ids, qc, qv,
     if dev.type == "cpu":
         return score_docs_rowmajor_lean_plain(*ops, n_docs,
                                               skip_out_of_range)
-    lib = _cuda_lib(ops, qc)
+    lib = _cuda_lib(ops)
     B, R = doc_ids.shape
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     p = _cuda.ptr

@@ -13,7 +13,9 @@ pair_len[p] rows, and 0 for the subtiles past them, which are not read
 (the TPU kernel streams all `ll_pad` rows of every pair; its caller masks
 the rows past the length, as this one's does). It reads the port's flat
 `[rows]` scale and takes any number of pairs (the TPU kernel's
-`[*, 8, 128]` scale blocks and its 8-pair groups were Mosaic rules).
+`[*, 8, 128]` scale blocks and its 8-pair groups were Mosaic rules), and
+any V, as JAX's kernel asserts no width: rows that are not 16-byte
+aligned load without cp.async.
 `score_tiles` launches the kernel for CUDA tensors and uses the plain
 PyTorch version, `score_tiles_plain`, for CPU tensors. On the card it
 first groups the pairs by list (`group_pairs_by_region`), so that the
@@ -103,7 +105,6 @@ def _lib():
         lib.seismic_score_tiles.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
                                             i, p, p]
         lib.seismic_score_tiles.restype = ctypes.c_int
-        lib.seismic_score_tiles_max_v.restype = ctypes.c_int
         lib.seismic_score_tiles_group_pairs.restype = ctypes.c_int
         _handle = lib
     return _handle
@@ -150,10 +151,8 @@ def score_tiles(tiles, tile_scale, region_start, qloc, pair_len,
         "operands must be contiguous")
     lib = _lib()
     P, V = qloc.shape
-    req(V % 16 == 0 and V <= lib.seismic_score_tiles_max_v(),
-        f"V={V} must be a multiple of 16 up to the kernel's cap")
     out = torch.zeros((P, ll_pad), dtype=torch.float32, device=dev)
-    if P == 0:
+    if P == 0 or V == 0:  # no pairs, or sums over no column: all 0
         return out
     g = group_pairs_by_region(region_start,
                               lib.seismic_score_tiles_group_pairs())

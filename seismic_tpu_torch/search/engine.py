@@ -465,10 +465,6 @@ def _search_impl(index: DeviceIndex, q_comps, q_vals, heap_factor: float,
         if index.dense_summary is None:
             raise ValueError("block_mode='dense' needs an index built with "
                              "dense summaries (summary_vocab_cap > 0)")
-        if index.vocab is None:
-            raise ValueError("block_mode='dense' reads the list "
-                             "vocabularies, which an upload with tile_hash "
-                             "leaves out; use block_mode='summary'")
         qloc = _lookup(qd, index.vocab[lists])  # [B, QC, V]
         block_scores = _dense_block_scores(index, lbs, qloc, MB).reshape(
             B, QC * MB)

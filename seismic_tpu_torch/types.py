@@ -10,8 +10,9 @@ tensors (`DeviceIndex`):
   constraints and are not carried over);
 - the per-list local vocabularies: `vocab16`, int16 with -1 padding, up
   to dim 32766, and past it `list_vocab`, int32 with PAD_COMPONENT
-  padding (the JAX `DeviceIndex`'s two fields; none for hashed tiles,
-  `tile_hash`), each list's max posting value (`list_weight`, the
+  padding (the JAX `DeviceIndex`'s two fields; hashed tiles keep them
+  too, for the engine's dense block ranking), each list's max posting
+  value (`list_weight`, the
   weighted list cut) and, on request, per-super-tile upper bounds of the
   tiles (`super_summary`, the streaming budget);
 - the forward rows read by the exact rescore, in one of three forms: the
@@ -377,8 +378,10 @@ class IndexArrays:
         vocabulary and tile columns into R residue groups for the bucketed
         projection kernel (upload time only). `tile_hash=V` marks tiles
         that `ops/tiles_prep.py::hash_retile` (or a hashed block view)
-        made V wide: the grouped route then projects once per query, and
-        no vocabulary is uploaded. `super_summaries` adds the per-super-tile
+        made V wide: the grouped route then projects once per query
+        (it keys on `tile_hash`), and the list vocabulary still goes up,
+        as the JAX package keeps `list_vocab`, for the engine's dense
+        block ranking. `super_summaries` adds the per-super-tile
         upper bounds of the streaming budget (`super_summary` /
         `super_scale`, computed on the device from the uploaded layout);
         refused on bin-packed views, whose bins mix lists. A bin-packed
@@ -459,8 +462,9 @@ class IndexArrays:
             tiles_u8, tile_scale, region_start, row_off = (
                 prepare_pallas_tiles(self, tile_csub))
         vocab = {"vocab16": None}
-        if self.list_vocab is not None and not tile_hash:
-            # hashed tiles never read the vocabulary
+        if self.list_vocab is not None:
+            # hashed tiles too: the grouped route never reads it there,
+            # the engine's dense block ranking does
             lv = np.asarray(self.list_vocab)
             if wide:
                 vocab["list_vocab"] = put(lv, np.int32)
@@ -560,8 +564,7 @@ class DeviceIndex:
     tile_scale: object  # f32 [n_sub_total * 128] dequant scale per row
     # int32 [n_lists] subtile start of each list (a multiple of tile_csub)
     list_region_start: object
-    # int16 [n_lists, V] (-1 padded) up to dim 32766; None when hashed
-    # or past it
+    # int16 [n_lists, V] (-1 padded) up to dim 32766; None past it
     vocab16: object
     postings: object  # int32 [total_postings_pad] doc ids
     # int32 [n_lists]; EFFECTIVE on bin-packed views (start - row_off,
@@ -632,7 +635,7 @@ class DeviceIndex:
     @property
     def vocab(self):
         """The list vocabularies in whichever width they were uploaded
-        (`vocab16` or `list_vocab`); None on hashed tiles."""
+        (`vocab16` or `list_vocab`), hashed tiles included."""
         return self.vocab16 if self.vocab16 is not None else self.list_vocab
 
 

@@ -393,7 +393,14 @@ def test_unported_parts_raise(setup, case):
         tix._block_V = 128
         jd = jix._block_device_index()
         td, tctx, E = tix.block_device_index()
-        assert td.tile_hash == jd.tile_hash == 128 and td.vocab16 is None
+        assert td.tile_hash == jd.tile_hash == 128
+        # the list vocabulary goes up on the hashed view as JAX's
+        # list_vocab does (int16 here, -1 for PAD)
+        assert (td.vocab is None) == (jd.list_vocab is None)
+        if td.vocab is not None:
+            jl = np.asarray(jd.list_vocab)
+            np.testing.assert_array_equal(
+                td.vocab.numpy(), np.where(jl == 2 ** 31 - 1, -1, jl))
         assert E == ja.max_block_len
         np.testing.assert_array_equal(
             td.doc_tiles_aligned.numpy(),

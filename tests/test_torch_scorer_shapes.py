@@ -1,7 +1,10 @@
 """The grouped scorers (K2, K4 and its packed epilogue K5, K6) at every
 shape JAX's kernel takes up to M 32 query slots and csub 4 subtiles a
-work item (`seismic_tpu/ops/pallas_grouped.py:76` asks only M % 8 == 0
-and ll_max % (csub * 128) == 0).
+work item, each pair a template instance of its own
+(`seismic_tpu/ops/pallas_grouped.py:76` asks only M % 8 == 0, V % 128 ==
+0 and ll_max % (csub * 128) == 0; the shapes past these run as chunks of
+the instances, `tests/test_torch_caps_cuda.py` and
+`tests/test_torch_scorer_chunks.py`).
 
 On the CPU: the plain versions against JAX's `score_grouped_pallas` in
 interpret mode at (M, csub) = (32, 2), (16, 4), (24, 3) and (32, 4) on a
@@ -10,15 +13,18 @@ and 8 (K4, item-major), unpacked and packed, int dots exact and 1e-6
 relative; K6 bf16 centred to 1e-5 of the larger of score and centring
 term. One headline search (`search_grouped_derive`, K4, hier pool) at M
 32 on a csub-4 upload against JAX's `search_grouped_derive_jit` at a cut.
-The wrappers' shape rule (every M % 8 == 0 to 32, csub 1 to 4) and its
-refusal naming the caps.
+The wrappers' shape rule, JAX's: every M % 8 == 0, csub >= 1 and
+V % 128 == 0, past the former caps too, and a refusal of what JAX
+refuses, naming the rule.
 
 On a machine with an NVIDIA card only (`cuda` marker; the card is looked
 for inside each test): every new (M, csub) instance of K4, K2 (unpacked
 and packed at pack_window csub) and K6 (bf16 / f32, centred, unpacked
 and packed) against its plain version at V 128, V 512 and its cap, the
-cap the widest multiple of 128 whose rings and queries fit in 227 KB, and
-one step past each cap refused before a launch. The file imports JAX only
+cap the widest multiple of 128 whose rings and queries fit in 227 KB (one
+V chunk), and one step past each cap (V, M, csub) run against the plain
+version, where it was refused before; M % 8 != 0 and V % 128 != 0
+refused before a launch. The file imports JAX only
 inside the CPU parity tests, so on the card it runs alone:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_scorer_shapes.py
@@ -134,15 +140,34 @@ def _k6_tol(o, csub, p):
 @pytest.mark.parametrize("M,csub", [(8, 1), (16, 2), (24, 3), (32, 4),
                                     (8, 4), (32, 1)])
 def test_shape_rule_takes_every_m8_to_32_and_csub_to_4(M, csub):
-    """check_shape takes every M % 8 == 0 up to 32 and csub 1-4, and
-    refuses one step past either cap (and an M off the rule), naming the
-    caps; the wrappers refuse before reaching a kernel."""
-    grouped_scorer.check_shape(M, csub, "scorer")
-    for bad_m, bad_c in ((M + 4, csub), (40, csub), (M, 5), (M, 0)):
-        with pytest.raises(ValueError, match="up to 32, csub from 1 to 4"):
-            grouped_scorer.check_shape(bad_m, bad_c, "scorer")
-    assert (grouped_scorer.MAX_M, grouped_scorer.MAX_CSUB) == (32, 4)
-    # a cap of each new shape is above the probes' V 512 in int8 and bf16
+    """check_shape is JAX's rule (`score_grouped_pallas`'s assert): it
+    takes every M % 8 == 0 and csub >= 1 at every V % 128 == 0, one step
+    past the former caps (M 32, csub 4, each cap of V) included, and
+    refuses an M off the rule, a V off it and csub 0, naming the rule, as
+    JAX's kernel refuses them."""
+    for m, c, v in ((M, csub, 512), (M + 8, csub, 128), (40, csub, 256),
+                    (M, 5, 128), (M, 8, 384), (64, 8, 4096),
+                    (M, csub, _smem_cap(M, csub, 6) + 128)):
+        grouped_scorer.check_shape(m, c, v, "scorer")
+    for m, c, v in ((M + 4, csub, 128), (M, 0, 128), (M, csub, 192),
+                    (M, csub, 1000)):
+        with pytest.raises(ValueError, match="M a multiple of 8, csub >= 1,"
+                                             " V a multiple of 128"):
+            grouped_scorer.check_shape(m, c, v, "scorer")
+    # JAX's kernel refuses the same M and V
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from seismic_tpu.ops.pallas_grouped import score_grouped_pallas
+
+    for m, v in ((M + 4, 128), (M, 192)):
+        with pytest.raises(AssertionError):
+            score_grouped_pallas(
+                jnp.zeros((csub * SUB, v), jnp.int8),
+                jnp.zeros((1, 8, csub * SUB)), jnp.zeros((1, m, v), jnp.int8),
+                jnp.zeros(1, jnp.int32), jnp.zeros(1, jnp.int32),
+                jnp.zeros(1, jnp.int32), csub * SUB, interpret=True,
+                compute_dtype="i8", csub=csub)
+    # a chunk of each shape holds the probes' V 512 in int8 and bf16
     assert _smem_cap(M, csub, 1) >= 512 and _smem_cap(M, csub, 2) >= 512
 
 
@@ -425,40 +450,67 @@ def test_cuda_k6_new_shapes(dt, M, csub, pack_window, V):
 @pytest.mark.parametrize("M,csub", NEW_PAIRS)
 def test_cuda_refuses_one_step_past_each_cap(M, csub):
     """On the card: one multiple of 128 past each library's cap at a new
-    (M, csub), and a shape past M 32 or csub 4, are refused before a
-    launch, naming the cap."""
+    (M, csub) (a second V chunk), M 8 past it and csub 1 past it run and
+    equal the plain versions, where they were refused before; each cap
+    is the widest V one chunk holds. An M off JAX's rule is refused
+    before a launch, naming the rule."""
     dev = _card()
     caps = {"i8": grouped_scorer.max_v(M, csub),
             "item": grouped_scorer_item.max_v(M, csub),
             "bf16": grouped_scorer_f.max_v(M, csub, "bf16"),
             "f32": grouped_scorer_f.max_v(M, csub, "f32")}
-    counts = (grouped_scorer.launches, grouped_scorer_item.launches,
-              grouped_scorer_f.launches)
+    assert caps == {"i8": _smem_cap(M, csub, 1),
+                    "item": _smem_cap(M, csub, 1),
+                    "bf16": _smem_cap(M, csub, 2),
+                    "f32": _smem_cap(M, csub, 6)}
     for key, cap in caps.items():
         o = _on(_operands(M, csub, cap + 128, seed=cap, n_regions=2), dev)
         w = (o["wr"][:W_REAL], o["wg"][:W_REAL], o["ws"][:W_REAL])
-        with pytest.raises(ValueError, match=f"cap {cap}"):
-            if key == "i8":
-                grouped_scorer.score_grouped_i8(
-                    o["tiles"], o["scale"], o["q8"], *w, o["ll_max"], csub)
-            elif key == "item":
-                grouped_scorer_item.score_grouped_i8_item(
-                    o["tiles"], o["scale"], o["q8"], w[0], w[1], csub)
-            else:
-                grouped_scorer_f.score_grouped_f(
-                    o["tiles"], o["scale"], o["qf"], o["qsum"], *w,
+        if key == "i8":
+            args = (o["tiles"], o["scale"], o["q8"], *w, o["ll_max"], csub)
+            got = grouped_scorer.score_grouped_i8(*args)
+            want = grouped_scorer.score_grouped_i8_plain(*args)
+        elif key == "item":
+            args = (o["tiles"], o["scale"], o["q8"], o["wr"], o["wg"], csub)
+            got = grouped_scorer_item.score_grouped_i8_item(*args)
+            want = grouped_scorer_item.score_grouped_i8_item_plain(*args)
+        else:
+            args = (o["tiles"], o["scale"], o["qf"], o["qsum"], *w,
                     o["ll_max"], csub, key)
-    # past the shapes: the libraries report no cap there, the wrappers
-    # refuse before asking
-    assert grouped_scorer.max_v(M + 8, csub) == (
-        0 if M == 32 else _smem_cap(M + 8, csub, 1))
-    assert grouped_scorer_item.max_v(M, 5) == 0
+            got = grouped_scorer_f.score_grouped_f(*args)
+            want = grouped_scorer_f.score_grouped_f_plain(*args)
+        torch.cuda.synchronize()
+        if key in ("i8", "item"):
+            if key == "i8":
+                R = csub * SUB
+                got, want = (_blocks(x, o["wg"].cpu(), o["ws"].cpu(), R)
+                             for x in (got, want))
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        else:
+            R = csub * SUB
+            p = _blocks(want, o["wg"].cpu(), o["ws"].cpu(), R)
+            k = _blocks(got, o["wg"].cpu(), o["ws"].cpu(), R)
+            oc = {k_: v.cpu().numpy() if torch.is_tensor(v) else v
+                  for k_, v in o.items()}
+            assert ((k - p).abs() <= _k6_tol(oc, csub, p)).all()
+    # one step past M 32 and past csub 4: the library names a chunk's cap
+    assert grouped_scorer.max_v(M + 8, csub) == _smem_cap(
+        min(M + 8, 32), csub, 1)
+    assert grouped_scorer_item.max_v(M, 5) == _smem_cap(M, 1, 1)
+    o = _on(_operands(M + 8, 5, 128, seed=M + 5, n_regions=2), dev)
+    args = (o["tiles"], o["scale"], o["q8"], o["wr"], o["wg"], 5)
+    torch.testing.assert_close(
+        grouped_scorer_item.score_grouped_i8_item(*args),
+        grouped_scorer_item.score_grouped_i8_item_plain(*args), rtol=1e-6,
+        atol=0)
+    counts = (grouped_scorer.launches, grouped_scorer_item.launches,
+              grouped_scorer_f.launches)
     one = torch.zeros(1, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="up to 32, csub from 1 to 4"):
+    with pytest.raises(ValueError, match="M a multiple of 8"):
         grouped_scorer_item.score_grouped_i8_item(
-            torch.zeros((5 * SUB, 128), dtype=torch.uint8, device=dev),
-            torch.ones(5 * SUB, device=dev),
-            torch.zeros((1, M, 128), dtype=torch.int8, device=dev), one, one,
-            5)
+            torch.zeros((SUB, 128), dtype=torch.uint8, device=dev),
+            torch.ones(SUB, device=dev),
+            torch.zeros((1, M + 4, 128), dtype=torch.int8, device=dev), one,
+            one, 1)
     assert (grouped_scorer.launches, grouped_scorer_item.launches,
             grouped_scorer_f.launches) == counts

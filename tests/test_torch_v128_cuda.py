@@ -1,10 +1,11 @@
 """Tile widths 128 and 384 on the grouped scorers (K2, K4, K6): every
-multiple of 128 up to each kernel's shared-memory cap, as JAX's kernel
-takes (`seismic_tpu/ops/pallas_grouped.py:76`, `V % 128 == 0`).
+multiple of 128, as JAX's kernel takes (`seismic_tpu/ops/pallas_grouped.
+py:76`, `V % 128 == 0`); up to each kernel's shared-memory cap in one V
+chunk, past it in chunks walked in the block.
 
-On the CPU: the wrappers' width check (`ops/grouped_scorer.py::
-check_width`) accepts exactly JAX's rule up to the cap and names the cap
-when it refuses; JAX's kernel refuses the same widths below the cap; K2's
+On the CPU: the wrappers' shape check (`ops/grouped_scorer.py::
+check_shape`) accepts exactly JAX's rule, below and past each cap, and
+names the rule when it refuses; JAX's kernel refuses the same widths; K2's
 plain version equals JAX's int8 kernel (interpret mode) at V 384.
 
 On a machine with an NVIDIA card only (`cuda` marker; the card is looked
@@ -15,7 +16,8 @@ unit scales, scaled output 1e-6 relative) and packed (bit-equal); K6 at V
 pack_window {0, csub} to its tolerance (1e-5 of the larger of score and
 centring term; its caps are in `test_torch_k6_k10_redesign.py`); each
 library's cap the widest multiple of 128 whose rings and queries fit in
-227 KB; a width off the rule or past the cap refused on the card.
+227 KB (one V chunk); a width off the rule refused on the card, one past
+the cap run in two chunks against the plain version.
 The file imports JAX only inside the CPU parity test, so on the card it
 runs alone:
 
@@ -99,19 +101,19 @@ def _blocks(out, wg, ws, step):
 
 @pytest.mark.parametrize("M,csub,qb", CAP_CASES)
 def test_width_check_is_jax_rule_up_to_the_cap(M, csub, qb):
-    """check_width accepts V iff V % 128 == 0 and 128 <= V <= cap at each
-    scorer's cap (the rings' and queries' fit in 227 KB of shared memory,
-    which the libraries compute; held on the card below)."""
+    """check_shape accepts V iff V % 128 == 0, JAX's rule, at and past
+    each scorer's cap (the widest V whose rings and queries fit in 227 KB
+    of shared memory, one chunk; held on the card below), and names the
+    rule when it refuses."""
     cap = _smem_cap(M, csub, qb)
     assert cap % 128 == 0 and cap >= 1024
     for V in (64, 128, 192, 256, 384, 640, 1000, 1024, cap - 64, cap,
-              cap + 128):
-        ok = V % 128 == 0 and 128 <= V <= cap
-        if ok:
-            grouped_scorer.check_width(V, cap, "scorer")
+              cap + 128, 2 * cap + 256):
+        if V % 128 == 0:
+            grouped_scorer.check_shape(M, csub, V, "scorer")
         else:
-            with pytest.raises(ValueError, match=f"cap {cap}"):
-                grouped_scorer.check_width(V, cap, "scorer")
+            with pytest.raises(ValueError, match="V a multiple of 128"):
+                grouped_scorer.check_shape(M, csub, V, "scorer")
 
 
 def test_k2_plain_matches_jax_at_v384():
@@ -147,8 +149,8 @@ def test_k2_plain_matches_jax_at_v384():
             jnp.zeros((1, M, 192), jnp.int8), jnp.zeros(1, jnp.int32),
             jnp.zeros(1, jnp.int32), jnp.zeros(1, jnp.int32), SUB,
             interpret=True, compute_dtype="i8")
-    with pytest.raises(ValueError, match="not a multiple of 128"):
-        grouped_scorer.check_width(192, _smem_cap(M, csub, 1), "K2")
+    with pytest.raises(ValueError, match="V a multiple of 128"):
+        grouped_scorer.check_shape(M, csub, 192, "K2")
 
 
 # ---- on the card ----
@@ -270,8 +272,9 @@ def test_cuda_k6_new_widths(dt, centred, M, csub, pack_window, V):
 @pytest.mark.parametrize("M,csub", [(8, 1), (8, 2), (16, 1), (16, 2)])
 def test_cuda_caps_fill_shared_memory(M, csub):
     """On the card: each library's cap is the widest multiple of 128 whose
-    rings and queries fit in 227 KB, and a width off the rule or past the
-    cap is refused before a launch."""
+    rings and queries fit in 227 KB (one V chunk); a width off the rule is
+    refused before a launch, and one past the cap runs in two chunks,
+    equal to the plain version."""
     dev = _card()
     assert grouped_scorer.max_v(M, csub) == _smem_cap(M, csub, 1)
     assert grouped_scorer_item.max_v(M, csub) == _smem_cap(M, csub, 1)
@@ -281,7 +284,15 @@ def test_cuda_caps_fill_shared_memory(M, csub):
     for V in (192, cap + 128):
         o = _on(_operands(M, csub, V, seed=V), dev)
         before = grouped_scorer_item.launches
-        with pytest.raises(ValueError, match="not a multiple of 128"):
-            grouped_scorer_item.score_grouped_i8_item(
-                o["tiles"], o["scale"], o["q8"], o["wr"], o["wg"], csub)
-        assert grouped_scorer_item.launches == before
+        args = (o["tiles"], o["scale"], o["q8"], o["wr"], o["wg"], csub)
+        if V % 128:
+            with pytest.raises(ValueError, match="V a multiple of 128"):
+                grouped_scorer_item.score_grouped_i8_item(*args)
+            assert grouped_scorer_item.launches == before
+            continue
+        got = grouped_scorer_item.score_grouped_i8_item(*args)
+        torch.cuda.synchronize()
+        assert grouped_scorer_item.launches == before + 1
+        torch.testing.assert_close(
+            got, grouped_scorer_item.score_grouped_i8_item_plain(*args),
+            rtol=1e-6, atol=0)
